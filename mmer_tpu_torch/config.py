@@ -1,0 +1,90 @@
+"""Configuration dataclasses of the clip path.
+
+Copied from ``mmer_tpu/config.py`` rather than imported: the PyTorch port
+must run where JAX is not installed, and modules under ``mmer_tpu`` reach
+JAX through their packages' ``__init__`` (``mmer_tpu.core`` imports
+``core.mesh``, which imports jax).  A test holds these copies field for
+field to the originals.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+# Canonical label order (reference back-end/app/libs/inference.py:21).
+LABELS = ("NEU", "HAP", "SAD", "ANG", "FEA", "DIS")
+NUM_CLASSES = len(LABELS)
+
+
+def torch_dtype(cfg) -> torch.dtype:
+    """The torch dtype a config's ``compute_dtype`` names ("bfloat16" or
+    "float32")."""
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """CrossModalFusion + EmotionClassifier hyperparameters (the canonical
+    v2 training invocation, reference train2.py:965-976)."""
+
+    video_dim: int = 768
+    audio_dim: int = 1024
+    fused_dim: int = 512
+    num_classes: int = NUM_CLASSES
+    max_seq_len: int = 6  # max video chunks + 1 audio token (train2.py:963)
+    fusion_layers: int = 2
+    fusion_heads: int = 8
+    fusion_ffn_dim: int = 2048  # 4 * fused_dim (train2.py:114)
+    fusion_dropout: float = 0.1
+    classifier_hidden_dim: int = 512
+    classifier_dropout: float = 0.1
+    # "layernorm" = v2 semantics (train2.py:104-105); "batchnorm" = v1
+    # semantics (reference train.py:50-51).
+    norm: str = "layernorm"
+    # Compute dtype for the fused transformer.  Params stay float32.
+    compute_dtype: str = "bfloat16"
+
+
+@dataclass(frozen=True)
+class ViViTConfig:
+    """ViViT feature-extractor hyperparameters (reference video_extractor.py:83)."""
+
+    image_size: tuple = (224, 224)
+    patch_size: tuple = (16, 16)
+    num_frames: int = 32
+    tubelet_size: int = 4
+    dim: int = 768
+    depth: int = 12
+    heads: int = 12
+    dim_head: int = 64
+    mlp_dim: int = 3072
+    pool: str = "cls"
+    in_channels: int = 3
+    # The weights are a fixed random projection drawn from this seed.
+    param_seed: int = 0
+    compute_dtype: str = "bfloat16"
+
+
+@dataclass(frozen=True)
+class Wav2Vec2Config:
+    """Wav2Vec2-large, robust variant (HF
+    ``audeering/wav2vec2-large-robust-12-ft-emotion-msp-dim``): layer-norm
+    feature encoder, stable layer norm, 24 layers, hidden 1024."""
+
+    hidden_dim: int = 1024
+    num_layers: int = 24
+    num_heads: int = 16
+    ffn_dim: int = 4096
+    conv_dims: tuple = (512, 512, 512, 512, 512, 512, 512)
+    conv_strides: tuple = (5, 2, 2, 2, 2, 2, 2)
+    conv_kernels: tuple = (10, 3, 3, 3, 3, 2, 2)
+    num_conv_pos_embeddings: int = 128
+    num_conv_pos_embedding_groups: int = 16
+    do_stable_layer_norm: bool = True
+    feat_extract_norm: str = "layer"
+    sample_rate: int = 16000
+    chunk_duration_s: float = 10.0  # voice_extractor.py:20
+    param_seed: int = 1
+    compute_dtype: str = "bfloat16"

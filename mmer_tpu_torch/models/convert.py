@@ -1,0 +1,150 @@
+"""JAX parameter trees → the port's state dicts.
+
+Each function takes the flax params of one model as a nested dict of numpy
+arrays (with or without the outer ``{"params": ...}``) and returns a state
+dict for the port's module.  Layouts: flax ``Dense`` kernels are (in, out)
+and ``nn.Linear`` weights (out, in); ``DenseGeneral`` q/k/v kernels are
+(d, heads, head_dim) and out kernels (heads, head_dim, d); flax conv
+kernels are (k, in/groups, out) and ``nn.Conv1d`` weights (out, in/groups, k).
+
+The converters need numpy only, not JAX: the tests run them on the JAX
+package's seeded params so both packages compute with the same weights.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _params(tree: Mapping) -> Mapping:
+    return tree["params"] if "params" in tree else tree
+
+
+def _dense(tree: Mapping) -> StateDict:
+    out = {"weight": _t(tree["kernel"]).t().contiguous()}
+    if "bias" in tree:
+        out["bias"] = _t(tree["bias"])
+    return out
+
+
+def _dense_general(tree: Mapping) -> StateDict:
+    """(d, h, hd) or (h, hd, d) kernel → a (d_out, d_in) Linear weight."""
+    k = np.asarray(tree["kernel"])
+    if np.ndim(tree["bias"]) == 2:        # q/k/v: kernel (d, h, hd)
+        w = k.reshape(k.shape[0], -1)
+    else:                                 # out: kernel (h, hd, d)
+        w = k.reshape(-1, k.shape[-1])
+    return {"weight": _t(w).t().contiguous(), "bias": _t(tree["bias"]).reshape(-1)}
+
+
+def _norm(tree: Mapping) -> StateDict:
+    return {"weight": _t(tree["scale"]), "bias": _t(tree["bias"])}
+
+
+def _conv(tree: Mapping) -> StateDict:
+    return {"weight": _t(tree["kernel"]).permute(2, 1, 0).contiguous(),
+            "bias": _t(tree["bias"])}
+
+
+def _put(sd: StateDict, prefix: str, part: StateDict) -> None:
+    for k, v in part.items():
+        sd[f"{prefix}.{k}"] = v
+
+
+def vivit_from_flax(tree: Mapping) -> StateDict:
+    """``mmer_tpu.models.vivit.ViViTFeatureExtractor`` params →
+    ``mmer_tpu_torch.models.vivit.ViViTFeatureExtractor`` state dict."""
+    p = _params(tree)
+    sd: StateDict = {}
+    _put(sd, "embed.proj", _dense(p["embed"]["proj"]))
+    if "cls_token" in p:
+        sd["cls_token"] = _t(p["cls_token"])
+    sd["pos_embed"] = _t(p["pos_embed"])
+    i = 0
+    while f"block_{i}" in p:
+        b = p[f"block_{i}"]
+        pre = f"blocks.{i}"
+        for name in ("norm1", "norm2"):
+            _put(sd, f"{pre}.{name}", _norm(b[name]))
+        for name in ("to_qkv", "to_out", "ffn_in", "ffn_out"):
+            _put(sd, f"{pre}.{name}", _dense(b[name]))
+        i += 1
+    return sd
+
+
+def conv_encoder_from_flax(tree: Mapping) -> StateDict:
+    """``ConvFeatureEncoder`` params → the port's ``ConvFeatureEncoder``
+    state dict."""
+    p = _params(tree)
+    sd: StateDict = {}
+    i = 0
+    while f"conv_{i}" in p:
+        _put(sd, f"convs.{i}", _conv(p[f"conv_{i}"]))
+        _put(sd, f"norms.{i}", _norm(p[f"conv_ln_{i}"]))
+        i += 1
+    return sd
+
+
+def wav2vec2_from_flax(tree: Mapping) -> StateDict:
+    """``mmer_tpu.models.wav2vec2.Wav2Vec2Encoder`` params →
+    ``mmer_tpu_torch.models.wav2vec2.Wav2Vec2Encoder`` state dict."""
+    p = _params(tree)
+    sd: StateDict = {}
+    _put(sd, "feature_encoder", conv_encoder_from_flax(p["feature_encoder"]))
+    _put(sd, "proj_norm", _norm(p["proj_norm"]))
+    _put(sd, "proj", _dense(p["proj"]))
+    _put(sd, "pos_conv.conv", _conv(p["pos_conv"]["conv"]))
+    i = 0
+    while f"layer_{i}" in p:
+        lay = p[f"layer_{i}"]
+        pre = f"layers.{i}"
+        for name in ("norm_attn", "norm_ffn"):
+            _put(sd, f"{pre}.{name}", _norm(lay[name]))
+        for name in ("q", "k", "v", "out"):
+            _put(sd, f"{pre}.{name}", _dense_general(lay[name]))
+        for name in ("ffn_in", "ffn_out"):
+            _put(sd, f"{pre}.{name}", _dense(lay[name]))
+        i += 1
+    _put(sd, "final_norm", _norm(p["final_norm"]))
+    return sd
+
+
+def fusion_from_flax(tree: Mapping) -> StateDict:
+    """``mmer_tpu.models.fusion.MultimodalEmotionModel`` params →
+    ``mmer_tpu_torch.models.fusion.MultimodalEmotionModel`` state dict
+    (layer-norm variant)."""
+    p = _params(tree)
+    sd: StateDict = {}
+    f = p["fusion"]
+    for name in ("video_proj", "audio_proj"):
+        _put(sd, f"fusion.{name}", _dense(f[name]))
+    for name in ("norm_video", "norm_audio", "out_norm"):
+        _put(sd, f"fusion.{name}.ln", _norm(f[name]["LayerNorm_0"]))
+    sd["fusion.pos_embed"] = _t(f["pos_embed"])
+    i = 0
+    while f"layer_{i}" in f:
+        lay = f[f"layer_{i}"]
+        pre = f"fusion.layers.{i}"
+        for name in ("query", "key", "value", "out"):
+            _put(sd, f"{pre}.self_attn.{name}",
+                 _dense_general(lay["self_attn"][name]))
+        for name in ("norm1", "norm2"):
+            _put(sd, f"{pre}.{name}", _norm(lay[name]))
+        for name in ("ffn_in", "ffn_out"):
+            _put(sd, f"{pre}.{name}", _dense(lay[name]))
+        i += 1
+    c = p["classifier"]
+    for i in range(2):
+        _put(sd, f"classifier.hidden_{i}", _dense(c[f"hidden_{i}"]))
+        _put(sd, f"classifier.norm_{i}.ln", _norm(c[f"norm_{i}"]["LayerNorm_0"]))
+    _put(sd, "classifier.out", _dense(c["out"]))
+    return sd
