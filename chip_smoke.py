@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's clip path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's clip and extraction paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,10 +8,16 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 1. device: print the card's name and power limit (``nvidia-smi``); exit
    non-zero when CUDA is unavailable -- there is no CPU fallback.
 2. build: compile every kernel under ``mmer_tpu_torch/csrc`` with nvcc.
-3. kernels: each kernel against its plain PyTorch version, both on the
-   card, at the main path's shapes: max / mean absolute error against the
-   tolerances in ``TOLERANCES`` and both times (CUDA events, after
-   warm-up).
+3. kernels: each of the six kernels against its plain PyTorch version,
+   both on the card, at the shapes the main paths give it (the serving
+   requests' and both Wav2Vec2 forwards of the extraction folder,
+   ``EXTRACT_WAVES``): max / mean absolute error
+   against the tolerances in ``TOLERANCES``; its time, the plain version's
+   and, where one PyTorch call computes the same function
+   (``scaled_dot_product_attention``), that call's (CUDA events, after
+   warm-up); and the least time the card could take, from the shapes
+   (``bound_ms``).  The two conv routes (``mega`` on and off) are also held
+   against each other.
 4. main path: ``InferenceEngine`` at the full default configs with seeded
    port-native weights serves three requests (``predict_chunks`` on a
    3-chunk clip with 3.2 s of audio and on a 1-chunk clip with 12 s of
@@ -23,6 +29,15 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    agree within 0.5 % relative L2 (the extractor feature-noise contract);
    video embeddings of the kernel path must be no further from the f32
    path than the plain bf16 path's (see ``VIDEO_F32_FACTOR``).
+5. extraction: 96 seeded WAV files (1.5-5 s, one 12 s, one 44.1 kHz stereo,
+   one 10 ms) → ``mmer_tpu_torch.preprocess.extract.main`` → 96 float16
+   (1024,) artifacts; the same folder through ``iter_audio_embeddings`` on
+   the default embedder, the all-kernel encoder (varlen flash attention and
+   the per-layer conv route) and the plain path, with exact launch counts
+   per Wav2Vec2 forward, clips/s of each, and each kernel route within
+   0.5 % relative L2 of the plain path per clip; 24 seeded chunks through
+   ``embed_chunks`` with and without ``pipeline``: identical rows, four
+   timed calls of each.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -52,14 +67,36 @@ TOLERANCES = {
     # bf16 stream of size ~1-8: accumulation order can flip the final bf16
     # rounding, one ulp is 0.0625 at |x| in [8, 16).
     "fused_ffn": (0.0625, 1e-3),
-    # f32 stream: only bf16 roundings of the hidden units can flip.
-    "fused_ffn_w2v2": (2e-3, 1e-4),
+    # f32 stream: only bf16 roundings of the hidden units can flip.  One
+    # flip of a hidden unit in [4, 8) is a step of 2^-5, times a weight of
+    # 4.5 sigma (0.07): 2.2e-3; two sets of seeded data read 1.8e-3 and 2.5e-3.
+    "fused_ffn_w2v2": (4e-3, 1e-4),
+    # The same stream at the extraction shape, 16.3 M outputs against 0.15 M:
+    # the mean bound is the same, the largest of 107 times as many flips is
+    # further out (3.6e-3 read where the small shape reads 1.8e-3).
+    "fused_ffn_w2v2_extract": (8e-3, 1e-4),
     # seven bf16 layers; a flipped rounding propagates through LayerNorm
     # into the next layer.  The repository's own bound for this comparison
     # (tests/test_conv_pyramid.py, Pallas kernel vs XLA module in bf16).
     "fused_conv_encoder": (0.06, 5e-3),
+    # The 10 s extraction batch, 16.3 M outputs, twice the 5 s batch's: the
+    # mean bound is the same, the largest of twice as many flips read 0.0625
+    # (two steps of 2^-5) where the smaller shapes read 0.0469.
+    "fused_conv_encoder_10s": (0.08, 5e-3),
+    # one conv layer on unit-normal rows: a flipped bf16 rounding of the conv
+    # sum moves an O(1) output by a few bf16 steps (tests/test_torch_cuda.py).
+    "conv_layer": (0.0625, 1e-3),
 }
-RELATIVE = {"flash_attention"}
+RELATIVE = {"flash_attention", "flash_attention_varlen"}
+TOLERANCES["flash_attention_varlen"] = TOLERANCES["flash_attention"]
+# Published peaks of one H100 SXM: dense bf16 tensor-core rate and HBM rate.
+PEAK_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+# The waveform batches of the extraction phase's two Wav2Vec2 forwards: 64
+# clips of up to 5 s, then 33 pieces (batch bucket 64) with a 10 s piece.
+# The kernel phase holds every Wav2Vec2 kernel at both; the extraction phase
+# fails if its forwards see other shapes.
+EXTRACT_WAVES = ((64, 80000), (64, 160000))
 # The conv kernel's mean error against the f32 path may exceed the plain
 # bf16 version's by at most this factor.
 CONV_F32_FACTOR = 1.25
@@ -80,7 +117,51 @@ SOURCES = {
                   "mmer_tpu/ops/fused_blocks.py:135"),
     "fused_conv_encoder": ("mmer_tpu_torch/csrc/conv_encoder.cu",
                            "mmer_tpu/ops/conv_pyramid.py:278"),
+    "flash_attention_varlen": ("mmer_tpu_torch/csrc/attention.cu",
+                               "mmer_tpu/ops/flash_attention.py:95"),
+    "conv_gemm_ln_gelu": ("mmer_tpu_torch/csrc/conv_layers.cu",
+                          "mmer_tpu/ops/conv_pyramid.py:91"),
+    "conv_k3_ln_gelu": ("mmer_tpu_torch/csrc/conv_layers.cu",
+                        "mmer_tpu/ops/conv_pyramid.py:97"),
 }
+
+
+def wrappers() -> dict:
+    """Kernel name → the wrapper that counts its launches."""
+    from mmer_tpu_torch.ops import conv_pyramid
+    from mmer_tpu_torch.ops.flash_attention import (flash_attention,
+                                                    flash_attention_varlen)
+    from mmer_tpu_torch.ops.fused_blocks import fused_ffn
+
+    return {"flash_attention": flash_attention, "fused_ffn": fused_ffn,
+            "fused_conv_encoder": conv_pyramid.fused_conv_encoder,
+            "flash_attention_varlen": flash_attention_varlen,
+            "conv_gemm_ln_gelu": conv_pyramid._call_gemm,
+            "conv_k3_ln_gelu": conv_pyramid._call_k3}
+
+
+def reset_launches() -> None:
+    for w in wrappers().values():
+        w.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: w.launches for k, w in wrappers().items()}
+
+
+def bound(flops: float, nbytes: float, tag: str = "") -> dict:
+    """The least time the card could take: operations over the bf16 peak or
+    bytes (each input read once, each output written once) over the memory
+    rate, whichever is larger.  Keys carry the case's ``tag``."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    log(f"  work: {flops / 1e9:.3f} GFLOP ({t_ops:.4f} ms at the bf16 peak), "
+        f"{nbytes / 1e6:.3f} MB ({t_bytes:.4f} ms at the memory rate)")
+    return {f"bound_ms{tag}": max(t_ops, t_bytes),
+            f"bound_by{tag}": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def log(msg: str) -> None:
@@ -146,19 +227,61 @@ def _compare(name: str, got, want, key: str | None = None) -> dict:
     return {"max_abs_err": mx, "mean_abs_err": mean}
 
 
+def _conv_layer_args(cfg, randn):
+    """Seeded conv-stack parameters: weights (C_out, C_in, k), conv biases,
+    LayerNorm weights and biases, one list each."""
+    c_in, layer = 1, []
+    for dim, kk in zip(cfg.conv_dims, cfg.conv_kernels):
+        layer.append((randn(dim, c_in, kk, std=(kk * c_in) ** -0.5),
+                      randn(dim, std=0.1), 1.0 + randn(dim, std=0.1),
+                      randn(dim, std=0.1)))
+        c_in = dim
+    return [list(t) for t in zip(*layer)]
+
+
+def _layer_lengths(cfg, n: int) -> list:
+    """Output length of each conv layer for ``n`` samples."""
+    out = []
+    for k, s in zip(cfg.conv_kernels, cfg.conv_strides):
+        n = (n - k) // s + 1
+        out.append(n)
+    return out
+
+
+def _conv_bound(cfg, wave, conv_args, out, tag) -> dict:
+    flops, c_in = 0.0, 1
+    for dim, k, t in zip(cfg.conv_dims, cfg.conv_kernels,
+                         _layer_lengths(cfg, wave.shape[1])):
+        flops += 2.0 * wave.shape[0] * t * k * c_in * dim
+        c_in = dim
+    return bound(flops, nbytes(wave, out, *(t for ts in conv_args for t in ts)),
+                 tag)
+
+
 def check_kernels(dev) -> dict:
-    """Each kernel vs its plain version at the main path's shapes."""
+    """Each kernel vs its plain version at the main paths' shapes."""
     import torch
+    import torch.nn.functional as F
 
     from mmer_tpu_torch.config import Wav2Vec2Config
     from mmer_tpu_torch.models.wav2vec2 import feat_extract_output_length
-    from mmer_tpu_torch.ops.conv_pyramid import (conv_encoder_reference,
-                                                 fused_conv_encoder)
+    from mmer_tpu_torch.ops.conv_pyramid import (_call_gemm, _call_k3,
+                                                 conv_encoder_reference,
+                                                 fused_conv_encoder,
+                                                 gemm_ln_gelu_reference,
+                                                 k3_ln_gelu_reference)
     from mmer_tpu_torch.ops.flash_attention import (flash_attention,
-                                                    reference_attention)
+                                                    reference_attention,
+                                                    reference_attention_varlen)
     from mmer_tpu_torch.ops.fused_blocks import ffn_reference, fused_ffn
 
-    g = torch.Generator(device=dev).manual_seed(0)
+    g = torch.Generator(device=dev)
+    case = iter(range(10 ** 6))
+
+    def reseed():
+        """Each case draws from a seed of its own, so that a case added or
+        removed leaves the others' data as they were."""
+        g.manual_seed(next(case))
 
     def randn(*shape, std=1.0, dtype=torch.float32):
         return (torch.randn(*shape, generator=g, device=dev) * std).to(dtype)
@@ -167,6 +290,7 @@ def check_kernels(dev) -> dict:
     res = {}
 
     # ViViT attention: (8 chunks, 12 heads, 1569 tokens, 64).
+    reseed()
     q, k, v = (randn(8, 12, 1569, 64, dtype=bf) for _ in range(3))
     got = flash_attention(q, k, v)
     want = reference_attention(q, k, v)
@@ -174,7 +298,11 @@ def check_kernels(dev) -> dict:
     r = _compare("flash_attention", got, want)
     r["ms"] = cuda_ms(lambda: flash_attention(q, k, v), 20)
     r["plain_ms"] = cuda_ms(lambda: reference_attention(q, k, v), 5)
+    r["library_ms"] = cuda_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v), 20)
     r["shape"] = "q,k,v (8,12,1569,64) bf16"
+    log(f"kernel flash_attention, {r['shape']}")
+    r.update(bound(4.0 * 8 * 12 * 1569 * 1569 * 64, 4 * nbytes(q)))
     res["flash_attention"] = r
     q, k = 3 * q, 3 * k
     r2 = _compare("flash_attention", flash_attention(q, k, v),
@@ -182,6 +310,64 @@ def check_kernels(dev) -> dict:
     r.update(max_abs_err_sharp=r2["max_abs_err"],
              mean_abs_err_sharp=r2["mean_abs_err"])
     del q, k, v, got, want
+    torch.cuda.synchronize()
+
+    # Wav2Vec2 attention at the extraction forwards' shapes (64 rows, 16
+    # heads, one key length per clip; lengths from a seed plus a full, a
+    # one-tile and an empty clip), and at 4 s clips (199 frames).
+    cfg = Wav2Vec2Config()
+    t5, t10 = (feat_extract_output_length(cfg, n) for _, n in EXTRACT_WAVES)
+    r = {}
+    for tag, s in (("", t5), ("_10s", t10), ("_4s", 199)):
+        reseed()
+        q, k, v = (randn(64, 16, s, 64, dtype=bf) for _ in range(3))
+        lens = torch.randint(int(0.3 * s), s + 1, (64,), generator=g, device=dev)
+        lens[0], lens[1], lens[2] = s, 64, 0
+        shape = f"q,k,v (64,16,{s},64) bf16, lens {int(lens.min())}..{s}"
+        log(f"kernel flash_attention_varlen, {shape}")
+        got = flash_attention(q, k, v, key_lens=lens)
+        want = reference_attention_varlen(q, k, v, lens)
+        torch.cuda.synchronize()
+        valid = lens > 0
+        r2 = _compare("flash_attention_varlen", got[valid], want[valid])
+        finite = bool(torch.isfinite(got.float()).all())
+        uniform = v[2].float().mean(-2, keepdim=True).expand_as(got[2])
+        zero_err = float((got[2].float() - uniform).abs().max())
+        log(f"kernel flash_attention_varlen: the zero-length clip is "
+            f"{'finite' if finite else 'NOT finite'}, max |row - mean of its "
+            f"{s} values| {zero_err:.3e} (tol {2 ** -7:.3e})")
+        if not finite or zero_err > 2 ** -7:
+            raise AssertionError("flash_attention_varlen: a zero-length clip "
+                                 "must come out finite and uniform")
+        mask = ((torch.arange(s, device=dev) >= lens[:, None]).to(bf)
+                * -1e9)[:, None, None, :]
+        r.update({
+            f"max_abs_err{tag}": r2["max_abs_err"],
+            f"mean_abs_err{tag}": r2["mean_abs_err"],
+            f"ms{tag}": cuda_ms(
+                lambda: flash_attention(q, k, v, key_lens=lens), 20),
+            f"plain_ms{tag}": cuda_ms(
+                lambda: reference_attention_varlen(q, k, v, lens), 5),
+            f"library_ms{tag}": cuda_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+                20),
+            f"shape{tag}": shape})
+        # What this run's lengths need: a key at or past its clip's length
+        # has probability exactly 0 next to any valid key, so neither its
+        # products nor its k and v rows are needed; an empty clip averages
+        # all S values.  q and the output count in full.
+        n_keys = int(torch.where(valid, lens, torch.full_like(lens, s)).sum())
+        r.update(bound(4.0 * 16 * s * 64 * n_keys,
+                       2 * nbytes(q) + 2 * 16 * 64 * q.element_size() * n_keys
+                       + 4 * lens.numel(), tag))
+        q, k = 3 * q, 3 * k
+        r2 = _compare("flash_attention_varlen",
+                      flash_attention(q, k, v, key_lens=lens)[valid],
+                      reference_attention_varlen(q, k, v, lens)[valid])
+        r.update({f"max_abs_err_sharp{tag}": r2["max_abs_err"],
+                  f"mean_abs_err_sharp{tag}": r2["mean_abs_err"]})
+        del q, k, v, got, want, mask
+    res["flash_attention_varlen"] = r
     torch.cuda.synchronize()
 
     def ffn_args(tokens_shape, d, m, x_dtype, bias_dtype):
@@ -192,7 +378,13 @@ def check_kernels(dev) -> dict:
                 randn(d, m, std=m ** -0.5, dtype=bf),
                 randn(d, std=0.1, dtype=bias_dtype))
 
+    def ffn_bound(args, tag=""):
+        x, w1 = args[0], args[3]
+        return bound(4.0 * (x.numel() // x.shape[-1]) * w1.numel(),
+                     nbytes(*args) + nbytes(x), tag)
+
     # ViViT FFN: bf16 stream (8, 1569, 768), f32 LN params and biases.
+    reseed()
     args = ffn_args((8, 1569), 768, 3072, bf, torch.float32)
     got = fused_ffn(*args)
     want = ffn_reference(*args)
@@ -200,59 +392,168 @@ def check_kernels(dev) -> dict:
     r = _compare("fused_ffn", got, want)
     r["ms"] = cuda_ms(lambda: fused_ffn(*args), 20)
     r["plain_ms"] = cuda_ms(lambda: ffn_reference(*args), 5)
+    r["library_ms"] = None          # no single PyTorch call computes it
     r["shape"] = "x (8,1569,768) bf16, M 3072"
-    # W2V2 FFN: f32 stream over bf16 weights and biases, a 3 s clip.
-    t3 = feat_extract_output_length(Wav2Vec2Config(), 48000)
-    args = ffn_args((1, t3), 1024, 4096, torch.float32, bf)
-    got = fused_ffn(*args)
-    want = ffn_reference(*args)
-    torch.cuda.synchronize()
-    r2 = _compare("fused_ffn", got, want, key="fused_ffn_w2v2")
-    r.update(max_abs_err_w2v2=r2["max_abs_err"],
-             mean_abs_err_w2v2=r2["mean_abs_err"],
-             ms_w2v2=cuda_ms(lambda: fused_ffn(*args), 50),
-             plain_ms_w2v2=cuda_ms(lambda: ffn_reference(*args), 20),
-             shape_w2v2=f"x (1,{t3},1024) f32, M 4096")
+    r.update(ffn_bound(args))
+    # W2V2 FFN: f32 stream over bf16 weights and biases; a 3 s clip (serving)
+    # and the two extraction forwards (full grids).
+    t3 = feat_extract_output_length(cfg, 48000)
+    for tag, tol, shape, iters in (
+            ("_w2v2", "fused_ffn_w2v2", (1, t3), 50),
+            ("_w2v2_extract", "fused_ffn_w2v2_extract", (64, t5), 10),
+            ("_w2v2_extract_10s", "fused_ffn_w2v2_extract", (64, t10), 5)):
+        reseed()
+        args = ffn_args(shape, 1024, 4096, torch.float32, bf)
+        got = fused_ffn(*args)
+        want = ffn_reference(*args)
+        torch.cuda.synchronize()
+        r2 = _compare("fused_ffn", got, want, key=tol)
+        r.update({f"max_abs_err{tag}": r2["max_abs_err"],
+                  f"mean_abs_err{tag}": r2["mean_abs_err"],
+                  f"ms{tag}": cuda_ms(lambda: fused_ffn(*args), iters),
+                  f"plain_ms{tag}": cuda_ms(lambda: ffn_reference(*args), 5),
+                  f"shape{tag}": f"x {(*shape, 1024)} f32, M 4096"})
+        r.update(ffn_bound(args, tag))
     res["fused_ffn"] = r
     del args, got, want
 
-    # Conv feature encoder on (4, 48000) f32.
-    cfg = Wav2Vec2Config()
-    wave = randn(4, 48000)
-    c_in, layer = 1, []
-    for dim, kk in zip(cfg.conv_dims, cfg.conv_kernels):
-        layer.append((randn(dim, c_in, kk, std=(kk * c_in) ** -0.5),
-                      randn(dim, std=0.1), 1.0 + randn(dim, std=0.1),
-                      randn(dim, std=0.1)))
-        c_in = dim
-    conv_args = [list(t) for t in zip(*layer)]
-    got = fused_conv_encoder(wave, *conv_args, cfg)
-    want = conv_encoder_reference(wave, *conv_args, cfg)
-    torch.cuda.synchronize()
-    if got.shape != (4, feat_extract_output_length(cfg, 48000), 512):
-        raise AssertionError(f"fused_conv_encoder shape {tuple(got.shape)}")
-    r = _compare("fused_conv_encoder", got, want)
-    exact = conv_encoder_reference(
-        wave, *conv_args, dataclasses.replace(cfg, compute_dtype="float32"))
-    e_kernel = float((got.float() - exact).abs().mean())
-    e_plain = float((want.float() - exact).abs().mean())
-    log(f"kernel fused_conv_encoder vs the f32 path: mean abs err {e_kernel:.3e}"
-        f", plain bf16 version {e_plain:.3e}")
-    if e_kernel > CONV_F32_FACTOR * e_plain:
-        raise AssertionError("fused_conv_encoder is further from the f32 path "
-                             "than its plain version")
-    del exact
-    r["ms"] = cuda_ms(lambda: fused_conv_encoder(wave, *conv_args, cfg), 20)
-    r["plain_ms"] = cuda_ms(
-        lambda: conv_encoder_reference(wave, *conv_args, cfg), 5)
-    r["shape"] = "wave (4,48000) f32 -> (4,149,512) bf16"
+    # Conv feature encoder, both routes, on (4, 48000) f32 (serving) and on
+    # the two extraction forwards' waveform batches.
+    reseed()
+    conv_args = _conv_layer_args(cfg, randn)
+    r, rl = {}, {}
+    for tag, shape, iters in (("", (4, 48000), 20),
+                              ("_extract", EXTRACT_WAVES[0], 5),
+                              ("_extract_10s", EXTRACT_WAVES[1], 3)):
+        wave = randn(*shape)
+        t_out = feat_extract_output_length(cfg, shape[1])
+        got = fused_conv_encoder(wave, *conv_args, cfg)
+        per_layer = fused_conv_encoder(wave, *conv_args, cfg, mega=False)
+        want = conv_encoder_reference(wave, *conv_args, cfg)
+        torch.cuda.synchronize()
+        for out in (got, per_layer):
+            if out.shape != (shape[0], t_out, 512):
+                raise AssertionError(f"fused_conv_encoder shape {tuple(out.shape)}")
+        log(f"conv encoder on {shape}: mega=True vs plain, mega=False vs plain, "
+            "mega=False vs mega=True")
+        tol = "fused_conv_encoder" + ("_10s" if tag.endswith("_10s") else "")
+        r2 = _compare("fused_conv_encoder", got, want, key=tol)
+        r3 = _compare("fused_conv_encoder", per_layer, want, key=tol)
+        r4 = _compare("fused_conv_encoder", per_layer, got, key=tol)
+        exact = conv_encoder_reference(
+            wave, *conv_args, dataclasses.replace(cfg, compute_dtype="float32"))
+        e_mega = float((got.float() - exact).abs().mean())
+        e_layer = float((per_layer.float() - exact).abs().mean())
+        e_plain = float((want.float() - exact).abs().mean())
+        log(f"conv encoder vs the f32 path, mean abs err: mega=True {e_mega:.3e}, "
+            f"mega=False {e_layer:.3e}, plain bf16 version {e_plain:.3e}")
+        if max(e_mega, e_layer) > CONV_F32_FACTOR * e_plain:
+            raise AssertionError("a conv route is further from the f32 path "
+                                 "than the plain version")
+        del exact
+        r.update(_conv_bound(cfg, wave, conv_args, got, tag))
+        r.update({f"max_abs_err{tag}": r2["max_abs_err"],
+                  f"mean_abs_err{tag}": r2["mean_abs_err"],
+                  f"ms{tag}": cuda_ms(
+                      lambda: fused_conv_encoder(wave, *conv_args, cfg), iters),
+                  f"plain_ms{tag}": cuda_ms(
+                      lambda: conv_encoder_reference(wave, *conv_args, cfg), 3),
+                  f"shape{tag}": f"wave {shape} f32 -> ({shape[0]},{t_out},512) bf16"})
+        rl.update({f"route_max_abs_err{tag}": r3["max_abs_err"],
+                   f"route_vs_mega_max_abs_err{tag}": r4["max_abs_err"],
+                   f"route_ms{tag}": cuda_ms(
+                       lambda: fused_conv_encoder(wave, *conv_args, cfg,
+                                                  mega=False), iters)})
+        log(f"time conv encoder on {shape}: mega=True {r['ms' + tag]:.4f} ms, "
+            f"mega=False {rl['route_ms' + tag]:.4f} ms, plain "
+            f"{r['plain_ms' + tag]:.4f} ms")
+        del wave, got, per_layer, want
+    r["library_ms"] = None          # seven conv + LayerNorm + GELU calls
     res["fused_conv_encoder"] = r
+    torch.cuda.synchronize()
+
+    # The per-layer route's two kernels at every shape the two extraction
+    # forwards give them: layer-0 patches (K = 16), then the stride-merged
+    # view of each later layer's input, its length padded to even.
+    def layer_vectors():
+        return randn(512, std=0.1), 1.0 + randn(512, std=0.1), randn(512, std=0.1)
+
+    def even(n):
+        return n + n % 2
+
+    gemm_cases, k3_cases = [], []       # (tag, merged or patch rows, K, t_pad)
+    for sec, (rows, samples) in zip(("", "_10s"), EXTRACT_WAVES):
+        lengths = _layer_lengths(cfg, samples)
+        gemm_cases.append((f"_l0{sec}", even(lengths[0]), 16, even(lengths[0])))
+        for i, kk in enumerate(cfg.conv_kernels[1:], start=1):
+            (gemm_cases if kk == 2 else k3_cases).append(
+                (f"_l{i}{sec}", even(lengths[i - 1]) // 2, 1024, even(lengths[i])))
+    # Every layer length above is odd.  An even one as well (16,001 frames
+    # in, 8,000 out): its last row reads a merged row that exists.
+    k3_cases.append(("_even", 8001, 1024, 8000))
+    # The first case of each kernel gives the row's main numbers.
+    gemm_cases[0] = ("",) + gemm_cases[0][1:]
+    k3_cases[0] = ("",) + k3_cases[0][1:]
+
+    r = dict(rl)
+    for tag, rows, kdim, t_pad in gemm_cases:
+        reseed()
+        x = randn(64, rows, kdim, dtype=bf)
+        w = randn(kdim, 512, std=kdim ** -0.5, dtype=bf)
+        vecs = layer_vectors()
+        shape = f"x (64,{rows},{kdim}) bf16 -> (64,{t_pad},512)"
+        log(f"kernel conv_gemm_ln_gelu, {shape}")
+        got = _call_gemm(x, w, *vecs, t_pad)
+        want = gemm_ln_gelu_reference(x, w, *vecs, t_pad)
+        torch.cuda.synchronize()
+        r2 = _compare("conv_gemm_ln_gelu", got, want, key="conv_layer")
+        r.update(bound(2.0 * 64 * t_pad * kdim * 512, nbytes(x, w, got, *vecs),
+                       tag))
+        r.update({f"max_abs_err{tag}": r2["max_abs_err"],
+                  f"mean_abs_err{tag}": r2["mean_abs_err"],
+                  f"ms{tag}": cuda_ms(lambda: _call_gemm(x, w, *vecs, t_pad), 20),
+                  f"plain_ms{tag}": cuda_ms(
+                      lambda: gemm_ln_gelu_reference(x, w, *vecs, t_pad), 3),
+                  f"shape{tag}": shape})
+        del x, got, want
+    r["library_ms"] = None          # matmul + LayerNorm + GELU: three calls
+    res["conv_gemm_ln_gelu"] = r
+
+    r = {}
+    for tag, rows, kdim, t_pad in k3_cases:
+        reseed()
+        xm = randn(64, rows, kdim, dtype=bf)
+        w01 = randn(1024, 512, std=1536 ** -0.5, dtype=bf)
+        w2 = randn(512, 512, std=1536 ** -0.5, dtype=bf)
+        vecs = layer_vectors()
+        shape = f"xm (64,{rows},{kdim}) bf16 -> (64,{t_pad},512)"
+        log(f"kernel conv_k3_ln_gelu, {shape}")
+        got = _call_k3(xm, w01, w2, *vecs, t_pad)
+        want = k3_ln_gelu_reference(xm, w01, w2, *vecs, t_pad)
+        torch.cuda.synchronize()
+        r2 = _compare("conv_k3_ln_gelu", got, want, key="conv_layer")
+        r.update(bound(2.0 * 64 * t_pad * 1536 * 512,
+                       nbytes(xm, w01, w2, got, *vecs), tag))
+        r.update({f"max_abs_err{tag}": r2["max_abs_err"],
+                  f"mean_abs_err{tag}": r2["mean_abs_err"],
+                  f"ms{tag}": cuda_ms(
+                      lambda: _call_k3(xm, w01, w2, *vecs, t_pad), 10),
+                  f"plain_ms{tag}": cuda_ms(
+                      lambda: k3_ln_gelu_reference(xm, w01, w2, *vecs, t_pad), 3),
+                  f"shape{tag}": shape})
+        del xm, got, want
+    r["library_ms"] = None          # two matmuls + LayerNorm + GELU
+    res["conv_k3_ln_gelu"] = r
+    torch.cuda.synchronize()
+
     for name, r in res.items():
-        log(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
-            f"ms ({r['shape']})")
-        if "ms_w2v2" in r:
-            log(f"time {name}: kernel {r['ms_w2v2']:.4f} ms, plain "
-                f"{r['plain_ms_w2v2']:.4f} ms ({r['shape_w2v2']})")
+        for tag in sorted({k[len("shape"):] for k in r if k.startswith("shape")}):
+            lib = r.get("library_ms" + tag)
+            log(f"time {name}: kernel {r['ms' + tag]:.4f} ms, plain "
+                f"{r['plain_ms' + tag]:.4f} ms, bound {r['bound_ms' + tag]:.4f} ms "
+                f"by {r['bound_by' + tag]}"
+                + (f", library call {lib:.4f} ms" if lib is not None else "")
+                + f" ({r['shape' + tag]})")
     return res
 
 
@@ -280,12 +581,25 @@ def main() -> int:
 
     build_kernels()
     kernels = check_kernels(dev)
-    launches = run_main_path(dev)
-    log(json.dumps({"kernels": [
+    serving = run_main_path(dev)
+    extraction = run_extraction(dev)
+    # launches: of the main path that runs the kernel.  The serving requests
+    # for the three kernels on the clip path (which the extraction CLI also
+    # runs: launches_extraction_cli), the all-kernel extraction run for the
+    # varlen attention and the per-layer conv kernels.
+    lines = [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
-         "replaces": SOURCES[name][1], "launches": launches[name],
+         "replaces": SOURCES[name][1],
+         "launches": serving[name] or extraction["all_kernel"][name],
+         "launches_serving": serving[name],
+         "launches_extraction_cli": extraction["cli"][name],
+         "launches_extraction_all_kernel": extraction["all_kernel"][name],
          **{k: v for k, v in r.items() if not k.startswith("shape")}}
-        for name, r in kernels.items()]}))
+        for name, r in kernels.items()]
+    idle = [k["name"] for k in lines if k["launches"] < 1]
+    if idle or len(lines) != len(SOURCES):
+        raise AssertionError(f"kernels never launched on a main path: {idle}")
+    log(json.dumps({"kernels": lines}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -328,14 +642,9 @@ def run_main_path(dev) -> dict:
 
     from mmer_tpu_torch.config import ViViTConfig, Wav2Vec2Config
     from mmer_tpu_torch.models.wav2vec2 import AudioEmbedder
-    from mmer_tpu_torch.ops.conv_pyramid import fused_conv_encoder
-    from mmer_tpu_torch.ops.flash_attention import flash_attention
-    from mmer_tpu_torch.ops.fused_blocks import fused_ffn
     from mmer_tpu_torch.preprocess.extract import VideoFeatureExtractor
     from mmer_tpu_torch.serve.engine import InferenceEngine
 
-    wrappers = {"flash_attention": flash_attention, "fused_ffn": fused_ffn,
-                "fused_conv_encoder": fused_conv_encoder}
     vcfg, wcfg = ViViTConfig(), Wav2Vec2Config()
     engine = InferenceEngine(dev)
     t0 = time.perf_counter()
@@ -364,10 +673,9 @@ def run_main_path(dev) -> dict:
 
     serve(engine, "first")
     torch.cuda.reset_peak_memory_stats(dev)
-    for w in wrappers.values():
-        w.launches = 0
+    reset_launches()
     kernel_probs = serve(engine, "warm")
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = read_launches()
     log(f"peak device memory (warm pass): "
         f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
 
@@ -378,6 +686,10 @@ def run_main_path(dev) -> dict:
         "flash_attention": vivit_batches * vcfg.depth,
         "fused_ffn": vivit_batches * vcfg.depth + w2v2_forwards * wcfg.num_layers,
         "fused_conv_encoder": w2v2_forwards * len(wcfg.conv_dims),
+        # Serving keeps Wav2Vec2 attention plain and the conv encoder on its
+        # whole-pyramid route, as the JAX AudioEmbedder does.
+        "flash_attention_varlen": 0, "conv_gemm_ln_gelu": 0,
+        "conv_k3_ln_gelu": 0,
     }
     log(f"launch counts {launches}, expected {expected}")
     if launches != expected:
@@ -425,6 +737,215 @@ def run_main_path(dev) -> dict:
             raise AssertionError(f"{name}: the kernels move video embeddings "
                                  "further from f32 than the plain bf16 path")
     return launches
+
+
+def _write_wav(path: str, wave, rate: int, channels: int = 1) -> None:
+    import wave as wave_mod
+
+    import numpy as np
+
+    pcm = np.clip(wave * 32768.0, -32768, 32767).astype(np.int16)
+    with wave_mod.open(path, "wb") as f:
+        f.setnchannels(channels)
+        f.setsampwidth(2)
+        f.setframerate(rate)
+        f.writeframes(pcm.tobytes())
+
+
+def _make_audio_folder(folder: str, rng) -> dict:
+    """96 WAV files from a seed: 16 kHz int16 mono clips of 1.5-5.0 s under
+    RAVDESS- and CREMA-D-style names, plus (sorting last, so that the first
+    device batch holds 64 plain clips) one 12 s clip that the embedder splits
+    at 10 s, one 44.1 kHz stereo file that goes through ``resample``, and one
+    10 ms clip, shorter than the conv stack's 400-sample receptive field,
+    which must embed to zero.  Returns file name → kind."""
+    files = {}
+    for i in range(93):
+        seconds = float(rng.uniform(1.5, 5.0))
+        wave = rng.normal(size=(int(seconds * 16000),)) * 0.1
+        name = (f"03-01-{i % 8 + 1:02d}-01-02-01-{i % 24 + 1:02d}-{i:03d}.wav"
+                if i % 2 else f"1{i:03d}_DFA_ANG_XX.wav")
+        _write_wav(os.path.join(folder, name), wave, 16000)
+        files[name] = "clip"
+    _write_wav(os.path.join(folder, "9001_long_12s.wav"),
+               rng.normal(size=(12 * 16000,)) * 0.1, 16000)
+    files["9001_long_12s.wav"] = "long"
+    _write_wav(os.path.join(folder, "9002_stereo_44k.wav"),
+               rng.normal(size=(3 * 44100, 2)) * 0.1, 44100, channels=2)
+    files["9002_stereo_44k.wav"] = "stereo"
+    _write_wav(os.path.join(folder, "9003_10ms.wav"),
+               rng.normal(size=(160,)) * 0.1, 16000)
+    files["9003_10ms.wav"] = "short"
+    return files
+
+
+def run_extraction(dev) -> dict:
+    """The offline extraction path at full width; returns the launch counts
+    of the CLI run and of the all-kernel run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mmer_tpu_torch.config import ViViTConfig, Wav2Vec2Config
+    from mmer_tpu_torch.models.wav2vec2 import AudioEmbedder
+    from mmer_tpu_torch.preprocess import extract
+    from mmer_tpu_torch.preprocess.audio import audio_output_name
+
+    vcfg, wcfg = ViViTConfig(), Wav2Vec2Config()
+    rng = np.random.default_rng(1)
+    with tempfile.TemporaryDirectory(prefix="mmer_smoke_") as tmp:
+        in_dir, out_dir = os.path.join(tmp, "wav"), os.path.join(tmp, "npy")
+        os.makedirs(in_dir)
+        files = _make_audio_folder(in_dir, rng)
+
+        # 1. The CLI, as a user runs it (on the card by default).
+        reset_launches()
+        t0 = time.perf_counter()
+        extract.main(["audio", "--input", in_dir, "--output", out_dir,
+                      "--batch_size", "64"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        cli_launches = read_launches()
+        forwards = -(-len(files) // 64)      # one Wav2Vec2 forward per batch
+        expected = {k: 0 for k in cli_launches}
+        expected.update(fused_ffn=forwards * wcfg.num_layers,
+                        fused_conv_encoder=forwards * len(wcfg.conv_dims))
+        log(f"extraction CLI: {len(files)} files in {cli_s:.2f} s (model set-up "
+            f"included); launch counts {cli_launches}, expected {expected}")
+        if cli_launches != expected:
+            raise AssertionError("the extraction CLI did not launch the kernels "
+                                 "as expected")
+        written = sorted(os.listdir(out_dir))
+        if written != sorted(audio_output_name(n) for n in files):
+            raise AssertionError(f"extraction CLI wrote {len(written)} files "
+                                 "under unexpected names")
+        cli = {}
+        for name, kind in files.items():
+            emb = np.load(os.path.join(out_dir, audio_output_name(name)))
+            norm = float(np.linalg.norm(emb.astype(np.float32)))
+            want = 0.0 if kind == "short" else 1.0
+            if emb.dtype != np.float16 or emb.shape != (1024,) \
+                    or not np.isfinite(emb).all() or abs(norm - want) > 2e-3:
+                raise AssertionError(f"{name}: artifact {emb.dtype} {emb.shape} "
+                                     f"norm {norm}")
+            cli[name] = emb.astype(np.float32)
+        log(f"extraction CLI: {len(written)} float16 (1024,) artifacts, unit "
+            "norm, zero for the 10 ms clip")
+
+        # 2. The same folder through iter_audio_embeddings on three encoders
+        # that share one set of weights.
+        default = AudioEmbedder(wcfg, device=dev)
+        state = default.model.state_dict()
+        all_kernel = AudioEmbedder(wcfg, device=dev, params=state,
+                                   use_flash_attn=True, mega=False)
+        plain = AudioEmbedder(wcfg, device=dev, use_kernels=False, params=state)
+        seen = set()                    # waveform batches of the forwards
+        for embedder in (default, all_kernel, plain):
+            embedder.model.register_forward_pre_hook(
+                lambda _, args: seen.add(tuple(args[0].shape)))
+        routes = {"default (conv mega + FFN kernels, plain attention)": default,
+                  "all-kernel (varlen attention, per-layer conv, FFN)": all_kernel,
+                  "plain": plain}
+
+        def embed_folder(embedder):
+            t = time.perf_counter()
+            out = dict(extract.iter_audio_embeddings(in_dir, embedder, 64,
+                                                     verbose=False))
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t
+
+        embs, rates, counts = {}, {k: [] for k in routes}, {}
+        for label, embedder in routes.items():       # warm-up, and the counts
+            reset_launches()
+            embs[label], _ = embed_folder(embedder)
+            counts[label] = read_launches()
+        order = list(routes) + list(routes)[::-1]    # a b c c b a
+        for label in order:
+            _, seconds = embed_folder(routes[label])
+            rates[label].append(len(files) / seconds)
+        for label in routes:
+            log(f"extraction, {label}: {rates[label][0]:.1f} and "
+                f"{rates[label][1]:.1f} clips/s ({len(files)} files, batch 64, "
+                f"WAV decode included); launches {counts[label]}")
+        names = list(routes)
+        n_layers, n_conv = wcfg.num_layers, len(wcfg.conv_dims)
+        n_k3 = sum(k == 3 for k in wcfg.conv_kernels[1:])
+        want_counts = {
+            names[0]: dict(expected),
+            names[1]: {**{k: 0 for k in expected},
+                       "flash_attention_varlen": forwards * n_layers,
+                       "fused_ffn": forwards * n_layers,
+                       "conv_gemm_ln_gelu": forwards * (n_conv - n_k3),
+                       "conv_k3_ln_gelu": forwards * n_k3},
+            names[2]: {k: 0 for k in expected},
+        }
+        if counts != want_counts:
+            raise AssertionError(f"extraction launch counts {counts}, expected "
+                                 f"{want_counts}")
+        log(f"extraction: waveform batches of the forwards {sorted(seen)}")
+        if seen != set(EXTRACT_WAVES):
+            raise AssertionError("the extraction forwards ran at other shapes "
+                                 f"than the kernel phase held: {sorted(seen)}")
+        worst = {}
+        for label in names[:2]:
+            rels = []
+            for path, ref in embs[names[2]].items():
+                got = embs[label][path]
+                if files[os.path.basename(path)] == "short":
+                    if np.abs(got).max() != 0.0 or np.abs(ref).max() != 0.0:
+                        raise AssertionError("the 10 ms clip must embed to zero")
+                    continue
+                rels.append(_rel_l2(got, ref))
+            worst[label] = max(rels)
+            log(f"extraction, {label} vs plain: rel-L2 per clip max "
+                f"{max(rels):.3e}, mean {float(np.mean(rels)):.3e} (limit "
+                f"{EMBED_REL_L2})")
+            if not np.isfinite(rels).all() or max(rels) >= EMBED_REL_L2:
+                raise AssertionError(f"{label}: audio embeddings moved beyond "
+                                     "the feature-noise contract")
+        # The CLI's artifacts are the default route's embeddings in float16.
+        for path, emb in embs[names[0]].items():
+            name = os.path.basename(path)
+            if np.abs(cli[name] - emb.astype(np.float16).astype(np.float32)).max() \
+                    > 2 ** -10:
+                raise AssertionError(f"{name}: the CLI's artifact differs from "
+                                     "iter_audio_embeddings")
+        all_kernel_launches = counts[names[1]]
+        del default, all_kernel, plain, state
+
+    # 3. Video: 24 seeded chunks = three device batches, serial and pipelined.
+    extractor = extract.VideoFeatureExtractor(vcfg, device=dev)
+    chunks = rng.integers(0, 256, dtype=np.uint8, size=(
+        24, vcfg.num_frames, *vcfg.image_size, vcfg.in_channels))
+    # Warm-up of both routes (the pipelined one allocates pinned buffers,
+    # which PyTorch's host allocator keeps), then four readings of each.
+    extractor.embed_chunks(chunks[:16], pipeline=False)
+    extractor.embed_chunks(chunks, pipeline=True)
+    outs, secs = {}, {False: [], True: []}
+    for pipeline in (False, True, True, False, False, True, True, False):
+        reset_launches()
+        t0 = time.perf_counter()
+        outs[pipeline] = extractor.embed_chunks(chunks, pipeline=pipeline)
+        torch.cuda.synchronize()
+        secs[pipeline].append(time.perf_counter() - t0)
+        got = read_launches()
+        want = {k: 0 for k in got}
+        want.update(flash_attention=3 * vcfg.depth, fused_ffn=3 * vcfg.depth)
+        if got != want:
+            raise AssertionError(f"embed_chunks launch counts {got}, expected "
+                                 f"{want}")
+    if not np.array_equal(outs[False], outs[True]) \
+            or outs[True].shape != (24, vcfg.dim) \
+            or not np.isfinite(outs[True]).all():
+        raise AssertionError("embed_chunks(pipeline=True) differs from "
+                             "pipeline=False")
+    for pipeline in (False, True):
+        log(f"extraction, embed_chunks pipeline={pipeline}: "
+            + ", ".join(f"{s * 1e3:.1f} ms ({24 / s:.1f} chunks/s)"
+                        for s in secs[pipeline])
+            + "; 24 chunks, identical rows, attention and FFN launches 36 each")
+    return {"cli": cli_launches, "all_kernel": all_kernel_launches}
 
 
 if __name__ == "__main__":

@@ -1,8 +1,11 @@
 // Non-causal multi-head attention, softmax(q k^T / sqrt(d)) v, over
-// (B, H, S, 64) bf16 tensors, with keys at or beyond S masked out.
+// (B, H, S, 64) bf16 tensors, with keys at or beyond S masked out, and
+// optionally one key length per batch element.
 //
-// Replaces the Pallas kernel mmer_tpu/ops/flash_attention.py:_attn_kernel
-// (flash_attention with key_lens=None).  Same numerics: scores, softmax
+// Replaces the Pallas kernels mmer_tpu/ops/flash_attention.py:_attn_kernel
+// (flash_attention with key_lens=None, ViViT) and :_attn_kernel_varlen
+// (flash_attention with key_lens, Wav2Vec2: clips shorter than the padded
+// batch attend to their own frames only).  Same numerics: scores, softmax
 // statistics and the output accumulator in f32; probabilities rounded to
 // bf16 before the P.V product, and the softmax denominator summed from those
 // rounded probabilities (the TPU kernel gets it from a ones column in V);
@@ -18,6 +21,18 @@
 // kept per warp.  Products are WMMA 16x16x16 bf16 tiles.  The TPU tiling
 // (BQ = 416, six heads per program, the ones column in V) answered the
 // TPU's per-program overhead and does not carry over.
+//
+// The key-length variant is the same kernel with one length per
+// blockIdx.y / heads (the TPU kernel's SMEM length vector indexed by
+// program_id becomes one global load per block).  Keys in [len, S) get a
+// finite additive bias of -1e9, not -inf: next to any valid key their
+// probability is an exact zero, so tiles wholly past len are skipped; a row
+// with len == 0 has the bias on every key and comes out as the uniform
+// average over all S keys, never NaN (no tile is skipped for it).  Keys at
+// or beyond S do not exist and stay at -inf.  At the extraction shape
+// (64 clips x 16 heads, S = 249, lengths in [0.3 S, S]) a call needs ~11 GFLOP
+// and ~108 MB (q and o in full, the k and v rows below each clip's length):
+// bound by bytes, 4 blocks of 64 queries per (clip, head).
 #include <math_constants.h>
 
 #include "common.cuh"
@@ -52,9 +67,13 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, 
   }
 }
 
+constexpr float KEY_BIAS = -1e9f;  // on keys in [len, S)
+
+template <bool VARLEN>
 __global__ void __launch_bounds__(NTHREAD)
 attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int s, float scale) {
+                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 const int* __restrict__ lens, int heads, int s, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* ks = qs + BQ * LDB;
@@ -66,6 +85,8 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const size_t base = size_t(blockIdx.y) * s * HD;
   const int q0 = blockIdx.x * BQ;
+  const int len = VARLEN ? min(lens[blockIdx.y / heads], s) : s;
+  const int kend = len > 0 ? len : s;
 
   load_tile(qs, q + base, q0, s, tid);
 
@@ -84,7 +105,7 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wmma::load_matrix_sync(qf[kk], qs + warp * 16 * LDB + kk * 16, LDB);
 
   float m_run = -CUDART_INF_F, l_run = 0.f;
-  for (int k0 = 0; k0 < s; k0 += BK) {
+  for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();  // every warp is done with the previous K/V tile
     load_tile(ks, k + base, k0, s, tid);
     load_tile(vs, v + base, k0, s, tid);
@@ -110,7 +131,11 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float mx = -CUDART_INF_F;
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
-      const float sc = key0 + j < s ? srow[j] * scale : -CUDART_INF_F;
+      float sc = -CUDART_INF_F;
+      if (key0 + j < s) {
+        sc = srow[j] * scale;
+        if (VARLEN && key0 + j >= len) sc += KEY_BIAS;
+      }
       srow[j] = sc;
       mx = fmaxf(mx, sc);
     }
@@ -158,18 +183,37 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <bool VARLEN>
+int launch(const void* q, const void* k, const void* v, void* o, const void* lens,
+           int bh, int heads, int s, int d, float scale, void* stream) {
+  if (d != HD || s <= 0 || bh <= 0 || heads <= 0 || bh % heads != 0)
+    return int(cudaErrorInvalidValue);
+  auto kern = attention_kernel<VARLEN>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM_BYTES));
+  if (err != cudaSuccess) return int(err);
+  dim3 grid((s + BQ - 1) / BQ, bh);
+  kern<<<grid, NTHREAD, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<const int*>(lens), heads, s, scale);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 // q, k, v, o: contiguous (bh, s, 64) bf16.
 MMER_EXPORT int mmer_attention(const void* q, const void* k, const void* v, void* o,
                                int bh, int s, int d, float scale, void* stream) {
-  if (d != HD || s <= 0 || bh <= 0) return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM_BYTES));
-  if (err != cudaSuccess) return int(err);
-  dim3 grid((s + BQ - 1) / BQ, bh);
-  attention_kernel<<<grid, NTHREAD, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), s, scale);
-  return int(cudaGetLastError());
+  return launch<false>(q, k, v, o, nullptr, bh, 1, s, d, scale, stream);
+}
+
+// q, k, v, o: contiguous (b, h, s, 64) bf16; lens: (b,) int32 on the device,
+// the number of leading keys each batch element attends to (values above s
+// count as s, values below 1 as 0).
+MMER_EXPORT int mmer_attention_varlen(const void* q, const void* k, const void* v,
+                                      void* o, const void* lens, int b, int h, int s,
+                                      int d, float scale, void* stream) {
+  if (b <= 0 || h <= 0 || lens == nullptr) return int(cudaErrorInvalidValue);
+  return launch<true>(q, k, v, o, lens, b * h, h, s, d, scale, stream);
 }

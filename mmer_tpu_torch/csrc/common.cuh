@@ -40,6 +40,38 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The conv feature encoder's epilogue on one output frame, by one warp: the
+// f32 conv sums ``yrow`` (C channels) are rounded to bf16, the bias is added
+// in bf16, LayerNorm runs in f32 (flax: eps 1e-6, var = max(0, E[x^2] -
+// E[x]^2)) and is rounded to bf16, exact-erf GELU runs in f32 and is rounded
+// to bf16 into ``dst`` -- the rounding points of the Pallas ``_epilogue``
+// (mmer_tpu/ops/conv_pyramid.py).  Each lane holds C/32 channels.
+template <int C>
+__device__ __forceinline__ void bias_ln_gelu_row(const float* yrow, const float* cb,
+                                                 const float* ln_w, const float* ln_b,
+                                                 bf16* dst, int lane) {
+  float y[C / 32];
+  float s = 0.f, ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < C / 32; ++i) {
+    const int c = lane + 32 * i;
+    y[i] = round_bf16(round_bf16(yrow[c]) + round_bf16(cb[c]));
+    s += y[i];
+    ss += y[i] * y[i];
+  }
+  s = warp_sum(s);
+  ss = warp_sum(ss);
+  const float mean = s / C;
+  const float var = fmaxf(ss / C - mean * mean, 0.f);
+  const float rstd = 1.0f / sqrtf(var + 1e-6f);
+#pragma unroll
+  for (int i = 0; i < C / 32; ++i) {
+    const int c = lane + 32 * i;
+    const float ln = round_bf16((y[i] - mean) * rstd * ln_w[c] + ln_b[c]);
+    dst[c] = __float2bfloat16_rn(gelu_erf(ln));
+  }
+}
+
 }  // namespace mmer
 
 #define MMER_EXPORT extern "C" __attribute__((visibility("default")))

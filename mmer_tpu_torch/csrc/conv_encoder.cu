@@ -95,27 +95,8 @@ conv_ln_gelu_kernel(const IT* __restrict__ x, const bf16* __restrict__ w,
   for (int r = warp; r < BT; r += NWARP) {
     const int t = t0 + r;
     if (t >= t_out) continue;
-    float y[C / 32];
-    float s = 0.f, ss = 0.f;
-#pragma unroll
-    for (int i = 0; i < C / 32; ++i) {
-      const int c = lane + 32 * i;
-      y[i] = mmer::round_bf16(mmer::round_bf16(ys[r * LDY + c]) + mmer::round_bf16(cb[c]));
-      s += y[i];
-      ss += y[i] * y[i];
-    }
-    s = mmer::warp_sum(s);
-    ss = mmer::warp_sum(ss);
-    const float mean = s / C;
-    const float var = fmaxf(ss / C - mean * mean, 0.f);
-    const float rstd = 1.0f / sqrtf(var + 1e-6f);
-    bf16* dst = out + (size_t(blockIdx.y) * t_out + t) * C;
-#pragma unroll
-    for (int i = 0; i < C / 32; ++i) {
-      const int c = lane + 32 * i;
-      const float ln = mmer::round_bf16((y[i] - mean) * rstd * ln_w[c] + ln_b[c]);
-      dst[c] = __float2bfloat16_rn(mmer::gelu_erf(ln));
-    }
+    mmer::bias_ln_gelu_row<C>(ys + r * LDY, cb, ln_w, ln_b,
+                              out + (size_t(blockIdx.y) * t_out + t) * C, lane);
   }
 }
 

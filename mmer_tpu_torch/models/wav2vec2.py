@@ -6,13 +6,16 @@ length-masked mean pool → L2 norm → (1024,):
 
 - feature encoder: seven conv → LayerNorm → GELU layers through
   :func:`~mmer_tpu_torch.ops.conv_pyramid.fused_conv_encoder` (one CUDA
-  kernel launch per layer on the card);
+  kernel launch per layer on the card, on either of its two routes);
 - feature projection LayerNorm(512) → Linear(1024), float32 stream;
 - grouped positional conv (kernel 128, 16 groups, weight norm folded), the
   trailing frame trimmed for the even kernel, GELU, residual;
-- 24 stable-layer-norm layers: plain masked attention with a finite −1e9
-  key bias (a fully masked row comes out uniform, not NaN), the FFN
-  sublayer through :func:`~mmer_tpu_torch.ops.fused_blocks.fused_ffn`;
+- 24 stable-layer-norm layers: masked attention with a finite −1e9 key
+  bias (a fully masked row comes out uniform, not NaN), plain or, with
+  ``use_flash_attn``, through
+  :func:`~mmer_tpu_torch.ops.flash_attention.flash_attention` with one key
+  length per clip; the FFN sublayer through
+  :func:`~mmer_tpu_torch.ops.fused_blocks.fused_ffn`;
 - a final LayerNorm.
 
 Params stay float32; GEMM operands and the FFN biases are rounded to the
@@ -35,6 +38,7 @@ from mmer_tpu_torch.models.layers import (LayerNorm, dense, init_like_flax,
                                          load_or_save_params, param_generator)
 from mmer_tpu_torch.ops.conv_pyramid import (conv_encoder_reference,
                                              fused_conv_encoder, supports_config)
+from mmer_tpu_torch.ops.flash_attention import flash_attention
 from mmer_tpu_torch.ops.fused_blocks import ffn_reference, fused_ffn
 
 
@@ -47,16 +51,19 @@ def feat_extract_output_length(cfg: Wav2Vec2Config, input_length: int) -> int:
 
 
 class ConvFeatureEncoder(nn.Module):
-    """Raw waveform (B, L) → frame features (B, T, conv_dims[-1])."""
+    """Raw waveform (B, L) → frame features (B, T, conv_dims[-1]).
+    ``mega`` picks the route of ``fused_conv_encoder`` (whole-pyramid port or
+    the per-layer merged-view kernels)."""
 
     def __init__(self, cfg: Wav2Vec2Config, *, device: torch.device | str,
-                 use_kernels: bool = True):
+                 use_kernels: bool = True, mega: bool = True):
         super().__init__()
         if not supports_config(cfg):
             raise ValueError("ConvFeatureEncoder: only the layer-norm, stride-2 "
                              "k2/k3 conv stacks are ported")
         self.cfg = cfg
         self.use_kernels = use_kernels
+        self.mega = mega
         c_in = 1
         convs, norms = [], []
         for dim, k, s in zip(cfg.conv_dims, cfg.conv_kernels, cfg.conv_strides):
@@ -67,11 +74,11 @@ class ConvFeatureEncoder(nn.Module):
         self.norms = nn.ModuleList(norms)
 
     def forward(self, wave: torch.Tensor) -> torch.Tensor:
-        run = fused_conv_encoder if self.use_kernels else conv_encoder_reference
-        return run(wave, [c.weight for c in self.convs],
-                   [c.bias for c in self.convs],
-                   [n.weight for n in self.norms],
-                   [n.bias for n in self.norms], self.cfg)
+        args = ([c.weight for c in self.convs], [c.bias for c in self.convs],
+                [n.weight for n in self.norms], [n.bias for n in self.norms])
+        if not self.use_kernels:
+            return conv_encoder_reference(wave, *args, self.cfg)
+        return fused_conv_encoder(wave, *args, self.cfg, mega=self.mega)
 
 
 class PosConvEmbed(nn.Module):
@@ -106,10 +113,11 @@ class EncoderLayer(nn.Module):
     """Stable-layer-norm transformer layer (pre-norm, biased projections)."""
 
     def __init__(self, cfg: Wav2Vec2Config, *, device: torch.device | str,
-                 use_kernels: bool = True):
+                 use_kernels: bool = True, use_flash_attn: bool = False):
         super().__init__()
         self.cfg = cfg
         self.use_kernels = use_kernels
+        self.use_flash_attn = use_flash_attn
         d = cfg.hidden_dim
         self.norm_attn = LayerNorm(d, device=device)
         self.q = nn.Linear(d, d, device=device)
@@ -122,9 +130,12 @@ class EncoderLayer(nn.Module):
 
     def _attention(self, yd: torch.Tensor,
                    pad_mask: Optional[torch.Tensor]) -> torch.Tensor:
-        """Plain attention, as the JAX ``_xla_attention`` (the Pallas varlen
-        kernel is off in JAX serving too): f32 scores, −1e9 on padded keys,
-        f32 softmax, bf16 probabilities, f32 output."""
+        """Attention over the projected heads.  Plain, as the JAX
+        ``_xla_attention``: f32 scores, −1e9 on padded keys, f32 softmax,
+        probabilities rounded to the compute dtype, f32 output.  With
+        ``use_flash_attn``: q, k, v go to ``flash_attention`` in the compute
+        dtype with one key length per clip (frame pads are a suffix, so a
+        count is a complete mask) and the output comes back in that dtype."""
         cfg = self.cfg
         dt = torch_dtype(cfg)
         b, t, d = yd.shape
@@ -132,9 +143,15 @@ class EncoderLayer(nn.Module):
         hd = d // h
 
         def proj(lin):
-            return dense(yd, lin, dt).reshape(b, t, h, hd).transpose(1, 2).float()
+            return dense(yd, lin, dt).reshape(b, t, h, hd).transpose(1, 2)
 
         q, k, v = proj(self.q), proj(self.k), proj(self.v)
+        if self.use_flash_attn:
+            key_lens = None if pad_mask is None else (~pad_mask).sum(1)
+            out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                  key_lens=key_lens)
+            return out.transpose(1, 2).reshape(b, t, d)
+        q, k, v = q.float(), k.float(), v.float()
         scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
         if pad_mask is not None:
             scores = scores + pad_mask[:, None, None, :].float() * -1e9
@@ -158,16 +175,23 @@ class Wav2Vec2Encoder(nn.Module):
     """Waveform (B, L) → per-frame hidden states (B, T, hidden_dim) f32."""
 
     def __init__(self, cfg: Wav2Vec2Config, *, device: torch.device | str,
-                 use_kernels: bool = True):
+                 use_kernels: bool = True,
+                 use_flash_attn: Optional[bool] = None, mega: bool = True):
+        """``use_flash_attn=None`` follows ``use_kernels``, as the JAX
+        encoder's follows ``use_pallas``; an explicit False keeps the conv and
+        FFN kernels while attention stays plain."""
         super().__init__()
         self.cfg = cfg
+        flash = use_kernels if use_flash_attn is None else use_flash_attn
         self.feature_encoder = ConvFeatureEncoder(cfg, device=device,
-                                                  use_kernels=use_kernels)
+                                                  use_kernels=use_kernels,
+                                                  mega=mega)
         self.proj_norm = LayerNorm(cfg.conv_dims[-1], device=device)
         self.proj = nn.Linear(cfg.conv_dims[-1], cfg.hidden_dim, device=device)
         self.pos_conv = PosConvEmbed(cfg, device=device)
         self.layers = nn.ModuleList(
-            EncoderLayer(cfg, device=device, use_kernels=use_kernels)
+            EncoderLayer(cfg, device=device, use_kernels=use_kernels,
+                         use_flash_attn=flash)
             for _ in range(cfg.num_layers))
         self.final_norm = LayerNorm(cfg.hidden_dim, device=device)
 
@@ -187,11 +211,14 @@ class Wav2Vec2Encoder(nn.Module):
 
 def init_wav2vec2(cfg: Wav2Vec2Config, *, device: torch.device | str,
                   generator: torch.Generator | None = None,
-                  use_kernels: bool = True) -> Wav2Vec2Encoder:
+                  use_kernels: bool = True,
+                  use_flash_attn: Optional[bool] = None,
+                  mega: bool = True) -> Wav2Vec2Encoder:
     """A seeded Wav2Vec2 drawn from flax's initializer families (Dense and
     Conv ``lecun_normal`` with zero bias, LayerNorm (1, 0)); the generator
     defaults to ``cfg.param_seed`` on ``device``."""
-    model = Wav2Vec2Encoder(cfg, device=device, use_kernels=use_kernels)
+    model = Wav2Vec2Encoder(cfg, device=device, use_kernels=use_kernels,
+                            use_flash_attn=use_flash_attn, mega=mega)
     init_like_flax(model, generator or param_generator(cfg.param_seed, device))
     return model.eval()
 
@@ -210,17 +237,25 @@ class AudioEmbedder:
     ``params_path`` (``.npz``) is loaded if it exists and written with the
     seeded weights if not; else the weights are seeded from
     ``cfg.param_seed``.
+
+    By default attention stays plain (``use_flash_attn=False``) and the conv
+    encoder on its ``mega`` route, as in the JAX ``AudioEmbedder``; which
+    attention route is faster on the card is recorded in PERF.md, not decided
+    here.  ``use_flash_attn=True, mega=False`` builds the all-kernel encoder
+    (varlen flash attention, per-layer conv route).
     """
 
     def __init__(self, cfg: Optional[Wav2Vec2Config] = None, *,
                  device: torch.device | str,
                  params: Optional[dict] = None,
                  params_path: Optional[str] = None,
-                 use_kernels: bool = True):
+                 use_kernels: bool = True,
+                 use_flash_attn: bool = False, mega: bool = True):
         self.cfg = cfg or Wav2Vec2Config()
         self.device = torch.device(device)
         self.model = init_wav2vec2(self.cfg, device=self.device,
-                                   use_kernels=use_kernels)
+                                   use_kernels=use_kernels,
+                                   use_flash_attn=use_flash_attn, mega=mega)
         load_or_save_params(self.model, params, params_path)
 
     def _bucket_len(self, n: int) -> int:

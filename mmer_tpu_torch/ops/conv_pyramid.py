@@ -2,11 +2,24 @@
 
 :func:`fused_conv_encoder` maps a waveform (B, L) to frame features
 (B, T, 512): seven VALID conv layers, each conv → bias → LayerNorm → exact-erf
-GELU.  On a CUDA tensor every layer is one launch of the hand-written
-kernel ``csrc/conv_encoder.cu`` (the port of the Pallas ``_mega_kernel``),
-which runs the conv as a GEMM over im2col rows staged in shared memory and
-applies the epilogue before anything returns to device memory; on a CPU
-tensor it runs :func:`conv_encoder_reference`.
+GELU.  It has two hand-written routes on a CUDA tensor:
+
+- ``mega=True`` (default): every layer is one launch of
+  ``csrc/conv_encoder.cu`` (the port of the Pallas ``_mega_kernel``), which
+  runs the conv as a GEMM over im2col rows staged in shared memory and applies
+  the epilogue before anything returns to device memory;
+- ``mega=False``: the per-layer route of the JAX function, a second,
+  independent formulation.  Layer 0 multiplies explicit patches
+  (:func:`_l0_patches`) through :func:`_call_gemm`; every later layer sees
+  the ``(B, T, C)`` activation as ``(B, T/2, 2C)`` stride-merged rows (a free
+  view, lengths padded to even), a kernel-2 layer again through
+  :func:`_call_gemm` and a kernel-3 layer through :func:`_call_k3` with the
+  weight split ``[W0;W1]`` + ``W2``.  Their kernels are
+  ``csrc/conv_layers.cu`` (the ports of ``_gemm_kernel`` and ``_k3_kernel``).
+
+On a CPU tensor ``mega=True`` runs :func:`conv_encoder_reference` and
+``mega=False`` the same composition over :func:`gemm_ln_gelu_reference` and
+:func:`k3_ln_gelu_reference`.
 
 Rounding points follow the Pallas ``_epilogue``: the input is rounded to the
 compute dtype, the conv output is rounded, the bias is added in the compute
@@ -28,8 +41,12 @@ from mmer_tpu_torch.config import torch_dtype
 from mmer_tpu_torch.ops import _build
 from mmer_tpu_torch.ops.fused_blocks import layer_norm
 
-__all__ = ["conv_encoder_reference", "fused_conv_encoder", "gemm_weight",
-           "supports_config"]
+__all__ = ["conv_encoder_reference", "fused_conv_encoder", "gemm_ln_gelu_reference",
+           "gemm_weight", "k3_ln_gelu_reference", "supports_config"]
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
 
 
 def supports_config(cfg) -> bool:
@@ -68,6 +85,16 @@ def _check_args(wave, weights, cfg) -> None:
                          "output frame")
 
 
+def _epilogue(y32: torch.Tensor, cb: torch.Tensor, scale: torch.Tensor,
+              bias: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """bias add → LayerNorm → exact-erf GELU with the Pallas ``_epilogue``'s
+    rounding points: the f32 sums rounded to ``dt``, the bias added in
+    ``dt``, LayerNorm in f32 rounded to ``dt``, GELU in f32 rounded."""
+    y = y32.to(dt) + cb.to(dt)
+    y = layer_norm(y, scale, bias).to(dt)
+    return F.gelu(y.float()).to(dt)
+
+
 def conv_encoder_reference(wave: torch.Tensor, weights: Sequence[torch.Tensor],
                            biases: Sequence[torch.Tensor],
                            ln_weights: Sequence[torch.Tensor],
@@ -82,10 +109,156 @@ def conv_encoder_reference(wave: torch.Tensor, weights: Sequence[torch.Tensor],
         rows = x.unfold(1, k, s).permute(0, 1, 3, 2)       # (B, T, k, C_in)
         rows = rows.reshape(b, rows.shape[1], k * c_in).float()
         wg = gemm_weight(w, dt).float()[:, :k * c_in]
-        y = torch.matmul(rows, wg.t()).to(dt) + cb.to(dt)
-        y = layer_norm(y, lw, lb).to(dt)
-        x = F.gelu(y.float()).to(dt)
+        x = _epilogue(torch.matmul(rows, wg.t()), cb, lw, lb, dt)
     return x
+
+
+def _rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The first ``n`` rows of (B, T, K), zero rows where T < n."""
+    return x[:, :n] if x.shape[1] >= n else F.pad(x, (0, 0, 0, n - x.shape[1]))
+
+
+def gemm_ln_gelu_reference(x: torch.Tensor, w: torch.Tensor, cb: torch.Tensor,
+                           scale: torch.Tensor, bias: torch.Tensor,
+                           t_pad: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`_call_gemm` (same arguments)."""
+    y32 = torch.matmul(_rows(x, t_pad).float(), w.float())
+    return _epilogue(y32, cb, scale, bias, x.dtype)
+
+
+def k3_ln_gelu_reference(xm: torch.Tensor, w01: torch.Tensor, w2: torch.Tensor,
+                         cb: torch.Tensor, scale: torch.Tensor,
+                         bias: torch.Tensor, t_pad: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`_call_k3` (same arguments)."""
+    c = w2.shape[0]
+    rows = _rows(xm, t_pad + 1).float()
+    y32 = torch.matmul(rows[:, :t_pad], w01.float()) \
+        + torch.matmul(rows[:, 1:, :c], w2.float())
+    return _epilogue(y32, cb, scale, bias, xm.dtype)
+
+
+def _check_layer_args(name: str, x, mats, vecs) -> list:
+    """Refuse what the kernels of ``csrc/conv_layers.cu`` do not take; return
+    the three (512,) vectors as contiguous f32."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    for t in (x, *mats):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: the CUDA kernel takes bf16, got {t.dtype}")
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous on one device")
+    vecs = [t.float().contiguous() for t in vecs]
+    if any(t.shape != (512,) or t.device != x.device for t in vecs):
+        raise ValueError(f"{name}: kernel needs 512 output channels, vectors "
+                         "on the operand's device")
+    return vecs
+
+
+# mmer_gemm_ln_gelu(x, w, cb, ln_w, ln_b, out, batch, x_rows, kdim, c_out,
+#                   t_rows, stream)
+_ARGTYPES_GEMM = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# mmer_k3_ln_gelu(xm, w01, w2, cb, ln_w, ln_b, out, batch, th, c_in, c_out,
+#                 t_rows, stream)
+_ARGTYPES_K3 = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def _call_gemm(x: torch.Tensor, w: torch.Tensor, cb: torch.Tensor,
+               scale: torch.Tensor, bias: torch.Tensor, t_pad: int) -> torch.Tensor:
+    """Rows times weight → bias → LayerNorm → GELU: ``x`` (B, T, K) holds
+    layer-0 patches or stride-merged rows of a kernel-2 layer, ``w`` is
+    (K, 512); returns (B, t_pad, 512) in x's dtype.  Rows of ``x`` at or
+    beyond T read as zero.  On CUDA: bf16, K a multiple of 16."""
+    if x.dim() != 3 or w.dim() != 2 or w.shape[0] != x.shape[2] or t_pad < 1:
+        raise ValueError(f"_call_gemm: x (B, T, K) and w (K, C) expected, got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}, t_pad {t_pad}")
+    if x.device.type == "cpu":
+        return gemm_ln_gelu_reference(x, w, cb, scale, bias, t_pad)
+    vecs = _check_layer_args("_call_gemm", x, (w,), (cb, scale, bias))
+    bsz, x_rows, kdim = x.shape
+    if kdim % 16 or w.shape[1] != 512:
+        raise ValueError(f"_call_gemm: kernel needs K % 16 == 0 and 512 output "
+                         f"channels, got w {tuple(w.shape)}")
+    out = torch.empty((bsz, t_pad, 512), dtype=x.dtype, device=x.device)
+    _build.call("conv_layers", "mmer_gemm_ln_gelu", _ARGTYPES_GEMM,
+                _build.ptr(x), _build.ptr(w), *(_build.ptr(t) for t in vecs),
+                _build.ptr(out), bsz, x_rows, kdim, 512, t_pad,
+                _build.stream_ptr(x.device))
+    _call_gemm.launches += 1
+    return out
+
+
+def _call_k3(xm: torch.Tensor, w01: torch.Tensor, w2: torch.Tensor,
+             cb: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+             t_pad: int) -> torch.Tensor:
+    """Kernel-3 stride-2 conv on the merged view → bias → LayerNorm → GELU:
+    output row t is ``xm[t] @ w01 + xm[t+1, :C] @ w2`` with ``xm``
+    (B, T/2, 2C), ``w01`` (2C, 512) the first two taps stacked and ``w2``
+    (C, 512) the third; returns (B, t_pad, 512).  Merged rows at or beyond
+    T/2 read as zero.  On CUDA: bf16, C = 512."""
+    if xm.dim() != 3 or w01.shape[0] != xm.shape[2] \
+            or 2 * w2.shape[0] != xm.shape[2] or w01.shape[1] != w2.shape[1] \
+            or t_pad < 1:
+        raise ValueError(f"_call_k3: xm (B, T/2, 2C), w01 (2C, N), w2 (C, N) "
+                         f"expected, got {tuple(xm.shape)}, {tuple(w01.shape)}, "
+                         f"{tuple(w2.shape)}, t_pad {t_pad}")
+    if xm.device.type == "cpu":
+        return k3_ln_gelu_reference(xm, w01, w2, cb, scale, bias, t_pad)
+    vecs = _check_layer_args("_call_k3", xm, (w01, w2), (cb, scale, bias))
+    bsz, th, c2 = xm.shape
+    if c2 != 1024 or w2.shape[1] != 512:
+        raise ValueError(f"_call_k3: kernel needs 512 channels in and out, got "
+                         f"xm {tuple(xm.shape)}, w2 {tuple(w2.shape)}")
+    out = torch.empty((bsz, t_pad, 512), dtype=xm.dtype, device=xm.device)
+    _build.call("conv_layers", "mmer_k3_ln_gelu", _ARGTYPES_K3,
+                _build.ptr(xm), _build.ptr(w01), _build.ptr(w2),
+                *(_build.ptr(t) for t in vecs), _build.ptr(out), bsz, th,
+                c2 // 2, 512, t_pad, _build.stream_ptr(xm.device))
+    _call_k3.launches += 1
+    return out
+
+
+_call_gemm.launches = 0
+_call_k3.launches = 0
+
+
+def _l0_patches(wave: torch.Tensor, k: int, s: int, t_pad: int,
+                dt: torch.dtype) -> torch.Tensor:
+    """(B, t_pad, K) layer-0 patches in ``dt``: row t holds samples
+    ``[s·t, s·t + k)``, zero past the waveform's end, and K is k rounded up
+    to 16 (the tensor cores' tile depth) with zero columns."""
+    need = (t_pad - 1) * s + k
+    if need > wave.shape[1]:
+        wave = F.pad(wave, (0, need - wave.shape[1]))
+    p = wave[:, :need].unfold(1, k, s)                     # (B, t_pad, k)
+    return F.pad(p, (0, _round_up(k, 16) - k)).to(dt)
+
+
+def _per_layer_encoder(wave, weights, biases, ln_weights, ln_biases,
+                       cfg) -> torch.Tensor:
+    """``fused_conv_encoder(mega=False)``: one :func:`_call_gemm` or
+    :func:`_call_k3` per layer over the stride-merged view."""
+    dt = torch_dtype(cfg)
+    bsz = wave.shape[0]
+    k0, s0 = cfg.conv_kernels[0], cfg.conv_strides[0]
+    t = (wave.shape[1] - k0) // s0 + 1
+    t_pad = _round_up(t, 2)
+    patches = _l0_patches(wave, k0, s0, t_pad, dt)
+    w0 = weights[0][:, 0, :].t()                           # (k0, C)
+    w0 = F.pad(w0, (0, 0, 0, patches.shape[2] - k0)).to(dt).contiguous()
+    a = _call_gemm(patches, w0, biases[0], ln_weights[0], ln_biases[0], t_pad)
+    for i in range(1, len(weights)):
+        c, c_in, k = weights[i].shape
+        t = (t - k) // 2 + 1
+        t_pad = _round_up(t, 2)
+        xm = a.view(bsz, a.shape[1] // 2, 2 * c_in)        # same bytes
+        w = weights[i].permute(2, 1, 0).to(dt).contiguous()    # (k, c_in, c)
+        w01 = w[:2].reshape(2 * c_in, c)
+        if k == 2:
+            a = _call_gemm(xm, w01, biases[i], ln_weights[i], ln_biases[i], t_pad)
+        else:
+            a = _call_k3(xm, w01, w[2], biases[i], ln_weights[i],
+                         ln_biases[i], t_pad)
+    return a[:, :t]
 
 
 # mmer_conv_ln_gelu(x, w, cb, ln_w, ln_b, out, batch, t_in, t_out, c_in,
@@ -96,23 +269,29 @@ _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 def fused_conv_encoder(wave: torch.Tensor, weights: Sequence[torch.Tensor],
                        biases: Sequence[torch.Tensor],
                        ln_weights: Sequence[torch.Tensor],
-                       ln_biases: Sequence[torch.Tensor], cfg) -> torch.Tensor:
+                       ln_biases: Sequence[torch.Tensor], cfg,
+                       mega: bool = True) -> torch.Tensor:
     """Waveform (B, L) float32 → frame features (B, T, conv_dims[-1]) in
     the compute dtype, T from ``feat_extract_output_length``.
 
     ``weights[i]`` is layer i's Conv1d weight (C_out, C_in, k); ``biases``,
-    ``ln_weights``, ``ln_biases`` its conv bias and LayerNorm params.  On
-    CUDA the kernel takes a bf16 compute dtype and 512 channels per layer.
+    ``ln_weights``, ``ln_biases`` its conv bias and LayerNorm params.
+    ``mega`` picks the route (module docstring).  On CUDA the kernels take a
+    bf16 compute dtype and 512 channels per layer.
     """
-    if wave.device.type == "cpu":
+    if wave.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_conv_encoder: unsupported device {wave.device}")
+    if wave.device.type == "cpu" and mega:
         return conv_encoder_reference(wave, weights, biases, ln_weights,
                                       ln_biases, cfg)
-    if wave.device.type != "cuda":
-        raise ValueError(f"fused_conv_encoder: unsupported device {wave.device}")
     _check_args(wave, weights, cfg)
-    if torch_dtype(cfg) != torch.bfloat16 or wave.dtype != torch.float32:
+    if wave.device.type == "cuda" and (torch_dtype(cfg) != torch.bfloat16
+                                       or wave.dtype != torch.float32):
         raise TypeError("fused_conv_encoder: the CUDA kernel takes an f32 "
                         "waveform and a bf16 compute dtype")
+    if not mega:
+        return _per_layer_encoder(wave, weights, biases, ln_weights, ln_biases,
+                                  cfg)
     stream = _build.stream_ptr(wave.device)
     x = wave.contiguous()
     bsz = x.shape[0]

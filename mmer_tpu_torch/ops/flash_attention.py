@@ -2,13 +2,16 @@
 
 :func:`flash_attention` computes non-causal ``softmax(q kᵀ/√d) v`` over
 ``(B, H, S, D)`` tensors without materialising the ``(S, S)`` score matrix
-in device memory: on a CUDA tensor it launches the online-softmax kernel
-``csrc/attention.cu`` (the port of the Pallas ``_attn_kernel``); on a CPU
-tensor it runs :func:`reference_attention`.
+in device memory.  On a CUDA tensor it launches an online-softmax kernel of
+``csrc/attention.cu``: the port of the Pallas ``_attn_kernel`` (ViViT, no
+``key_lens``), or of ``_attn_kernel_varlen`` when ``key_lens`` gives one key
+length per batch element (Wav2Vec2: clips shorter than the padded batch
+attend to their own frames only).  On a CPU tensor it runs the plain version,
+:func:`reference_attention` or :func:`reference_attention_varlen`.
 
-Only the ``key_lens=None`` path is ported (ViViT's).  The per-batch
-key-length variant (``_attn_kernel_varlen``, Wav2Vec2 attention) is off the
-serving path in JAX too and raises ``NotImplementedError`` here.
+Each kernel has its own wrapper and launch count: :func:`flash_attention`
+counts launches of the unmasked kernel, :func:`flash_attention_varlen` of the
+key-length kernel.
 """
 
 from __future__ import annotations
@@ -20,48 +23,72 @@ import torch
 
 from mmer_tpu_torch.ops import _build
 
+KEY_BIAS = -1e9   # finite, so a fully masked row softmaxes to uniform, not NaN
+
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor) -> torch.Tensor:
     """Plain attention over (B, H, S, D): f32 scores and softmax, the
     probabilities rounded to v's dtype for the second product, output in
     q's dtype — the JAX ``reference_attention``."""
-    d = q.shape[-1]
+    return reference_attention_varlen(q, k, v, None)
+
+
+def reference_attention_varlen(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor,
+                               key_lens: torch.Tensor | None) -> torch.Tensor:
+    """Plain version of :func:`flash_attention` with ``key_lens``: f32
+    scores, an additive −1e9 on keys at or beyond each batch element's
+    length, f32 softmax, the probabilities rounded to v's dtype, output in
+    q's dtype — the JAX ``EncoderLayer._xla_attention`` with a suffix pad
+    mask.  A row whose length is 0 comes out as the mean of all S values."""
+    d, s = q.shape[-1], q.shape[-2]
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(d)
+    if key_lens is not None:
+        lens = key_lens.to(q.device).reshape(q.shape[0], 1, 1, 1)
+        masked = torch.arange(s, device=q.device) >= lens          # (B,1,1,S)
+        scores = scores + masked.float() * KEY_BIAS
     probs = torch.softmax(scores, dim=-1)
     return torch.matmul(probs.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+def _check_qkv(name: str, q, k, v) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"{name}: q, k, v must share one (B, H, S, D) "
+                         f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if q.shape[-1] != 64:
+        raise ValueError(f"{name}: kernel needs head dim 64, got {q.shape[-1]}")
+    for t in (q, k, v):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: kernel takes bf16, got {t.dtype}")
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name}: q, k, v must be contiguous on one device")
 
 
 # mmer_attention(q, k, v, out, bh, s, d, scale, stream)
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float,
                                                           ctypes.c_void_p]
+# mmer_attention_varlen(q, k, v, out, lens, b, h, s, d, scale, stream)
+_ARGTYPES_VARLEN = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+    ctypes.c_float, ctypes.c_void_p]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_lens: torch.Tensor | None = None) -> torch.Tensor:
     """Attention over (B, H, S, D) tensors; returns (B, H, S, D) in q's
-    dtype.  Keys are unmasked over the true S (no padding is visible to the
-    caller).  On CUDA the kernel takes contiguous bf16 with D = 64."""
+    dtype.  Without ``key_lens`` keys are unmasked over the true S (no
+    padding is visible to the caller); with it see
+    :func:`flash_attention_varlen`.  On CUDA the kernels take contiguous
+    bf16 with D = 64."""
     if key_lens is not None:
-        raise NotImplementedError(
-            "flash_attention: the key_lens (varlen) kernel is not ported yet")
+        return flash_attention_varlen(q, k, v, key_lens)
     if q.device.type == "cpu":
         return reference_attention(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError(f"flash_attention: q, k, v must share one (B, H, S, D) "
-                         f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    _check_qkv("flash_attention", q, k, v)
     b, h, s, d = q.shape
-    if d != 64:
-        raise ValueError(f"flash_attention: kernel needs head dim 64, got {d}")
-    for t in (q, k, v):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash_attention: kernel takes bf16, got {t.dtype}")
-        if t.device != q.device or not t.is_contiguous():
-            raise ValueError("flash_attention: q, k, v must be contiguous on "
-                             "one device")
     out = torch.empty_like(q)
     _build.call("attention", "mmer_attention", _ARGTYPES,
                 _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
@@ -70,4 +97,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def flash_attention_varlen(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           key_lens: torch.Tensor) -> torch.Tensor:
+    """Attention over (B, H, S, D) where batch element b attends to its
+    first ``key_lens[b]`` keys: ``key_lens`` is ``(B,)`` integer, clamped to
+    S; keys at or beyond it carry a finite −1e9 additive bias (exact zero
+    probability next to any valid key; a length of 0 gives the uniform
+    average over the S values, never NaN)."""
+    if key_lens.dim() != 1 or key_lens.shape[0] != q.shape[0] \
+            or key_lens.dtype.is_floating_point:
+        raise ValueError(f"flash_attention: key_lens must be (B,) integer, got "
+                         f"{tuple(key_lens.shape)} {key_lens.dtype}")
+    if q.device.type == "cpu":
+        return reference_attention_varlen(q, k, v, key_lens)
+    _check_qkv("flash_attention", q, k, v)
+    b, h, s, d = q.shape
+    lens = key_lens.to(device=q.device, dtype=torch.int32).clamp(max=s).contiguous()
+    out = torch.empty_like(q)
+    _build.call("attention", "mmer_attention_varlen", _ARGTYPES_VARLEN,
+                _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+                _build.ptr(lens), b, h, s, d, 1.0 / math.sqrt(d),
+                _build.stream_ptr(q.device))
+    flash_attention_varlen.launches += 1
+    return out
+
+
 flash_attention.launches = 0
+flash_attention_varlen.launches = 0

@@ -24,10 +24,15 @@ import torch
 
 from mmer_tpu_torch.config import Wav2Vec2Config
 from mmer_tpu_torch.models.wav2vec2 import feat_extract_output_length
+from mmer_tpu_torch.ops import conv_pyramid
 from mmer_tpu_torch.ops.conv_pyramid import (conv_encoder_reference,
-                                             fused_conv_encoder)
+                                             fused_conv_encoder,
+                                             gemm_ln_gelu_reference,
+                                             k3_ln_gelu_reference)
 from mmer_tpu_torch.ops.flash_attention import (flash_attention,
-                                                reference_attention)
+                                                flash_attention_varlen,
+                                                reference_attention,
+                                                reference_attention_varlen)
 from mmer_tpu_torch.ops.fused_blocks import ffn_reference, fused_ffn
 
 pytestmark = pytest.mark.cuda
@@ -80,6 +85,51 @@ def test_attention_kernel_sharp_scores(cuda, s):
     q, k, v = (3 * q).bfloat16(), (3 * k).bfloat16(), v.bfloat16()
     got = flash_attention(q, k, v)
     want = reference_attention(q, k, v)
+    mx, mean = _err(got, want)
+    scale = want.float().abs()
+    assert mx <= 2 ** -6 * float(scale.max()), (mx, float(scale.max()))
+    assert mean <= 2 ** -7 * float(scale.mean()), (mean, float(scale.mean()))
+
+
+@pytest.mark.parametrize("s", [49, 64, 149, 199, 249, 499])
+def test_varlen_attention_kernel_matches_plain(cuda, s):
+    """Ragged S with lengths S, beyond S (clamped), a tile boundary, a
+    partial tile, 1 and 0; batch 6 x 16 heads as Wav2Vec2's.  Valid clips
+    under the bound of the unmasked kernel; the zero-length clip is finite and
+    the mean of its S values (every key carries the same bias)."""
+    g = _gen(cuda)
+    q, k, v = (torch.randn(6, 16, s, 64, generator=g, device=cuda).bfloat16()
+               for _ in range(3))
+    lens = torch.tensor([s, s + 7, min(64, s), max(1, (2 * s) // 3), 1, 0],
+                        device=cuda)
+    n0, m0 = flash_attention_varlen.launches, flash_attention.launches
+    got = flash_attention(q, k, v, key_lens=lens)
+    assert flash_attention_varlen.launches == n0 + 1
+    assert flash_attention.launches == m0
+    want = reference_attention_varlen(q, k, v, lens)
+    assert torch.isfinite(got.float()).all()
+    mx, mean = _err(got[:5], want[:5])
+    scale = want[:5].float().abs()
+    assert mx <= 2 ** -6 * float(scale.max()), (mx, float(scale.max()))
+    assert mean <= 2 ** -7 * float(scale.mean()), (mean, float(scale.mean()))
+    uniform = v[5].float().mean(-2, keepdim=True).expand_as(got[5])
+    assert float((got[5].float() - uniform).abs().max()) <= 2 ** -7
+    # A padded clip equals the unmasked kernel on its own keys alone.
+    n = int(lens[3])
+    alone = flash_attention(q[3:4, :, :n].contiguous(), k[3:4, :, :n].contiguous(),
+                            v[3:4, :, :n].contiguous())
+    assert torch.equal(got[3, :, :n], alone[0])
+
+
+def test_varlen_attention_kernel_sharp_scores(cuda):
+    """q and k tripled (scores of std ~9) at the extraction shape's S."""
+    g = _gen(cuda, 1)
+    q, k, v = (torch.randn(4, 16, 199, 64, generator=g, device=cuda)
+               for _ in range(3))
+    q, k, v = (3 * q).bfloat16(), (3 * k).bfloat16(), v.bfloat16()
+    lens = torch.tensor([199, 150, 64, 77], device=cuda, dtype=torch.int32)
+    got = flash_attention(q, k, v, key_lens=lens)
+    want = reference_attention_varlen(q, k, v, lens)
     mx, mean = _err(got, want)
     scale = want.float().abs()
     assert mx <= 2 ** -6 * float(scale.max()), (mx, float(scale.max()))
@@ -140,6 +190,86 @@ def test_conv_encoder_kernel_matches_plain(cuda, batch, length):
     assert _err(got, exact)[1] <= 1.25 * _err(want, exact)[1]
 
 
+def _layer_operands(dev, batch, rows, kdim, seed=3):
+    g = _gen(dev, seed)
+    x = torch.randn(batch, rows, kdim, generator=g, device=dev).bfloat16()
+    w = (torch.randn(kdim, 512, generator=g, device=dev) * kdim ** -0.5).bfloat16()
+    vecs = [torch.randn(512, generator=g, device=dev) * 0.1 for _ in range(3)]
+    return x, w, (vecs[0], 1 + vecs[1], vecs[2])
+
+
+@pytest.mark.parametrize("batch,rows,kdim,t_pad", [
+    (1, 1, 16, 2), (3, 79, 16, 80), (2, 383, 16, 384),      # layer-0 patches
+    (3, 33, 1024, 34), (2, 24, 1024, 24), (1, 7, 1024, 4)])  # k=2 merged rows
+def test_gemm_layer_kernel_matches_plain(cuda, batch, rows, kdim, t_pad):
+    """Rows not a multiple of the 32-row tile, batch > 1, t_pad above the
+    operand's rows (the pad row comes from zeros) and below them."""
+    x, w, vecs = _layer_operands(cuda, batch, rows, kdim)
+    n0 = conv_pyramid._call_gemm.launches
+    got = conv_pyramid._call_gemm(x, w, *vecs, t_pad)
+    assert conv_pyramid._call_gemm.launches == n0 + 1
+    assert got.shape == (batch, t_pad, 512) and got.dtype == torch.bfloat16
+    mx, mean = _err(got, gemm_ln_gelu_reference(x, w, *vecs, t_pad))
+    # One layer: a flipped bf16 rounding of the conv sum moves the output by
+    # at most a few bf16 steps of an O(1) value.
+    assert mx <= 0.0625 and mean <= 1e-3, (mx, mean)
+
+
+@pytest.mark.parametrize("batch,t_in", [(1, 3), (3, 79), (2, 80), (2, 81),
+                                        (3, 82), (2, 799), (4, 6399)])
+def test_k3_layer_kernel_matches_plain(cuda, batch, t_in):
+    """Odd and even input lengths, odd and even output lengths (81 and 82
+    frames give 40, whose last row reads a merged row that exists): for odd T
+    the last real row's third tap is the pad row's first half; the rows past
+    the real output read zeros, never
+    the next clip's frames (each clip is checked against the plain version,
+    which pads per clip)."""
+    t_pad_in = t_in + t_in % 2
+    a, w, vecs = _layer_operands(cuda, batch, t_pad_in, 512, seed=t_in)
+    if t_in % 2:
+        a[:, -1] = 0
+    g = _gen(cuda, 5)
+    w01 = (torch.randn(1024, 512, generator=g, device=cuda) * 1536 ** -0.5).bfloat16()
+    xm = a.view(batch, t_pad_in // 2, 1024)
+    t_out = (t_in - 3) // 2 + 1
+    t_pad = t_out + t_out % 2
+    n0 = conv_pyramid._call_k3.launches
+    got = conv_pyramid._call_k3(xm, w01, w, *vecs, t_pad)
+    assert conv_pyramid._call_k3.launches == n0 + 1
+    assert got.shape == (batch, t_pad, 512)
+    assert torch.isfinite(got.float()).all()
+    mx, mean = _err(got, k3_ln_gelu_reference(xm, w01, w, *vecs, t_pad))
+    assert mx <= 0.0625 and mean <= 1e-3, (mx, mean)
+
+
+@pytest.mark.parametrize("batch,length", [(1, 400), (2, 1923), (2, 16000),
+                                          (4, 48000), (3, 64000)])
+def test_conv_encoder_per_layer_route_matches_plain_and_mega(cuda, batch, length):
+    """``mega=False``: 3 gemm + 4 k3 launches, within the conv-encoder bound
+    of its plain version and of the whole-pyramid route (two independent
+    hand-written formulations), and as close to the f32 path as the plain
+    bf16 version."""
+    cfg = Wav2Vec2Config()
+    args = _conv_args(cfg, cuda)
+    wave = torch.randn(batch, length, generator=_gen(cuda, 2), device=cuda)
+    counts = [w.launches for w in (conv_pyramid._call_gemm, conv_pyramid._call_k3,
+                                   fused_conv_encoder)]
+    got = fused_conv_encoder(wave, *args, cfg, mega=False)
+    assert [w.launches for w in (conv_pyramid._call_gemm, conv_pyramid._call_k3,
+                                 fused_conv_encoder)] == \
+        [counts[0] + 3, counts[1] + 4, counts[2]]
+    t = feat_extract_output_length(cfg, length)
+    assert got.shape == (batch, t, 512) and got.dtype == torch.bfloat16
+    want = conv_encoder_reference(wave, *args, cfg)
+    mx, mean = _err(got, want)
+    assert mx <= 0.06 and mean <= 5e-3, (mx, mean)
+    mx, mean = _err(got, fused_conv_encoder(wave, *args, cfg, mega=True))
+    assert mx <= 0.06 and mean <= 5e-3, (mx, mean)
+    exact = conv_encoder_reference(
+        wave, *args, dataclasses.replace(cfg, compute_dtype="float32"))
+    assert _err(got, exact)[1] <= 1.25 * _err(want, exact)[1]
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     g = _gen(cuda)
     q = torch.randn(1, 1, 8, 32, generator=g, device=cuda).bfloat16()
@@ -148,6 +278,23 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.randn(1, 1, 8, 64, generator=g, device=cuda)
     with pytest.raises(TypeError):           # f32
         flash_attention(q, q, q)
+    q = torch.randn(2, 1, 8, 64, generator=g, device=cuda).bfloat16()
+    with pytest.raises(ValueError):          # one length for two clips
+        flash_attention(q, q, q, key_lens=torch.tensor([4], device=cuda))
+    with pytest.raises(TypeError):           # f32 with key lengths
+        flash_attention(q.float(), q.float(), q.float(),
+                        key_lens=torch.tensor([4, 4], device=cuda))
+    x, w, vecs = _layer_operands(cuda, 1, 8, 16)
+    with pytest.raises(TypeError):           # f32 rows
+        conv_pyramid._call_gemm(x.float(), w, *vecs, 8)
+    with pytest.raises(ValueError):          # K = 8, not a multiple of 16
+        conv_pyramid._call_gemm(x[..., :8].contiguous(), w[:8].contiguous(),
+                                *vecs, 8)
+    with pytest.raises(ValueError):          # 256 channels
+        conv_pyramid._call_k3(torch.zeros(1, 4, 512, device=cuda).bfloat16(),
+                              torch.zeros(512, 512, device=cuda).bfloat16(),
+                              torch.zeros(256, 512, device=cuda).bfloat16(),
+                              *vecs, 2)
     x = torch.randn(4, 512, generator=g, device=cuda).bfloat16()
     w = torch.zeros(1024, 512, device=cuda).bfloat16()
     vec = torch.zeros(1024, device=cuda)

@@ -202,6 +202,81 @@ def test_wav2vec2_encoder_matches_jax(jax_w2v2):
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("mega", [True, False])
+def test_wav2vec2_encoder_flash_matches_jax_pallas(jax_w2v2, mega):
+    """``use_flash_attn=True`` (q, k, v through ``flash_attention`` with one
+    key length per clip) with a pad mask, on either conv route, against the
+    JAX encoder with ``use_pallas=True`` (conv pyramid, fused FFN and varlen
+    flash attention; off a TPU each of its kernels runs in Pallas interpret
+    mode by default) on the same params.  f32: the tolerance of
+    tests/test_wav2vec2.py's Pallas-vs-XLA case.  Padded frames' rows are
+    compared too: every row has at least one valid key."""
+    cfg, _, params = jax_w2v2
+    rng = np.random.default_rng(4)
+    wave = rng.normal(size=(2, 3200)).astype(np.float32)
+    t = feat_extract_output_length(cfg, 3200)
+    mask = np.zeros((2, t), bool)
+    mask[1, t // 2:] = True
+    want = np.asarray(JaxWav2Vec2(cfg, use_pallas=True).apply(
+        params, jnp.asarray(wave), jnp.asarray(mask)))
+
+    port = Wav2Vec2Encoder(port_config.Wav2Vec2Config(**W2V2_KW), device=CPU,
+                           use_flash_attn=True, mega=mega)
+    assert all(layer.use_flash_attn for layer in port.layers)
+    assert port.feature_encoder.mega is mega
+    port.load_state_dict(wav2vec2_from_flax(_np_tree(params)))
+    with torch.inference_mode():
+        got = port(torch.from_numpy(wave), torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(got, want, atol=5e-4, rtol=5e-4)
+
+
+def test_wav2vec2_flash_flag_follows_kernels_and_embedder_keeps_it_off():
+    """``use_flash_attn=None`` follows ``use_kernels`` (the JAX encoder's
+    follows ``use_pallas``); ``AudioEmbedder`` keeps it off and the
+    whole-pyramid conv route by default, as the JAX ``AudioEmbedder`` does,
+    and builds the all-kernel encoder only when asked by keyword."""
+    cfg = port_config.Wav2Vec2Config(**W2V2_KW)
+    for use_kernels, flag, want in [(True, None, True), (False, None, False),
+                                    (True, False, False), (False, True, True)]:
+        enc = Wav2Vec2Encoder(cfg, device=CPU, use_kernels=use_kernels,
+                              use_flash_attn=flag)
+        assert [layer.use_flash_attn for layer in enc.layers] == [want] * 2
+    emb = AudioEmbedder(cfg, device=CPU)
+    assert not any(layer.use_flash_attn for layer in emb.model.layers)
+    assert emb.model.feature_encoder.mega is True
+    emb = AudioEmbedder(cfg, device=CPU, use_flash_attn=True, mega=False)
+    assert all(layer.use_flash_attn for layer in emb.model.layers)
+    assert emb.model.feature_encoder.mega is False
+    assert JaxAudioEmbedder(jax_config.Wav2Vec2Config(**W2V2_KW),
+                            use_pallas=False).model.use_flash_attn is False
+
+
+@pytest.mark.parametrize("flash", [True, False])
+def test_wav2vec2_layer_attention_routes_bf16_rounding_points(jax_w2v2, flash):
+    """The bf16 layer on each attention route, named explicitly (the
+    encoder's default follows ``use_kernels``).  With ``use_flash_attn`` q,
+    k, v stay in bf16 and the attention output is rounded to bf16 before the
+    ``out`` projection; the plain route keeps f32 until that projection
+    rounds.  Both round at the points of the JAX layer on its XLA attention
+    and Pallas FFN (interpret); f32 summation order alone gives ~1.5e-6."""
+    _, _, params = jax_w2v2
+    params = _perturbed(params, 2)
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(2, 20, 32)).astype(np.float32)
+    mask = np.zeros((2, 20), bool)
+    mask[1, 14:] = True
+    want = JaxEncoderLayer(jax_config.Wav2Vec2Config(**_bf16(W2V2_KW)),
+                           use_fused_ffn=True).apply(
+        {"params": params["params"]["layer_0"]}, jnp.asarray(x),
+        jnp.asarray(mask))
+    port = Wav2Vec2Encoder(port_config.Wav2Vec2Config(**_bf16(W2V2_KW)),
+                           device=CPU, use_flash_attn=flash)
+    port.load_state_dict(wav2vec2_from_flax(params))
+    with torch.inference_mode():
+        got = port.layers[0](torch.from_numpy(x), torch.from_numpy(mask))
+    assert _rel_l2(got.numpy(), want) <= 2e-5, _rel_l2(got.numpy(), want)
+
+
 def test_audio_embedder_matches_jax(jax_w2v2):
     """Uneven lengths in one batch (batch bucket 4 for 3 pieces + a split),
     and a clip longer than chunk_duration_s (0.5 s here) split and
