@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's clip and extraction paths on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's clip, extraction, probe and training paths on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,7 +9,7 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 1. device: print the card's name and power limit (``nvidia-smi``); exit
    non-zero when CUDA is unavailable -- there is no CPU fallback.
 2. build: compile every kernel under ``mmer_tpu_torch/csrc`` with nvcc.
-3. kernels: each of the six kernels against its plain PyTorch version,
+3. kernels: each of the eight kernels against its plain PyTorch version,
    both on the card, at the shapes the main paths give it (the serving
    requests' and both Wav2Vec2 forwards of the extraction folder,
    ``EXTRACT_WAVES``): max / mean absolute error
@@ -17,7 +18,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    (``scaled_dot_product_attention``), that call's (CUDA events, after
    warm-up); and the least time the card could take, from the shapes
    (``bound_ms``).  The two conv routes (``mega`` on and off) are also held
-   against each other.
+   against each other.  ``fused_ln_matmul`` runs at the profile shape and at
+   the Wav2Vec2 width; every mode of ``attention_variant`` at the probe shape
+   (16, 12, 1569, 64) padded to 1664 keys, the two ``p = scores`` modes on
+   the rows whose plain denominator is at least ``DEN_MIN`` in magnitude.
 4. main path: ``InferenceEngine`` at the full default configs with seeded
    port-native weights serves three requests (``predict_chunks`` on a
    3-chunk clip with 3.2 s of audio and on a 1-chunk clip with 12 s of
@@ -39,6 +43,18 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ``embed_chunks`` with and without ``pipeline``: identical rows, four
    timed calls of each.
 
+6. profile: ``mmer_tpu_torch.scripts.profile_fused_blocks.main`` and
+   ``mmer_tpu_torch.scripts.probe_attn.main`` at their full shapes, with the
+   launch counts of ``fused_ln_matmul``, ``fused_ffn`` and every attention mode
+   held to what the scripts' inputs and passes imply.
+7. training: 8,496 seeded samples written as ``.npy`` feature artifacts
+   under CREMA-D / RAVDESS names → ``mmer_tpu_torch.train.cli.main`` at
+   ``ModelConfig()`` width for ``TRAIN_EPOCHS`` epochs at batch 64: the train
+   loss must be finite and fall, the validation accuracy beat chance, the
+   confusion matrix sum to the test split, the artifacts exist; then
+   ``InferenceEngine`` loads the trained head and its normalisation
+   statistics and answers one request.
+
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -47,6 +63,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -87,11 +104,33 @@ TOLERANCES = {
     # sum moves an O(1) output by a few bf16 steps (tests/test_torch_cuda.py).
     "conv_layer": (0.0625, 1e-3),
 }
-RELATIVE = {"flash_attention", "flash_attention_varlen"}
 TOLERANCES["flash_attention_varlen"] = TOLERANCES["flash_attention"]
-# Published peaks of one H100 SXM: dense bf16 tensor-core rate and HBM rate.
-PEAK_FLOPS = 989e12
-PEAK_BYTES = 3.35e12
+# Same rounding points as the plain version (LN rounded to bf16, one rounding
+# of the f32 product): only summation order can flip the last rounding, for a
+# handful of the 58 M outputs.  One bf16 ulp of an output v is at most
+# 2^-7 |v|, hence the bound on the max, as a fraction of max |plain|; the
+# mean, as a fraction of mean |plain|, reads 2-3e-6.
+TOLERANCES["fused_ln_matmul"] = (2 ** -7, 2 ** -15)
+# Every mode whose p is a softmax or a shifted score: the attention bound.
+TOLERANCES["attention_variant"] = TOLERANCES["flash_attention"]
+RELATIVE = {"flash_attention", "flash_attention_varlen", "attention_variant",
+            "fused_ln_matmul"}
+# The two ``p = scores`` modes divide by a sum of signed scores, which comes
+# near zero on a few per cent of rows.  They are compared on the rows whose
+# plain |denominator| is at least DEN_MIN, as implied numerators
+# (|kernel - plain| * |denominator|): at most 2^-6 of max |numerator| (a
+# flipped bf16 rounding of the output is 2^-8 to 2^-7 of it) and 2^-9 of mean
+# |numerator| on average.
+DEN_MIN = 4.0
+PRODUCTS_ONLY_TOL = (2 ** -6, 2 ** -9)
+PROBE_SHAPE = (16, 12, 1569, 64)
+PROBE_S_PAD = 1664
+TRAIN_EPOCHS = 4
+CLASS_COUNTS = (1183, 1463, 1462, 1463, 1463, 1462)   # NEU HAP SAD ANG FEA DIS
+# Each class's mean direction is added to unit-normal features at this
+# strength: ~1.4 sigma per video row and per audio vector, so that the
+# classes overlap and the loss keeps falling over the epochs.
+CLASS_SIGNAL = 0.05
 # The waveform batches of the extraction phase's two Wav2Vec2 forwards: 64
 # clips of up to 5 s, then 33 pieces (batch bucket 64) with a 10 s piece.
 # The kernel phase holds every Wav2Vec2 kernel at both; the extraction phase
@@ -123,7 +162,19 @@ SOURCES = {
                           "mmer_tpu/ops/conv_pyramid.py:91"),
     "conv_k3_ln_gelu": ("mmer_tpu_torch/csrc/conv_layers.cu",
                         "mmer_tpu/ops/conv_pyramid.py:97"),
+    "fused_ln_matmul": ("mmer_tpu_torch/csrc/ln_matmul.cu",
+                        "mmer_tpu/ops/fused_blocks.py:88"),
 }
+# The probe kernels of scripts/probe_attn.py, by the kernel body each mode ran.
+SOURCES.update({
+    f"attention_variant[{mode}]": ("mmer_tpu_torch/csrc/attention.cu",
+                                   f"scripts/probe_attn.py:{line}")
+    for mode, line in (("full", 39), ("nomask", 39), ("noexp", 39),
+                       ("nosoftmax", 39), ("mxumask", 115), ("kt", 77),
+                       ("kt_nosoftmax", 77))})
+# Kernels that only the profile and probe scripts launch.
+PROBE_KERNELS = tuple(k for k in SOURCES
+                      if k == "fused_ln_matmul" or k.startswith("attention_variant"))
 
 
 def wrappers() -> dict:
@@ -131,9 +182,10 @@ def wrappers() -> dict:
     from mmer_tpu_torch.ops import conv_pyramid
     from mmer_tpu_torch.ops.flash_attention import (flash_attention,
                                                     flash_attention_varlen)
-    from mmer_tpu_torch.ops.fused_blocks import fused_ffn
+    from mmer_tpu_torch.ops.fused_blocks import fused_ffn, fused_ln_matmul
 
     return {"flash_attention": flash_attention, "fused_ffn": fused_ffn,
+            "fused_ln_matmul": fused_ln_matmul,
             "fused_conv_encoder": conv_pyramid.fused_conv_encoder,
             "flash_attention_varlen": flash_attention_varlen,
             "conv_gemm_ln_gelu": conv_pyramid._call_gemm,
@@ -141,18 +193,30 @@ def wrappers() -> dict:
 
 
 def reset_launches() -> None:
+    from mmer_tpu_torch.ops.attention_variants import attention_variant
+
     for w in wrappers().values():
         w.launches = 0
+    for mode in attention_variant.launches:
+        attention_variant.launches[mode] = 0
 
 
 def read_launches() -> dict:
-    return {k: w.launches for k, w in wrappers().items()}
+    """Launch count of every kernel, the attention probe's per mode."""
+    from mmer_tpu_torch.ops.attention_variants import attention_variant
+
+    out = {k: w.launches for k, w in wrappers().items()}
+    out.update({f"attention_variant[{mode}]": n
+                for mode, n in attention_variant.launches.items()})
+    return out
 
 
 def bound(flops: float, nbytes: float, tag: str = "") -> dict:
     """The least time the card could take: operations over the bf16 peak or
     bytes (each input read once, each output written once) over the memory
     rate, whichever is larger.  Keys carry the case's ``tag``."""
+    from mmer_tpu_torch.scripts.timing import PEAK_BYTES, PEAK_FLOPS
+
     t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     log(f"  work: {flops / 1e9:.3f} GFLOP ({t_ops:.4f} ms at the bf16 peak), "
         f"{nbytes / 1e6:.3f} MB ({t_bytes:.4f} ms at the memory rate)")
@@ -180,19 +244,9 @@ def device_line() -> str:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    import torch
+    from mmer_tpu_torch.scripts.timing import event_ms
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return event_ms(fn, iters, warmup)
 
 
 def build_kernels() -> None:
@@ -557,6 +611,307 @@ def check_kernels(dev) -> dict:
     return res
 
 
+
+def check_probe_kernels(dev) -> dict:
+    """``fused_ln_matmul`` and every mode of ``attention_variant`` against
+    their plain versions at the profile and probe scripts' shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from mmer_tpu_torch.ops.attention_variants import (
+        MODES, attention_variant, attention_variant_reference, launch_variant,
+        variant_operands)
+    from mmer_tpu_torch.ops.flash_attention import flash_attention
+    from mmer_tpu_torch.ops.fused_blocks import (LN_EPS, fused_ln_matmul,
+                                                 ln_matmul_reference)
+
+    g = torch.Generator(device=dev)
+    bf = torch.bfloat16
+    res = {}
+
+    def randn(*shape, std=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g, device=dev) * std).to(dtype)
+
+    # LN -> QKV at the profile shape (bf16 stream), and at the Wav2Vec2 width
+    # (f32 stream, 4 x 149 frames).
+    r = {}
+    for tag, seed, shape, d, n, x_dtype, iters in (
+            ("", 100, (16, 1569), 768, 2304, bf, 20),
+            ("_w2v2", 101, (4, 149), 1024, 3072, torch.float32, 50)):
+        g.manual_seed(seed)
+        x = randn(*shape, d, dtype=x_dtype)
+        ln_w, ln_b = 1.0 + randn(d, std=0.1), randn(d, std=0.1)
+        w = randn(n, d, std=d ** -0.5, dtype=bf)
+        got = fused_ln_matmul(x, ln_w, ln_b, w)
+        want = ln_matmul_reference(x, ln_w, ln_b, w)
+        torch.cuda.synchronize()
+        if got.shape != (*shape, n) or got.dtype != bf:
+            raise AssertionError(f"fused_ln_matmul gave {tuple(got.shape)} "
+                                 f"{got.dtype}")
+        shape_s = (f"x {(*shape, d)} {str(x_dtype).split('.')[-1]}, w ({n},{d}) "
+                   "bf16")
+        log(f"kernel fused_ln_matmul, {shape_s}")
+        r2 = _compare("fused_ln_matmul", got, want)
+        ln_w_bf, ln_b_bf = ln_w.to(bf), ln_b.to(bf)
+        xb = x.to(bf)
+        r.update({
+            f"max_abs_err{tag}": r2["max_abs_err"],
+            f"mean_abs_err{tag}": r2["mean_abs_err"],
+            f"ms{tag}": cuda_ms(lambda: fused_ln_matmul(x, ln_w, ln_b, w), iters),
+            f"plain_ms{tag}": cuda_ms(
+                lambda: ln_matmul_reference(x, ln_w, ln_b, w), 5),
+            # Not one call but two (LayerNorm, then the product), in bf16.
+            f"two_call_ms{tag}": cuda_ms(
+                lambda: F.linear(F.layer_norm(xb, (d,), ln_w_bf, ln_b_bf, LN_EPS),
+                                 w), iters),
+            f"shape{tag}": shape_s})
+        r.update(bound(2.0 * x.numel() * n, nbytes(x, ln_w, ln_b, w, got), tag))
+        del x, w, got, want, xb
+    r["library_ms"] = None          # LayerNorm and the product are two calls
+    res["fused_ln_matmul"] = r
+    log(f"time fused_ln_matmul: kernel {r['ms']:.4f} ms, LayerNorm + linear in "
+        f"bf16 (two library calls) {r['two_call_ms']:.4f} ms")
+
+    # The attention probe: all seven modes on one (q, k, v).
+    b, h, s, d = PROBE_SHAPE
+    g.manual_seed(102)
+    q, k, v = (randn(b, h, s, d, dtype=bf) for _ in range(3))
+    flash = flash_attention(q, k, v)
+    # One library call per function: keys at or beyond S absent (``full``,
+    # ``mxumask``, ``kt``), or, for ``nomask``, the zero-padded keys and
+    # values taking part.  No single call computes the three invalid modes.
+    kp, vp = (F.pad(t, (0, 0, 0, PROBE_S_PAD - s)) for t in (k, v))
+    masked_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
+    padded_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, kp, vp), 20)
+    library = {"full": masked_ms, "mxumask": masked_ms, "kt": masked_ms,
+               "nomask": padded_ms}
+    library_nomask = F.scaled_dot_product_attention(q, kp, vp)
+    del kp, vp
+    for mode in MODES:
+        name = f"attention_variant[{mode}]"
+        # The result comes through the public wrapper; the timing below is of
+        # the launch alone over pre-staged operands, as the probe script's.
+        got = attention_variant(q, k, v, mode, PROBE_S_PAD)
+        ops = variant_operands(q, k, v, mode, PROBE_S_PAD)
+        torch.cuda.synchronize()
+
+        def plain(parts=False):
+            # Two batch elements at a time: a (2,12,1664,1664) f32 score
+            # matrix is 266 MB, the whole batch's would be 2.1 GB a copy.
+            outs = [attention_variant_reference(
+                q[i:i + 2], k[i:i + 2], v[i:i + 2], mode, PROBE_S_PAD,
+                return_parts=parts) for i in range(0, b, 2)]
+            if not parts:
+                return torch.cat(outs)
+            return tuple(torch.cat(t) for t in zip(*outs))
+
+        want, num, den = plain(parts=True)
+        log(f"kernel {name}, q,k,v {PROBE_SHAPE} bf16, keys padded to "
+            f"{PROBE_S_PAD}")
+        if mode in ("nosoftmax", "kt_nosoftmax"):
+            keep = (den.abs() >= DEN_MIN).squeeze(-1)
+            share = float(keep.float().mean())
+            diff = (got.float() - want.float()).abs()[keep]
+            implied = diff * den.abs()[keep]
+            mx, mean = float(implied.max()), float(implied.mean())
+            tol_max = PRODUCTS_ONLY_TOL[0] * float(num[keep].abs().max())
+            tol_mean = PRODUCTS_ONLY_TOL[1] * float(num[keep].abs().mean())
+            ok = bool(torch.isfinite(implied).all()) and mx <= tol_max \
+                and mean <= tol_mean and share > 0.8
+            log(f"kernel {name}: rows with |denominator| >= {DEN_MIN}: "
+                f"{100 * share:.2f} % compared; |kernel - plain| * "
+                f"|denominator| max {mx:.3e} (tol {tol_max:.3e}) mean "
+                f"{mean:.3e} (tol {tol_mean:.3e}) -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} disagrees with its plain version")
+            r = {"max_abs_err": float(diff.max()),
+                 "mean_abs_err": float(diff.mean()),
+                 "implied_numerator_max_err": mx, "rows_compared": share}
+        else:
+            r = _compare(name, got, want, key="attention_variant")
+            r["rows_compared"] = 1.0
+        if mode in ("mxumask", "kt"):
+            r2 = _compare(f"{name} vs flash_attention", got, flash,
+                          key="attention_variant")
+            r["max_abs_diff_vs_flash"] = r2["max_abs_err"]
+        if mode == "nomask":
+            # The library call over padded keys computes this mode's function.
+            log(f"library call for {name}: scaled_dot_product_attention over "
+                f"k, v zero-padded to {PROBE_S_PAD} rows, against the plain "
+                "version")
+            r2 = _compare(f"{name}: library call vs plain", library_nomask,
+                          want, key="attention_variant")
+            r["library_max_abs_err"] = r2["max_abs_err"]
+        r["ms"] = cuda_ms(lambda: launch_variant(mode, *ops, PROBE_S_PAD), 10)
+        r["plain_ms"] = cuda_ms(plain, 1, warmup=0)
+        r["library_ms"] = library.get(mode)
+        r["shape"] = f"q,k,v {PROBE_SHAPE} bf16, s_pad {PROBE_S_PAD}"
+        r.update(bound(4.0 * b * h * s * s * d, nbytes(*ops, got)))
+        res[name] = r
+        log(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
+            + (f", library call {r['library_ms']:.4f} ms"
+               if r["library_ms"] is not None else ""))
+        del ops, got, want, num, den
+    del q, k, v, flash, library_nomask
+    torch.cuda.synchronize()
+    return res
+
+
+def run_profile_scripts() -> dict:
+    """The profile and probe scripts through their ``main``; returns the
+    launch counts of that run."""
+    from mmer_tpu_torch.ops.attention_variants import MODES, VALID_MODES
+    from mmer_tpu_torch.scripts import probe_attn, profile_fused_blocks
+    from mmer_tpu_torch.scripts.timing import ROUNDS
+
+    inputs = 3
+    passes = inputs * (1 + ROUNDS)          # one warm-up pass, then ROUNDS
+    reset_launches()
+    rows = profile_fused_blocks.main(["--inputs", str(inputs)])
+    rows += probe_attn.main(["--inputs", str(inputs)])
+    launches = read_launches()
+    for row in rows:
+        if not (row["ms"] > 0 and row["device"] != "cpu"):
+            raise AssertionError(f"profile row {row} is not a device time")
+    # Each valid mode is also run once against flash_attention, which is
+    # itself launched once for that comparison and by every ``full`` call.
+    variant = {m: passes + (m in VALID_MODES) for m in MODES}
+    expected = {**{k: 0 for k in launches},
+                "fused_ln_matmul": passes, "fused_ffn": passes,
+                "flash_attention": 1 + variant["full"],
+                **{f"attention_variant[{m}]": n for m, n in variant.items()}}
+    log(f"profile scripts: launch counts {launches}, expected {expected}")
+    if launches != expected:
+        raise AssertionError("the profile and probe scripts did not launch the "
+                             "kernels as expected")
+    return launches
+
+
+def _make_feature_folders(video_dir: str, audio_dir: str, rng) -> int:
+    """Feature artifacts of CLASS_COUNTS samples per class from a seed:
+    ``*_faces_mp4_features.npy`` (T, 768) float32 with T in 1..5 and
+    ``*_voice_mp4_features.npy`` (1024,) float16, unit norm, under CREMA-D
+    names and (every fourth sample) RAVDESS names.  Each class has its own
+    mean direction, so there is something to learn.  Returns the count."""
+    import numpy as np
+
+    emotions = ("NEU", "HAP", "SAD", "ANG", "FEA", "DIS")
+    ravdess_code = (1, 3, 4, 5, 6, 7)
+    mu_v = rng.normal(size=(len(emotions), 768)).astype(np.float32)
+    mu_a = rng.normal(size=(len(emotions), 1024)).astype(np.float32)
+    total = 0
+    for c, count in enumerate(CLASS_COUNTS):
+        lengths = rng.integers(1, 6, size=count)
+        video = rng.normal(size=(int(lengths.sum()), 768)).astype(np.float32) \
+            + CLASS_SIGNAL * mu_v[c]
+        audio = rng.normal(size=(count, 1024)).astype(np.float32) + CLASS_SIGNAL * mu_a[c]
+        audio /= np.linalg.norm(audio, axis=1, keepdims=True)
+        row = 0
+        for i, t in enumerate(lengths):
+            key = (f"Actor_{i % 24 + 1:02d}_{i:05d}_02-01-{ravdess_code[c]:02d}"
+                   f"-01-01-01-{i % 24 + 1:02d}" if i % 4 == 3 else
+                   f"{1000 + i}_S{c}{i % 12:02d}_{emotions[c]}_XX")
+            np.save(os.path.join(video_dir, f"{key}_faces_mp4_features.npy"),
+                    video[row:row + t])
+            np.save(os.path.join(audio_dir, f"{key}_voice_mp4_features.npy"),
+                    audio[i].astype(np.float16))
+            row += t
+        total += count
+    return total
+
+
+def run_training(dev) -> None:
+    """The fusion training path at full width on a dataset of real size,
+    then serving with the trained head."""
+    import glob
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mmer_tpu_torch.serve.engine import InferenceEngine
+    from mmer_tpu_torch.train import cli
+
+    rng = np.random.default_rng(2)
+    with tempfile.TemporaryDirectory(prefix="mmer_smoke_train_") as tmp:
+        video_dir, audio_dir, out_dir = (os.path.join(tmp, d) for d in
+                                         ("video", "audio", "runs"))
+        os.makedirs(video_dir)
+        os.makedirs(audio_dir)
+        t0 = time.perf_counter()
+        n = _make_feature_folders(video_dir, audio_dir, rng)
+        log(f"training: wrote {n} feature pairs in "
+            f"{time.perf_counter() - t0:.2f} s")
+
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = cli.main(["--video_feat_dir", video_dir, "--audio_feat_dir",
+                        audio_dir, "--batch_size", "64", "--num_epochs",
+                        str(TRAIN_EPOCHS), "--lr", "1e-4", "--output_dir",
+                        out_dir])
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+        if any(read_launches().values()):
+            raise AssertionError(f"training launched kernels: {read_launches()}")
+
+        rows = out.results
+        losses = [r["train_loss"] for r in rows]
+        wall = out.hyperparameters["train_wall_seconds"]
+        n_held_out = math.ceil(0.2 * n)         # the 80/10/10 split's sizes
+        n_train, n_test_want = n - n_held_out, math.ceil(0.5 * n_held_out)
+        with open(out.results_path) as f:
+            saved = json.load(f)
+        n_test = int(np.sum(saved["confusion_matrix"]))
+        log(f"training: {len(rows)} epochs at batch 64 on {out.hyperparameters['device']}"
+            f", train loss {', '.join(f'{x:.4f}' for x in losses)}; val acc "
+            f"{rows[-1]['val_acc']:.2f} %, test acc {rows[-1]['test_acc']:.2f} %; "
+            f"best epoch {out.best_epoch}; confusion matrix sums to {n_test}")
+        log(f"training: {wall:.2f} s for {len(rows)} epochs with their "
+            f"evaluations ({wall / len(rows):.3f} s an epoch, "
+            f"{len(rows) * n_train / wall:.1f} samples/s over {n_train} "
+            f"training samples), {total_s:.2f} s with loading and saving; peak "
+            f"device memory {peak:.1f} MiB")
+        # The training pass of each epoch alone: epoch 1 carries the
+        # libraries' warm-up, the later ones are the warm rate.
+        passes = out.train_epoch_seconds
+        warm = min(passes[1:])
+        log("training: training pass alone "
+            + ", ".join(f"{t:.3f}" for t in passes) + " s an epoch; fastest "
+            f"warm epoch {warm:.3f} s, {n_train / warm:.1f} samples/s")
+        if out.hyperparameters["device"] != "cuda" or len(rows) != TRAIN_EPOCHS:
+            raise AssertionError("training did not run its epochs on the card")
+        if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+            raise AssertionError(f"train loss not finite and falling: {losses}")
+        if not rows[-1]["val_acc"] > 2 * 100.0 / len(CLASS_COUNTS):
+            raise AssertionError(f"val accuracy {rows[-1]['val_acc']} is not "
+                                 "above chance")
+        if n_test != n_test_want or saved["best_model"]["epoch"] != out.best_epoch:
+            raise AssertionError("results file disagrees with the run")
+        for pattern in ("results_*.json", "best_model_*.pth",
+                        "final_model_*.pth", "norm_stats_*.npz"):
+            if len(glob.glob(os.path.join(out_dir, pattern))) != 1:
+                raise AssertionError(f"training artifact {pattern} missing")
+
+        # Train -> serve: the engine loads the trained head and its stats.
+        engine = InferenceEngine(dev, fusion_params_path=out.best_model_path,
+                                 norm_stats_path=out.norm_stats_path)
+        for key, value in engine.fusion.state_dict().items():
+            if not torch.equal(value.cpu(), out.best_params[key].cpu()):
+                raise AssertionError(f"engine weight {key} is not the trained one")
+        clip = rng.integers(0, 256, size=(2, 32, 224, 224, 3), dtype=np.uint8)
+        wave = (rng.normal(size=(48000,)) * 0.1).astype(np.float32)
+        res = engine.predict_chunks(clip, wave)
+        probs = np.asarray(res["probabilities"], np.float64)
+        log(f"training: InferenceEngine with the trained head answers "
+            f"{res['predicted_label']}, probabilities {np.round(probs, 4).tolist()}")
+        if not (np.isfinite(probs).all() and abs(probs.sum() - 1.0) < 1e-4
+                and set(engine.norm_stats) == {"video_mean", "video_std",
+                                               "audio_mean", "audio_std"}):
+            raise AssertionError("serving with the trained head failed")
+
+
 def main() -> int:
     log(f"device: {device_line()}")
     import torch
@@ -581,19 +936,25 @@ def main() -> int:
 
     build_kernels()
     kernels = check_kernels(dev)
+    kernels.update(check_probe_kernels(dev))
     serving = run_main_path(dev)
     extraction = run_extraction(dev)
+    profile = run_profile_scripts()
+    run_training(dev)
     # launches: of the main path that runs the kernel.  The serving requests
     # for the three kernels on the clip path (which the extraction CLI also
     # runs: launches_extraction_cli), the all-kernel extraction run for the
-    # varlen attention and the per-layer conv kernels.
+    # varlen attention and the per-layer conv kernels, the profile and probe
+    # scripts for the kernels only they launch.
     lines = [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
-         "launches": serving[name] or extraction["all_kernel"][name],
+         "launches": (profile[name] if name in PROBE_KERNELS else
+                      serving[name] or extraction["all_kernel"][name]),
          "launches_serving": serving[name],
          "launches_extraction_cli": extraction["cli"][name],
          "launches_extraction_all_kernel": extraction["all_kernel"][name],
+         "launches_profile_scripts": profile[name],
          **{k: v for k, v in r.items() if not k.startswith("shape")}}
         for name, r in kernels.items()]
     idle = [k["name"] for k in lines if k["launches"] < 1]
@@ -682,14 +1043,14 @@ def run_main_path(dev) -> dict:
     bs = engine.video_extractor.device_batch
     vivit_batches = sum(-(-len(args[0]) // bs) for _, _, args in requests)
     w2v2_forwards = len(requests)
+    # Serving keeps Wav2Vec2 attention plain and the conv encoder on its
+    # whole-pyramid route, as the JAX AudioEmbedder does; the profile and
+    # probe kernels are on no request's path.
     expected = {
+        **{k: 0 for k in launches},
         "flash_attention": vivit_batches * vcfg.depth,
         "fused_ffn": vivit_batches * vcfg.depth + w2v2_forwards * wcfg.num_layers,
         "fused_conv_encoder": w2v2_forwards * len(wcfg.conv_dims),
-        # Serving keeps Wav2Vec2 attention plain and the conv encoder on its
-        # whole-pyramid route, as the JAX AudioEmbedder does.
-        "flash_attention_varlen": 0, "conv_gemm_ln_gelu": 0,
-        "conv_k3_ln_gelu": 0,
     }
     log(f"launch counts {launches}, expected {expected}")
     if launches != expected:

@@ -1,4 +1,4 @@
-"""Configuration dataclasses of the clip path.
+"""Configuration dataclasses of the clip, extraction and training paths.
 
 Copied from ``mmer_tpu/config.py`` rather than imported: the PyTorch port
 must run where JAX is not installed, and modules under ``mmer_tpu`` reach
@@ -45,6 +45,71 @@ class ModelConfig:
     norm: str = "layernorm"
     # Compute dtype for the fused transformer.  Params stay float32.
     compute_dtype: str = "bfloat16"
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Feature-dataset configuration.
+
+    ``pairing='key'`` pairs video and audio artifacts by sample key;
+    ``pairing='positional'`` reproduces the reference's ``zip(sorted, sorted)``
+    (train2.py:315-325) for comparisons.  The two directory defaults are
+    relative paths here (the JAX package's point at its own data mount).
+    """
+
+    video_feat_dir: str = "video_features"
+    audio_feat_dir: str = "audio_features"
+    batch_size: int = 64
+    seed: int = 42
+    pairing: str = "key"
+    # v1 trainer oversamples NEU to the majority count (train.py:199-211).
+    oversample_neutral: bool = False
+    # Mild class-weight boost for FEA/DIS (train2.py:484-486).
+    boost_classes: tuple = (4, 5)
+    boost_factor: float = 1.2
+    # Normalization: "global" per-dim over the dataset (train2.py:362-378)
+    # or "per_sample" (v1, train.py:176-177).
+    normalization: str = "global"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimization loop configuration (reference train2.py:495-774).  The
+    opt-in fields ``ema_decay``, ``mixup_alpha``, ``modality_dropout`` and
+    ``distill_alpha`` are carried so that configs stay interchangeable with
+    the JAX package's; the port's trainer raises on a non-zero value."""
+
+    num_epochs: int = 100
+    lr: float = 1e-4
+    weight_decay: float = 1e-4
+    clip_norm: float = 1.0
+    # Early stopping: stop after `patience` epochs whose val-loss improvement
+    # over the previous epoch is < min_delta (train2.py:622-633).
+    patience: int = 8
+    min_delta: float = 1e-4
+    # ReduceLROnPlateau on val loss (train2.py:526).
+    scheduler_factor: float = 0.3
+    scheduler_patience: int = 20
+    # "weighted_ce" (v2, train2.py:523) or "focal" (v1, train.py:251).
+    loss: str = "weighted_ce"
+    focal_gamma: float = 2.0
+    # Opt-in improvement beyond the reference (0.0 = exact reference loss).
+    label_smoothing: float = 0.0
+    ema_decay: float = 0.0
+    mixup_alpha: float = 0.0
+    modality_dropout: float = 0.0
+    distill_alpha: float = 0.0
+    distill_temp: float = 1.0
+    # Best-model selection: "val_loss" (v2, train2.py:617-620) or
+    # "val_acc" (v1, train.py:334-338).
+    best_metric: str = "val_loss"
+    output_dir: str = "training_runs_2"
+    save_checkpoints: bool = True
+    # Periodic full-state (params + optimizer + generator) checkpoints for
+    # mid-run resume; 0 disables.
+    checkpoint_every: int = 0
+    eval_test_every_epoch: bool = True
+    log_every: int = 1
 
 
 @dataclass(frozen=True)

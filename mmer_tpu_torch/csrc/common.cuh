@@ -40,6 +40,47 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// LayerNorm of one row of D values by one warp, in f32 with flax semantics
+// (eps 1e-6, var = max(0, E[x^2] - E[x]^2)), rounded to bf16 into ``dst``:
+// the prologue shared by the fused FFN and the fused LN-matmul kernels.
+template <int D, typename XT>
+__device__ __forceinline__ void ln_row_bf16(const XT* xr, const float* ln_w,
+                                            const float* ln_b, bf16* dst, int lane) {
+  float s = 0.f, ss = 0.f;
+  for (int c = lane; c < D; c += 32) {
+    float v = to_f32(xr[c]);
+    s += v;
+    ss += v * v;
+  }
+  s = warp_sum(s);
+  ss = warp_sum(ss);
+  const float mean = s / D;
+  const float var = fmaxf(ss / D - mean * mean, 0.f);
+  const float rstd = 1.0f / sqrtf(var + 1e-6f);
+  for (int c = lane; c < D; c += 32) {
+    float v = (to_f32(xr[c]) - mean) * rstd;
+    dst[c] = __float2bfloat16_rn(v * ln_w[c] + ln_b[c]);
+  }
+}
+
+// LayerNorm (ln_row_bf16) of the ``rows`` token rows that start at row ``n0``
+// of x (n_tok, D) into a bf16 tile of row stride ``ld``, one warp per row;
+// rows at or past n_tok are never read and become zero rows.
+template <int D, typename XT>
+__device__ __forceinline__ void ln_tile_bf16(const XT* x, const float* ln_w,
+                                             const float* ln_b, bf16* tile, int ld,
+                                             long n0, int n_tok, int rows, int warp,
+                                             int nwarp, int lane) {
+  for (int r = warp; r < rows; r += nwarp) {
+    const long n = n0 + r;
+    if (n >= n_tok) {
+      for (int c = lane; c < D; c += 32) tile[r * ld + c] = __float2bfloat16_rn(0.f);
+      continue;
+    }
+    ln_row_bf16<D>(x + n * D, ln_w, ln_b, tile + r * ld, lane);
+  }
+}
+
 // The conv feature encoder's epilogue on one output frame, by one warp: the
 // f32 conv sums ``yrow`` (C channels) are rounded to bf16, the bias is added
 // in bf16, LayerNorm runs in f32 (flax: eps 1e-6, var = max(0, E[x^2] -

@@ -62,29 +62,7 @@ ffn_kernel(const XT* __restrict__ x, const float* __restrict__ ln_w,
   const long n0 = long(blockIdx.x) * BM;
 
   // LayerNorm of the block's rows, rounded to bf16 (rows past n_tok are 0).
-  for (int r = warp; r < BM; r += NWARP) {
-    const long n = n0 + r;
-    if (n >= n_tok) {
-      for (int c = lane; c < D; c += 32) ys[r * LDY + c] = __float2bfloat16_rn(0.f);
-      continue;
-    }
-    const XT* xr = x + n * D;
-    float s = 0.f, ss = 0.f;
-    for (int c = lane; c < D; c += 32) {
-      float v = mmer::to_f32(xr[c]);
-      s += v;
-      ss += v * v;
-    }
-    s = mmer::warp_sum(s);
-    ss = mmer::warp_sum(ss);
-    const float mean = s / D;
-    const float var = fmaxf(ss / D - mean * mean, 0.f);
-    const float rstd = 1.0f / sqrtf(var + 1e-6f);
-    for (int c = lane; c < D; c += 32) {
-      float v = (mmer::to_f32(xr[c]) - mean) * rstd;
-      ys[r * LDY + c] = __float2bfloat16_rn(v * ln_w[c] + ln_b[c]);
-    }
-  }
+  mmer::ln_tile_bf16<D>(x, ln_w, ln_b, ys, LDY, n0, n_tok, BM, warp, NWARP, lane);
   __syncthreads();
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][NT];

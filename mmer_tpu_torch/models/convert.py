@@ -118,17 +118,39 @@ def wav2vec2_from_flax(tree: Mapping) -> StateDict:
     return sd
 
 
-def fusion_from_flax(tree: Mapping) -> StateDict:
+def _token_norm(sd: StateDict, prefix: str, tree: Mapping,
+                stats: Mapping | None) -> None:
+    """One ``TokenNorm``: its LayerNorm, or its BatchNorm with the running
+    statistics of the matching ``batch_stats`` subtree as buffers."""
+    if "LayerNorm_0" in tree:
+        _put(sd, f"{prefix}.ln", _norm(tree["LayerNorm_0"]))
+    elif "BatchNorm_0" in tree:
+        _put(sd, f"{prefix}.bn", _norm(tree["BatchNorm_0"]))
+        if stats is None:
+            raise ValueError(f"{prefix}: a batchnorm model needs its "
+                             "batch_stats tree")
+        sd[f"{prefix}.bn.running_mean"] = _t(stats["BatchNorm_0"]["mean"])
+        sd[f"{prefix}.bn.running_var"] = _t(stats["BatchNorm_0"]["var"])
+
+
+def fusion_from_flax(tree: Mapping, batch_stats: Mapping | None = None
+                     ) -> StateDict:
     """``mmer_tpu.models.fusion.MultimodalEmotionModel`` params →
-    ``mmer_tpu_torch.models.fusion.MultimodalEmotionModel`` state dict
-    (layer-norm variant)."""
+    ``mmer_tpu_torch.models.fusion.MultimodalEmotionModel`` state dict.  A
+    batchnorm (v1) model also takes its ``batch_stats`` tree (or a
+    ``{"params", "batch_stats"}`` tree as the first argument): the running
+    means and variances become the port's buffers."""
+    if batch_stats is None and "batch_stats" in tree:
+        batch_stats = tree["batch_stats"]
     p = _params(tree)
+    bs = batch_stats or {}
     sd: StateDict = {}
     f = p["fusion"]
     for name in ("video_proj", "audio_proj"):
         _put(sd, f"fusion.{name}", _dense(f[name]))
     for name in ("norm_video", "norm_audio", "out_norm"):
-        _put(sd, f"fusion.{name}.ln", _norm(f[name]["LayerNorm_0"]))
+        _token_norm(sd, f"fusion.{name}", f.get(name, {}),
+                    bs.get("fusion", {}).get(name))
     sd["fusion.pos_embed"] = _t(f["pos_embed"])
     i = 0
     while f"layer_{i}" in f:
@@ -145,6 +167,7 @@ def fusion_from_flax(tree: Mapping) -> StateDict:
     c = p["classifier"]
     for i in range(2):
         _put(sd, f"classifier.hidden_{i}", _dense(c[f"hidden_{i}"]))
-        _put(sd, f"classifier.norm_{i}.ln", _norm(c[f"norm_{i}"]["LayerNorm_0"]))
+        _token_norm(sd, f"classifier.norm_{i}", c.get(f"norm_{i}", {}),
+                    bs.get("classifier", {}).get(f"norm_{i}"))
     _put(sd, "classifier.out", _dense(c["out"]))
     return sd

@@ -9,10 +9,17 @@ never masked; masked mean pooling, an output LayerNorm, and a
 ``attn`` is the last layer's real attention probabilities when
 ``return_attn`` is set.
 
-Only the layer-norm (v2) variant is ported; ``norm="batchnorm"`` (v1)
-comes with the trainer.  GEMMs run in the compute dtype over float32
-params, LayerNorms (eps 1e-6) and the residual stream in float32.  The
-model runs at inference only: dropout is not applied.
+``norm="layernorm"`` is the v2 model, ``norm="batchnorm"`` the v1 one, with
+flax's BatchNorm semantics (:class:`BatchNorm`).  GEMMs run in the compute
+dtype over float32 params; norms and the residual stream are float32.
+
+In training mode (``model.train()``) dropout is applied where the JAX model
+applies it: on the attention probabilities, after the attention and FFN
+sublayers, inside the FFN, after the positional embedding and after each
+classifier hidden layer; ``forward(..., generator=g)`` draws the masks from
+an explicit ``torch.Generator`` (on the inputs' device), else from the
+global one.  The JAX and PyTorch random streams differ, so only the rate and
+the scaling of the masks can be compared.
 """
 
 from __future__ import annotations
@@ -30,38 +37,89 @@ from mmer_tpu_torch.ops.masked_ops import (attention_bias_from_pad_mask,
                                            masked_mean_pool)
 
 
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax ``Dropout``: in training, zero each element with probability
+    ``rate`` and scale the rest by ``1 / (1 - rate)``; else the identity."""
+    if not training or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    mask.bernoulli_(keep, generator=generator)
+    return x * (mask / keep).to(x.dtype)
+
+
+class BatchNorm(nn.Module):
+    """``flax.linen.BatchNorm(dtype=float32)`` over (rows, features), which
+    differs from ``torch.nn.BatchNorm1d``'s defaults: momentum 0.99 in flax's
+    sense (running = 0.99 * running + 0.01 * batch), eps 1e-5, the batch
+    variance ``max(0, E[x²] − E[x]²)`` (biased), and the running variance
+    updated with that **biased** variance.  Float32 math and output."""
+
+    momentum = 0.99
+    eps = 1e-5
+
+    def __init__(self, dim: int, *, device: torch.device | str):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+        self.register_buffer("running_mean", torch.zeros(dim, device=device))
+        self.register_buffer("running_var", torch.ones(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        if self.training:
+            mean = x.mean(dim=0)
+            var = ((x * x).mean(dim=0) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(self.momentum).add_(
+                    mean, alpha=1.0 - self.momentum)
+                self.running_var.mul_(self.momentum).add_(
+                    var, alpha=1.0 - self.momentum)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
 class TokenNorm(nn.Module):
-    """The v2 token LayerNorm; the v1 BatchNorm variant is not ported."""
+    """LayerNorm (v2) or feature BatchNorm (v1, reference train.py:50-51).
+    The batch statistics run over all ``(B·T, F)`` rows of a token tensor,
+    padded rows included, as in the JAX model."""
 
     def __init__(self, kind: str, dim: int, *, device: torch.device | str):
         super().__init__()
-        if kind == "batchnorm":
-            raise NotImplementedError(
-                "TokenNorm: the v1 batchnorm variant comes with the trainer")
-        if kind != "layernorm":
+        if kind not in ("layernorm", "batchnorm"):
             raise ValueError(f"unknown norm kind {kind}")
-        self.ln = LayerNorm(dim, device=device)
+        self.kind = kind
+        if kind == "layernorm":
+            self.ln = LayerNorm(dim, device=device)
+        else:
+            self.bn = BatchNorm(dim, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.ln(x)
+        if self.kind == "layernorm":
+            return self.ln(x)
+        return self.bn(x.reshape(-1, x.shape[-1])).reshape(x.shape)
 
 
 class MultiHeadSelfAttention(nn.Module):
     """Masked multi-head self-attention: f32 scores and softmax, GEMM
     operands in the compute dtype."""
 
-    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype, *,
-                 device: torch.device | str):
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype,
+                 dropout_rate: float = 0.0, *, device: torch.device | str):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
+        self.dropout_rate = dropout_rate
         self.query = nn.Linear(dim, dim, device=device)
         self.key = nn.Linear(dim, dim, device=device)
         self.value = nn.Linear(dim, dim, device=device)
         self.out = nn.Linear(dim, dim, device=device)
 
     def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor] = None,
-                return_attn: bool = False):
+                return_attn: bool = False,
+                generator: Optional[torch.Generator] = None):
         b, s, d = x.shape
         h = self.num_heads
         hd = d // h
@@ -74,32 +132,39 @@ class MultiHeadSelfAttention(nn.Module):
         scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
         if attn_bias is not None:
             scores = scores + attn_bias.float()
-        probs = torch.softmax(scores, dim=-1)
+        probs = dropout(torch.softmax(scores, dim=-1), self.dropout_rate,
+                        self.training, generator)
         out = torch.matmul(probs.to(dt).float(), v)           # (B, H, S, hd)
         out = dense(out.transpose(1, 2).reshape(b, s, d), self.out, dt)
         return out, (probs if return_attn else None)
 
 
 class PostNormEncoderLayer(nn.Module):
-    """``x = LN(x + SA(x)); x = LN(x + W2 relu(W1 x))``."""
+    """``x = LN(x + Drop(SA(x))); x = LN(x + Drop(W2 Drop(relu(W1 x))))``."""
 
     def __init__(self, dim: int, num_heads: int, ffn_dim: int,
-                 dtype: torch.dtype, *, device: torch.device | str):
+                 dtype: torch.dtype, dropout_rate: float = 0.0, *,
+                 device: torch.device | str):
         super().__init__()
         self.dtype = dtype
+        self.dropout_rate = dropout_rate
         self.self_attn = MultiHeadSelfAttention(dim, num_heads, dtype,
-                                                device=device)
+                                                dropout_rate, device=device)
         self.norm1 = LayerNorm(dim, device=device)
         self.ffn_in = nn.Linear(dim, ffn_dim, device=device)
         self.ffn_out = nn.Linear(ffn_dim, dim, device=device)
         self.norm2 = LayerNorm(dim, device=device)
 
-    def forward(self, x, attn_bias=None, return_attn: bool = False):
-        attn_out, probs = self.self_attn(x, attn_bias, return_attn)
-        x = self.norm1(x + attn_out.to(x.dtype))
-        y = dense(torch.relu(dense(x, self.ffn_in, self.dtype)),
-                    self.ffn_out, self.dtype)
-        x = self.norm2(x + y.to(x.dtype))
+    def forward(self, x, attn_bias=None, return_attn: bool = False,
+                generator: Optional[torch.Generator] = None):
+        def drop(t):
+            return dropout(t, self.dropout_rate, self.training, generator)
+
+        attn_out, probs = self.self_attn(x, attn_bias, return_attn, generator)
+        x = self.norm1(x + drop(attn_out.to(x.dtype)))
+        y = dense(drop(torch.relu(dense(x, self.ffn_in, self.dtype))),
+                  self.ffn_out, self.dtype)
+        x = self.norm2(x + drop(y.to(x.dtype)))
         return x, probs
 
 
@@ -118,18 +183,20 @@ class CrossModalFusion(nn.Module):
             torch.zeros(1, cfg.max_seq_len, f, device=device))
         self.layers = nn.ModuleList(
             PostNormEncoderLayer(f, cfg.fusion_heads, cfg.fusion_ffn_dim, dt,
-                                 device=device)
+                                 cfg.fusion_dropout, device=device)
             for _ in range(cfg.fusion_layers))
         self.out_norm = TokenNorm(cfg.norm, f, device=device)
 
     def forward(self, video_feats, audio_feats, pad_mask=None,
-                return_attn: bool = False):
+                return_attn: bool = False,
+                generator: Optional[torch.Generator] = None):
         dt = torch_dtype(self.cfg)
         b, t, _ = video_feats.shape
         video = self.norm_video(dense(video_feats, self.video_proj, dt))
         audio = self.norm_audio(dense(audio_feats, self.audio_proj, dt))
         x = torch.cat([video.float(), audio.float()[:, None, :]], dim=1)
-        x = x + self.pos_embed[:, :t + 1]
+        x = dropout(x + self.pos_embed[:, :t + 1], self.cfg.fusion_dropout,
+                    self.training, generator)
 
         # The audio token is never masked (reference train2.py:163-176).
         full_mask = None
@@ -141,14 +208,16 @@ class CrossModalFusion(nn.Module):
         attn_probs = None
         for i, layer in enumerate(self.layers):
             x, probs = layer(x, bias,
-                             return_attn=return_attn and i == len(self.layers) - 1)
+                             return_attn=return_attn and i == len(self.layers) - 1,
+                             generator=generator)
             if probs is not None:
                 attn_probs = probs
         return self.out_norm(masked_mean_pool(x, full_mask)), attn_probs
 
 
 class EmotionClassifier(nn.Module):
-    """MLP head: (Linear → Norm → ReLU) × 2 → Linear(num_classes) in f32."""
+    """MLP head: (Linear → Norm → ReLU → Dropout) × 2 → Linear(num_classes)
+    in f32."""
 
     def __init__(self, cfg: ModelConfig, *, device: torch.device | str):
         super().__init__()
@@ -160,37 +229,44 @@ class EmotionClassifier(nn.Module):
         self.norm_1 = TokenNorm(cfg.norm, hidden, device=device)
         self.out = nn.Linear(hidden, cfg.num_classes, device=device)
 
-    def forward(self, fused: torch.Tensor) -> torch.Tensor:
+    def forward(self, fused: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = torch_dtype(self.cfg)
         x = fused.to(dt)
         for lin, norm in ((self.hidden_0, self.norm_0),
                           (self.hidden_1, self.norm_1)):
-            x = torch.relu(norm(dense(x, lin, dt))).to(dt)
+            x = dropout(torch.relu(norm(dense(x, lin, dt))),
+                        self.cfg.classifier_dropout, self.training,
+                        generator).to(dt)
         return F.linear(x.float(), self.out.weight, self.out.bias)
 
 
 class MultimodalEmotionModel(nn.Module):
-    """Fusion + classifier; ``forward`` returns (probs, logits, attn)."""
+    """Fusion + classifier; ``forward`` returns (probs, logits, attn).  The
+    model is built in evaluation mode (no dropout, running batch statistics),
+    the JAX model's ``train=False`` default; the trainer calls ``.train()``."""
 
     def __init__(self, cfg: ModelConfig, *, device: torch.device | str):
         super().__init__()
         self.cfg = cfg
         self.fusion = CrossModalFusion(cfg, device=device)
         self.classifier = EmotionClassifier(cfg, device=device)
+        self.eval()
 
     def forward(self, video_feats, audio_feats, pad_mask=None,
-                return_attn: bool = False):
+                return_attn: bool = False,
+                generator: Optional[torch.Generator] = None):
         fused, attn = self.fusion(video_feats, audio_feats, pad_mask,
-                                  return_attn=return_attn)
-        logits = self.classifier(fused)
+                                  return_attn=return_attn, generator=generator)
+        logits = self.classifier(fused, generator)
         return torch.softmax(logits, dim=-1), logits, attn
 
 
 def init_fusion(cfg: ModelConfig, *, device: torch.device | str,
                 generator: torch.Generator) -> MultimodalEmotionModel:
     """A seeded fusion model from flax's initializer families (Dense
-    ``lecun_normal`` with zero bias, LayerNorm (1, 0), ``pos_embed``
-    N(0, 0.02))."""
+    ``lecun_normal`` with zero bias, norms (1, 0) with running statistics
+    (0, 1), ``pos_embed`` N(0, 0.02)), in evaluation mode."""
     model = MultimodalEmotionModel(cfg, device=device)
     init_like_flax(model, generator)
     with torch.no_grad():

@@ -1,0 +1,95 @@
+"""Training CLI: reference-compatible flags (train2.py:941-946) plus the
+knobs the reference hardcodes; the port of ``mmer_tpu/train/cli.py``.
+
+    python3 -m mmer_tpu_torch.train.cli --video_feat_dir DIR --audio_feat_dir DIR \\
+        --batch_size 64 --num_epochs 300 --lr 1e-5
+
+Feature folders (``*_faces_mp4_features.npy`` (T, 768) float32 and
+``*_voice_mp4_features.npy`` (1024,) float16, as the extraction CLI writes
+them) → ``results_*.json``, ``best_model_*.pth``, ``final_model_*.pth`` and
+``norm_stats_*.npz`` under ``--output_dir``.  Trains on the GPU unless
+``--device cpu`` is given; without CUDA the default raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from mmer_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
+from mmer_tpu_torch.data.pipeline import load_dataset
+from mmer_tpu_torch.train.loop import TrainOutput, train_model
+
+
+def main(argv=None) -> TrainOutput:
+    p = argparse.ArgumentParser(
+        description="Train the multimodal emotion recognition model")
+    p.add_argument("--batch_size", type=int, default=128)
+    p.add_argument("--num_epochs", type=int, default=100)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--video_feat_dir", default=DataConfig.video_feat_dir)
+    p.add_argument("--audio_feat_dir", default=DataConfig.audio_feat_dir)
+    p.add_argument("--pairing", choices=["key", "positional"], default="key")
+    p.add_argument("--loss", choices=["weighted_ce", "focal"],
+                   default="weighted_ce")
+    p.add_argument("--norm", choices=["layernorm", "batchnorm"],
+                   default="layernorm")
+    p.add_argument("--normalization", choices=["global", "per_sample"],
+                   default="global")
+    p.add_argument("--oversample_neutral", action="store_true")
+    p.add_argument("--output_dir", default="training_runs_2")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--patience", type=int, default=8)
+    p.add_argument("--weight_decay", type=float, default=1e-4)
+    p.add_argument("--label_smoothing", type=float, default=0.0)
+    p.add_argument("--fusion_dropout", type=float, default=0.1)
+    p.add_argument("--classifier_dropout", type=float, default=0.1)
+    p.add_argument("--best_metric", choices=["val_loss", "val_acc"],
+                   default="val_loss",
+                   help="best-model selection: val_loss (v2) or val_acc (v1)")
+    p.add_argument("--no_test_eval", action="store_true")
+    p.add_argument("--resume_dir", default=None,
+                   help="directory of state_* checkpoints to resume from "
+                        "(written to <output_dir>/checkpoints)")
+    p.add_argument("--checkpoint_every", type=int, default=0,
+                   help="save full train state every N epochs (0 = off)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a GPU) or cpu")
+    args = p.parse_args(argv)
+
+    data_cfg = DataConfig(
+        video_feat_dir=args.video_feat_dir,
+        audio_feat_dir=args.audio_feat_dir,
+        batch_size=args.batch_size, pairing=args.pairing,
+        normalization=args.normalization,
+        oversample_neutral=args.oversample_neutral)
+    data, splits = load_dataset(data_cfg)
+    print(f"Samples: {data.num_samples}  max_chunks: {data.max_chunks}  "
+          f"train/val/test: {len(splits.train)}/{len(splits.val)}/{len(splits.test)}")
+
+    model_cfg = ModelConfig(max_seq_len=data.max_chunks + 1, norm=args.norm,
+                            fusion_dropout=args.fusion_dropout,
+                            classifier_dropout=args.classifier_dropout)
+    train_cfg = TrainConfig(
+        num_epochs=args.num_epochs, lr=args.lr, loss=args.loss,
+        patience=args.patience, output_dir=args.output_dir,
+        eval_test_every_epoch=not args.no_test_eval,
+        checkpoint_every=args.checkpoint_every,
+        weight_decay=args.weight_decay,
+        label_smoothing=args.label_smoothing,
+        best_metric=args.best_metric)
+
+    out = train_model(data, splits, model_cfg, train_cfg,
+                      batch_size=args.batch_size, seed=args.seed,
+                      resume_dir=args.resume_dir, device=args.device)
+
+    best = max((r for r in out.results if "test_macro_f1" in r),
+               key=lambda r: r["test_macro_f1"], default=None)
+    if best:
+        print(f"Best epoch by test macro-F1: {best['epoch']} "
+              f"(acc {best['test_acc']:.2f}%, macro-F1 {best['test_macro_f1']:.4f})")
+    print(f"Best val-loss epoch: {out.best_epoch}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

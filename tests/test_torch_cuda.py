@@ -33,7 +33,11 @@ from mmer_tpu_torch.ops.flash_attention import (flash_attention,
                                                 flash_attention_varlen,
                                                 reference_attention,
                                                 reference_attention_varlen)
-from mmer_tpu_torch.ops.fused_blocks import ffn_reference, fused_ffn
+from mmer_tpu_torch.ops.attention_variants import (MODES, attention_variant,
+                                                   attention_variant_reference)
+from mmer_tpu_torch.ops.fused_blocks import (ffn_reference, fused_ffn,
+                                             fused_ln_matmul,
+                                             ln_matmul_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -304,3 +308,92 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):           # f32 compute dtype
         fused_conv_encoder(torch.zeros(1, 1600, device=cuda),
                            *_conv_args(Wav2Vec2Config(), cuda), cfg)
+
+
+@pytest.mark.parametrize("tokens,d,n,x_dtype", [
+    ((1,), 768, 64, torch.bfloat16), ((63,), 768, 192, torch.bfloat16),
+    ((5, 13), 1024, 320, torch.float32), ((130,), 768, 2304, torch.bfloat16),
+    ((3, 333), 1024, 3072, torch.float32)])
+def test_ln_matmul_kernel_matches_plain(cuda, tokens, d, n, x_dtype):
+    """Token counts around the 64-row block (1, 63, 65, 130, 999), both
+    widths, N from one 64-column group to several 256-column tiles with a
+    partial last one (320 = 256 + 64, 2304 = 9 x 256), both stream dtypes;
+    the output takes the weight's dtype."""
+    g = _gen(cuda)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device=cuda) * std
+
+    x = randn(*tokens, d).to(x_dtype)
+    ln_w, ln_b = 1.0 + randn(d, std=0.1), randn(d, std=0.1)
+    w = randn(n, d, std=d ** -0.5).bfloat16()
+    n0 = fused_ln_matmul.launches
+    got = fused_ln_matmul(x, ln_w, ln_b, w)
+    assert fused_ln_matmul.launches == n0 + 1
+    assert got.shape == (*tokens, n) and got.dtype == torch.bfloat16
+    want = ln_matmul_reference(x, ln_w, ln_b, w)
+    mx, mean = _err(got, want)
+    # Same rounding points: summation order can flip the last bf16 rounding,
+    # one ulp (at most 2^-7 of the value) for a few outputs.
+    scale = want.float().abs()
+    assert mx <= 2 ** -7 * float(scale.max()), (mx, float(scale.max()))
+    assert mean <= 2 ** -14 * float(scale.mean()), (mean, float(scale.mean()))
+
+
+def test_ln_matmul_kernel_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros(4, 768, device=cuda, dtype=torch.bfloat16)
+    vec = torch.ones(768, device=cuda)
+    w = torch.zeros(128, 768, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        fused_ln_matmul(x, vec, vec, w.float())
+    with pytest.raises(ValueError):
+        fused_ln_matmul(x, vec, vec, w[:100].contiguous())      # N % 64
+    with pytest.raises(ValueError):
+        fused_ln_matmul(x[:, :512].contiguous(), vec[:512], vec[:512],
+                        w[:, :512].contiguous())                # D
+    with pytest.raises(ValueError):
+        fused_ln_matmul(x, vec, vec, w.t())                     # not contiguous
+
+
+@pytest.mark.parametrize("s,s_pad", [(50, 64), (64, 64), (65, 128), (157, 192),
+                                     (1569, 1664)])
+@pytest.mark.parametrize("mode", MODES)
+def test_attention_variant_kernels_match_plain(cuda, mode, s, s_pad):
+    """Every probe mode at sequence lengths around the 64-row tiles, padded
+    by less than, exactly and more than one key tile.  The two ``p = scores``
+    modes divide by a sum of signed scores and are compared, as implied
+    numerators, on the rows whose plain |denominator| is at least 4."""
+    g = _gen(cuda, 2)
+    q, k, v = (torch.randn(2, 3, s, 64, generator=g, device=cuda).bfloat16()
+               for _ in range(3))
+    n0, f0 = attention_variant.launches[mode], flash_attention.launches
+    got = attention_variant(q, k, v, mode, s_pad)
+    assert attention_variant.launches[mode] == n0 + 1
+    assert flash_attention.launches == f0 + (mode == "full")
+    want, num, den = attention_variant_reference(q, k, v, mode, s_pad,
+                                                 return_parts=True)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    if mode in ("nosoftmax", "kt_nosoftmax"):
+        keep = (den.abs() >= 4.0).squeeze(-1)
+        assert float(keep.float().mean()) > 0.4
+        implied = ((got.float() - want.float()).abs() * den.abs())[keep]
+        assert torch.isfinite(implied).all()
+        assert float(implied.max()) <= 2 ** -6 * float(num[keep].abs().max())
+        assert float(implied.mean()) <= 2 ** -9 * float(num[keep].abs().mean())
+        return
+    assert torch.isfinite(got.float()).all()
+    mx, mean = _err(got, want)
+    scale = want.float().abs()
+    assert mx <= 2 ** -6 * float(scale.max()), (mx, float(scale.max()))
+    assert mean <= 2 ** -7 * float(scale.mean()), (mean, float(scale.mean()))
+    if mode in ("mxumask", "kt"):
+        mx, _ = _err(got, flash_attention(q, k, v))
+        assert mx <= 2 ** -6 * float(scale.max())
+
+
+def test_attention_variant_kernel_needs_whole_key_tiles(cuda):
+    q = torch.zeros(1, 1, 50, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="s_pad"):
+        attention_variant(q, q, q, "nomask", s_pad=100)
+    with pytest.raises(TypeError):
+        attention_variant(q.float(), q.float(), q.float(), "noexp", s_pad=64)

@@ -400,8 +400,13 @@ def test_fusion_bf16_matches_jax():
 
 
 def test_fusion_batchnorm_variant_not_ported():
-    with pytest.raises(NotImplementedError):
-        TokenNorm("batchnorm", 8, device=CPU)
+    """The v1 batchnorm variant once raised here; it is ported now (held to
+    flax in tests/test_torch_train.py), and only an unknown kind raises."""
+    norm = TokenNorm("batchnorm", 8, device=CPU)
+    assert set(dict(norm.named_buffers())) == {"bn.running_mean",
+                                               "bn.running_var"}
+    with pytest.raises(ValueError):
+        TokenNorm("groupnorm", 8, device=CPU)
 
 
 # -- seeded port-native weights ----------------------------------------------
