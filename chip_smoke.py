@@ -18,7 +18,11 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    (``scaled_dot_product_attention``), that call's (CUDA events, after
    warm-up); and the least time the card could take, from the shapes
    (``bound_ms``).  The two conv routes (``mega`` on and off) are also held
-   against each other.  ``fused_ln_matmul`` runs at the profile shape and at
+   against each other.  The attention and FFN kernels are each called twice
+   on the same inputs and must give the same bits; ``fused_ffn`` also runs at
+   every grid plan a serving request reaches (``ffn_plan``: 65, 998 and 1,500
+   tokens x 1024) and logs the plan beside each time.
+   ``fused_ln_matmul`` runs at the profile shape and at
    the Wav2Vec2 width; every mode of ``attention_variant`` at the probe shape
    (16, 12, 1569, 64) padded to 1664 keys, the two ``p = scores`` modes on
    the rows whose plain denominator is at least ``DEN_MIN`` in magnitude.
@@ -194,11 +198,13 @@ def wrappers() -> dict:
 
 def reset_launches() -> None:
     from mmer_tpu_torch.ops.attention_variants import attention_variant
+    from mmer_tpu_torch.ops.fused_blocks import fused_ffn
 
     for w in wrappers().values():
         w.launches = 0
     for mode in attention_variant.launches:
         attention_variant.launches[mode] = 0
+    fused_ffn.reduce_launches = 0      # the FFN's second pass, counted apart
 
 
 def read_launches() -> dict:
@@ -281,6 +287,17 @@ def _compare(name: str, got, want, key: str | None = None) -> dict:
     return {"max_abs_err": mx, "mean_abs_err": mean}
 
 
+def _same_bits(name: str, first, second) -> None:
+    """The kernels sum in a fixed order: a second call gives the same bits."""
+    import torch
+
+    same = bool(torch.equal(first, second))
+    log(f"kernel {name}: a second call on the same inputs gives "
+        f"{'the same bits' if same else 'OTHER BITS'}")
+    if not same:
+        raise AssertionError(f"{name}: two calls on the same inputs differ")
+
+
 def _conv_layer_args(cfg, randn):
     """Seeded conv-stack parameters: weights (C_out, C_in, k), conv biases,
     LayerNorm weights and biases, one list each."""
@@ -350,6 +367,7 @@ def check_kernels(dev) -> dict:
     want = reference_attention(q, k, v)
     torch.cuda.synchronize()
     r = _compare("flash_attention", got, want)
+    _same_bits("flash_attention", got, flash_attention(q, k, v))
     r["ms"] = cuda_ms(lambda: flash_attention(q, k, v), 20)
     r["plain_ms"] = cuda_ms(lambda: reference_attention(q, k, v), 5)
     r["library_ms"] = cuda_ms(
@@ -384,6 +402,8 @@ def check_kernels(dev) -> dict:
         torch.cuda.synchronize()
         valid = lens > 0
         r2 = _compare("flash_attention_varlen", got[valid], want[valid])
+        _same_bits("flash_attention_varlen", got,
+                   flash_attention(q, k, v, key_lens=lens))
         finite = bool(torch.isfinite(got.float()).all())
         uniform = v[2].float().mean(-2, keepdim=True).expand_as(got[2])
         zero_err = float((got[2].float() - uniform).abs().max())
@@ -444,24 +464,39 @@ def check_kernels(dev) -> dict:
     want = ffn_reference(*args)
     torch.cuda.synchronize()
     r = _compare("fused_ffn", got, want)
+    _same_bits("fused_ffn", got, fused_ffn(*args))
+    r["plan"] = list(fused_ffn.last_plan)
     r["ms"] = cuda_ms(lambda: fused_ffn(*args), 20)
     r["plain_ms"] = cuda_ms(lambda: ffn_reference(*args), 5)
     r["library_ms"] = None          # no single PyTorch call computes it
     r["shape"] = "x (8,1569,768) bf16, M 3072"
     r.update(ffn_bound(args))
-    # W2V2 FFN: f32 stream over bf16 weights and biases; a 3 s clip (serving)
-    # and the two extraction forwards (full grids).
+    # W2V2 FFN: f32 stream over bf16 weights and biases; a 3 s clip (serving),
+    # the two extraction forwards (full grids), and the other grid plans a
+    # serving request reaches: a 10 s and a 2 s piece in one batch (998
+    # frames), 1,500 frames (five windows of up to 6 s) and 65 frames, one
+    # row past a 64-row tile.
     t3 = feat_extract_output_length(cfg, 48000)
-    for tag, tol, shape, iters in (
-            ("_w2v2", "fused_ffn_w2v2", (1, t3), 50),
-            ("_w2v2_extract", "fused_ffn_w2v2_extract", (64, t5), 10),
-            ("_w2v2_extract_10s", "fused_ffn_w2v2_extract", (64, t10), 5)):
-        reseed()
+    # The last three draw from seeds outside the sequence, so that the cases
+    # after them keep the data they had before these were added.
+    for tag, tol, shape, iters, seed in (
+            ("_w2v2", "fused_ffn_w2v2", (1, t3), 50, None),
+            ("_w2v2_extract", "fused_ffn_w2v2_extract", (64, t5), 10, None),
+            ("_w2v2_extract_10s", "fused_ffn_w2v2_extract", (64, t10), 5, None),
+            ("_w2v2_2x10s", "fused_ffn_w2v2", (2, t10), 50, 10 ** 6 + 1),
+            ("_w2v2_1500", "fused_ffn_w2v2", (1, 1500), 50, 10 ** 6 + 2),
+            ("_w2v2_ragged", "fused_ffn_w2v2", (1, 65), 50, 10 ** 6 + 3)):
+        if seed is None:
+            reseed()
+        else:
+            g.manual_seed(seed)
         args = ffn_args(shape, 1024, 4096, torch.float32, bf)
         got = fused_ffn(*args)
         want = ffn_reference(*args)
         torch.cuda.synchronize()
         r2 = _compare("fused_ffn", got, want, key=tol)
+        _same_bits("fused_ffn", got, fused_ffn(*args))
+        r[f"plan{tag}"] = list(fused_ffn.last_plan)
         r.update({f"max_abs_err{tag}": r2["max_abs_err"],
                   f"mean_abs_err{tag}": r2["mean_abs_err"],
                   f"ms{tag}": cuda_ms(lambda: fused_ffn(*args), iters),
@@ -603,10 +638,13 @@ def check_kernels(dev) -> dict:
     for name, r in res.items():
         for tag in sorted({k[len("shape"):] for k in r if k.startswith("shape")}):
             lib = r.get("library_ms" + tag)
+            plan = r.get("plan" + tag)
             log(f"time {name}: kernel {r['ms' + tag]:.4f} ms, plain "
                 f"{r['plain_ms' + tag]:.4f} ms, bound {r['bound_ms' + tag]:.4f} ms "
                 f"by {r['bound_by' + tag]}"
                 + (f", library call {lib:.4f} ms" if lib is not None else "")
+                + (f", grid plan (rows, D slices, M slices) {tuple(plan)}"
+                   if plan else "")
                 + f" ({r['shape' + tag]})")
     return res
 
@@ -693,6 +731,7 @@ def check_probe_kernels(dev) -> dict:
         # the launch alone over pre-staged operands, as the probe script's.
         got = attention_variant(q, k, v, mode, PROBE_S_PAD)
         ops = variant_operands(q, k, v, mode, PROBE_S_PAD)
+        _same_bits(name, got, launch_variant(mode, *ops, PROBE_S_PAD))
         torch.cuda.synchronize()
 
         def plain(parts=False):
@@ -1032,11 +1071,14 @@ def run_main_path(dev) -> dict:
             out.append(probs)
         return out
 
+    from mmer_tpu_torch.ops.fused_blocks import fused_ffn
+
     serve(engine, "first")
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
     kernel_probs = serve(engine, "warm")
     launches = read_launches()
+    reduce_passes = fused_ffn.reduce_launches
     log(f"peak device memory (warm pass): "
         f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
 
@@ -1056,6 +1098,14 @@ def run_main_path(dev) -> dict:
     if launches != expected:
         raise AssertionError("the main path did not launch the kernels as "
                              "expected")
+    # A ViViT batch fills the card with one slice of the hidden dimension; no
+    # Wav2Vec2 forward of a request does, so each of its FFN calls takes the
+    # split plan and its reduce pass.
+    expected_reduce = w2v2_forwards * wcfg.num_layers
+    log(f"fused_ffn reduce passes in the warm pass: {reduce_passes}, "
+        f"expected {expected_reduce}")
+    if reduce_passes != expected_reduce:
+        raise AssertionError("fused_ffn did not take the grid plans expected")
 
     # The same requests on the plain path, same weights, same card.
     plain = InferenceEngine(dev)

@@ -81,6 +81,78 @@ __device__ __forceinline__ void ln_tile_bf16(const XT* x, const float* ln_w,
   }
 }
 
+// Eight consecutive values of a row as floats, by 16-byte loads.
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
+  const uint4 a = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&a);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+// ln_tile_bf16 into the shared-memory layout wgmma reads (wgmma.cuh): the
+// (rows, D) tile is D/64 tiles of (rows x 64 bf16), each row 128 bytes with its
+// 16-byte chunks in the 128-byte swizzle; ``tile`` is 1024-byte aligned.  Same
+// rounding points as ln_row_bf16 (f32 statistics with flax semantics, one
+// rounding to bf16); a lane owns chunks of eight consecutive columns, loaded
+// and stored 16 bytes at a time.  Rows at or past n_tok are zero rows.
+template <int D, typename XT>
+__device__ __forceinline__ void ln_tile_bf16_sw128(const XT* x, const float* ln_w,
+                                                   const float* ln_b, unsigned char* tile,
+                                                   long n0, int n_tok, int rows, int warp,
+                                                   int nwarp, int lane) {
+  constexpr int NCH = D / 256;        // chunks of 8 columns a lane
+  static_assert(D % 256 == 0, "a warp covers 256 columns a pass");
+  for (int r = warp; r < rows; r += nwarp) {
+    const long n = n0 + r;
+    float v[NCH][8];
+    float s = 0.f, ss = 0.f;
+    if (n < n_tok) {
+#pragma unroll
+      for (int i = 0; i < NCH; ++i) {
+        load8(x + n * D + (lane + 32 * i) * 8, v[i]);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          s += v[i][e];
+          ss += v[i][e] * v[i][e];
+        }
+      }
+    }
+    s = warp_sum(s);
+    ss = warp_sum(ss);
+    const float mean = s / D;
+    const float var = fmaxf(ss / D - mean * mean, 0.f);
+    const float rstd = 1.0f / sqrtf(var + 1e-6f);
+#pragma unroll
+    for (int i = 0; i < NCH; ++i) {
+      const int c = (lane + 32 * i) * 8;
+      uint4 packed = make_uint4(0u, 0u, 0u, 0u);
+      if (n < n_tok) {
+        float w[8], b[8];
+        load8(ln_w + c, w);
+        load8(ln_b + c, b);
+        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          h[e] = __floats2bfloat162_rn((v[i][2 * e] - mean) * rstd * w[2 * e] + b[2 * e],
+                                       (v[i][2 * e + 1] - mean) * rstd * w[2 * e + 1] +
+                                           b[2 * e + 1]);
+      }
+      *reinterpret_cast<uint4*>(tile + size_t(c >> 6) * rows * 128 + r * 128 +
+                                ((((c >> 3) & 7) ^ (r & 7)) << 4)) = packed;
+    }
+  }
+}
+
 // The conv feature encoder's epilogue on one output frame, by one warp: the
 // f32 conv sums ``yrow`` (C channels) are rounded to bf16, the bias is added
 // in bf16, LayerNorm runs in f32 (flax: eps 1e-6, var = max(0, E[x^2] -

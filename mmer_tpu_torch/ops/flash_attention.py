@@ -9,6 +9,11 @@ length per batch element (Wav2Vec2: clips shorter than the padded batch
 attend to their own frames only).  On a CPU tensor it runs the plain version,
 :func:`reference_attention` or :func:`reference_attention_varlen`.
 
+:func:`tiled_attention_reference` repeats the kernel's order of operations
+(key tiles, online max and sum, the mask on edge tiles only, tiles past a
+clip's length skipped) in plain PyTorch, so that the design is held against
+the plain versions and the JAX kernel where there is no GPU.
+
 Each kernel has its own wrapper and launch count: :func:`flash_attention`
 counts launches of the unmasked kernel, :func:`flash_attention_varlen` of the
 key-length kernel.
@@ -50,6 +55,49 @@ def reference_attention_varlen(q: torch.Tensor, k: torch.Tensor,
         scores = scores + masked.float() * KEY_BIAS
     probs = torch.softmax(scores, dim=-1)
     return torch.matmul(probs.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+KEY_TILE = 64     # keys per tile of csrc/attention.cu
+
+
+def tiled_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              key_lens: torch.Tensor | None = None,
+                              key_tile: int = KEY_TILE) -> torch.Tensor:
+    """The CUDA kernel's order of operations over (B, H, S, D), in plain
+    PyTorch.  Keys are visited in tiles of ``key_tile``; per tile the f32
+    scores update a running row max ``m`` (from −inf) and the output and
+    denominator so far are rescaled by ``alpha = exp(m_old − m_new)``;
+    ``p = exp(score − m_new)`` is rounded to v's dtype before ``p · v`` and
+    the denominator is summed **from the rounded p**; the output is divided
+    once at the end.  The mask touches only the tiles that need it: in the
+    ragged last tile keys at or beyond S do not take part, and with
+    ``key_lens`` the tile that holds a clip's length gets the finite −1e9 on
+    keys in ``[len, S)``; tiles wholly past ``len`` are skipped (their keys
+    would have probability exactly 0), except for ``len == 0``, where every
+    tile is visited with the bias on every key (the uniform mean over S)."""
+    b, h, s, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    out = torch.empty_like(q)
+    for bi in range(b):
+        n = s if key_lens is None else max(0, min(int(key_lens[bi]), s))
+        kend = n if n > 0 else s
+        qf = q[bi].float()
+        m_run = torch.full((h, s, 1), float("-inf"))
+        l_run = torch.zeros(h, s, 1)
+        o = torch.zeros(h, s, d)
+        for k0 in range(0, kend, key_tile):
+            k1 = min(k0 + key_tile, s)          # keys >= S are -inf: absent
+            sc = torch.matmul(qf, k[bi, :, k0:k1].float().transpose(-1, -2)) * scale
+            if key_lens is not None and k0 + key_tile > n:      # the tile of len
+                sc = sc + (torch.arange(k0, k1) >= n).float() * KEY_BIAS
+            m_new = torch.maximum(m_run, sc.amax(dim=-1, keepdim=True))
+            alpha = torch.exp(m_run - m_new)
+            p = torch.exp(sc - m_new).to(v.dtype).float()
+            l_run = l_run * alpha + p.sum(dim=-1, keepdim=True)
+            o = o * alpha + torch.matmul(p, v[bi, :, k0:k1].float())
+            m_run = m_new
+        out[bi] = (o / l_run).to(q.dtype)
+    return out
 
 
 def _check_qkv(name: str, q, k, v) -> None:

@@ -4,7 +4,10 @@
 ``(tokens, M)`` hidden tensor never written to device memory: on a CUDA
 tensor it launches the hand-written kernel ``csrc/ffn.cu`` (the port of the
 Pallas ``_ffn_kernel``); on a CPU tensor it runs :func:`ffn_reference`, the
-plain PyTorch version of the same arithmetic.
+plain PyTorch version of the same arithmetic.  The kernel's grid comes from
+:func:`ffn_plan`, a function of the token count and the card's SM count;
+:func:`ffn_split_reference` repeats, in plain PyTorch, the order in which a
+plan's slices are computed and added.
 
 Numerics follow the Pallas kernel: LayerNorm in float32 with flax semantics
 (:func:`layer_norm`), GEMMs on the weights' dtype with float32 accumulation,
@@ -51,9 +54,58 @@ def ffn_reference(x, ln_w, ln_b, w1, b1, w2, b2) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-# mmer_fused_ffn(x, ln_w, ln_b, w1, b1, w2, b2, out, n_tok, d, m, x_is_f32,
-#                stream)
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# The kernel's tiling (csrc/ffn.cu): token rows a block, blocks that share a
+# row tile (each owns D / 2 output columns), hidden units a chunk.
+FFN_ROWS, FFN_D_SPLIT, FFN_CHUNK = 64, 2, 256
+
+
+def ffn_plan(n_tok: int, d: int, m: int, sm_count: int) -> tuple[int, int, int]:
+    """``(rows, d_split, m_split)`` of the kernel's grid for a call of
+    ``n_tok`` tokens: ``ceil(n_tok / rows) * d_split * m_split`` blocks, each
+    of ``rows`` token rows, ``d / d_split`` output columns and slice ``z`` of
+    the hidden dimension, chunks ``[z * c // m_split, (z + 1) * c // m_split)``
+    of ``c = m // 256``.  One slice when the row tiles alone put a block on
+    every SM (the partial tiles then never leave the registers); otherwise
+    enough slices to reach ``sm_count`` blocks, at most one chunk a slice.  A
+    function of the shape and the card alone."""
+    if n_tok < 1 or d % FFN_D_SPLIT or m < FFN_CHUNK or m % FFN_CHUNK or sm_count < 1:
+        raise ValueError(f"ffn_plan: n_tok={n_tok}, d={d}, m={m}, sm_count={sm_count}")
+    blocks = -(-n_tok // FFN_ROWS) * FFN_D_SPLIT
+    m_split = 1 if blocks >= sm_count else min(m // FFN_CHUNK, -(-sm_count // blocks))
+    return FFN_ROWS, FFN_D_SPLIT, m_split
+
+
+def ffn_slices(m: int, m_split: int) -> list[tuple[int, int]]:
+    """Hidden-unit ranges ``[m0, m1)`` of the ``m_split`` slices of a plan."""
+    c = m // FFN_CHUNK
+    return [(z * c // m_split * FFN_CHUNK, (z + 1) * c // m_split * FFN_CHUNK)
+            for z in range(m_split)]
+
+
+def ffn_split_reference(x, ln_w, ln_b, w1, b1, w2, b2, m_split: int,
+                        d_split: int = FFN_D_SPLIT) -> torch.Tensor:
+    """The kernel's order of operations for a plan with ``m_split`` slices, in
+    plain PyTorch: every (D slice, M slice) pair computes
+    ``GELU(LN(x) W1[m0:m1]ᵀ + b1[m0:m1]) W2[d0:d1, m0:m1]ᵀ`` with the hidden
+    units rounded once to the weights' dtype; the partial tiles are added in
+    slice order in float32, then the residual, then ``b2``."""
+    d = x.shape[-1]
+    y = layer_norm(x, ln_w, ln_b).to(w1.dtype).float()
+    acc = None
+    for m0, m1 in ffn_slices(w1.shape[0], m_split):
+        h = F.gelu(torch.matmul(y, w1[m0:m1].float().t()) + b1[m0:m1].float())
+        h = h.to(w2.dtype).float()
+        part = torch.cat([torch.matmul(h, w2[d0:d0 + d // d_split, m0:m1].float().t())
+                          for d0 in range(0, d, d // d_split)], dim=-1)
+        acc = part if acc is None else acc + part
+    return ((x.float() + acc) + b2.float()).to(x.dtype)
+
+
+# mmer_fused_ffn(x, ln_w, ln_b, w1, b1, w2, b2, out, partial, n_tok, d, m,
+#                m_split, x_is_f32, stream)
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# mmer_fused_ffn_reduce(x, b2, partial, out, n_tok, d, m_split, x_is_f32, stream)
+_ARGTYPES_REDUCE = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def fused_ffn(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
@@ -67,7 +119,10 @@ def fused_ffn(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
     float dtype (added in float32).  Returns x's shape and dtype.
 
     On CUDA the kernel takes bf16 weights, D in {768, 1024} and M a
-    multiple of 128, and raises on anything else.
+    multiple of 256, and raises on anything else.  The grid follows
+    :func:`ffn_plan`; a plan with more than one slice of M runs a second,
+    reduce pass over an f32 workspace (counted in ``fused_ffn.reduce_launches``;
+    ``fused_ffn.last_plan`` holds the plan of the latest launch).
     """
     if x.device.type == "cpu":
         return ffn_reference(x, ln_w, ln_b, w1, b1, w2, b2)
@@ -79,8 +134,8 @@ def fused_ffn(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
         raise TypeError(f"fused_ffn: x must be bf16 or f32, got {x.dtype}")
     if w1.dtype != torch.bfloat16 or w2.dtype != torch.bfloat16:
         raise TypeError("fused_ffn: the CUDA kernel takes bf16 weights")
-    if d not in (768, 1024) or m % 128:
-        raise ValueError(f"fused_ffn: kernel needs D in (768, 1024) and M % 128 "
+    if d not in (768, 1024) or m % FFN_CHUNK or m < FFN_CHUNK:
+        raise ValueError(f"fused_ffn: kernel needs D in (768, 1024) and M % 256 "
                          f"== 0, got D={d}, M={m}")
     if tuple(w1.shape) != (m, d) or tuple(w2.shape) != (d, m):
         raise ValueError(f"fused_ffn: weight shapes {tuple(w1.shape)}, "
@@ -94,18 +149,40 @@ def fused_ffn(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
             raise ValueError("fused_ffn: all tensors must be on one device")
         if not t.is_contiguous():
             raise ValueError("fused_ffn: tensors must be contiguous")
+    n_tok = x.numel() // d
+    plan = ffn_plan(n_tok, d, m, _sm_count(x.device))
+    m_split = plan[2]
     out = torch.empty_like(x)
+    partial = torch.empty(m_split, n_tok, d, dtype=torch.float32,
+                          device=x.device) if m_split > 1 else None
+    is_f32, stream = int(x.dtype == torch.float32), _build.stream_ptr(x.device)
     _build.call(
         "ffn", "mmer_fused_ffn", _ARGTYPES,
         _build.ptr(x), _build.ptr(vecs[0]), _build.ptr(vecs[1]), _build.ptr(w1),
         _build.ptr(vecs[2]), _build.ptr(w2), _build.ptr(vecs[3]), _build.ptr(out),
-        x.numel() // d, d, m, int(x.dtype == torch.float32),
-        _build.stream_ptr(x.device))
+        _build.ptr(partial) if m_split > 1 else None, n_tok, d, m, m_split,
+        is_f32, stream)
     fused_ffn.launches += 1
+    fused_ffn.last_plan = plan
+    if m_split > 1:
+        _build.call("ffn", "mmer_fused_ffn_reduce", _ARGTYPES_REDUCE,
+                    _build.ptr(x), _build.ptr(vecs[3]), _build.ptr(partial),
+                    _build.ptr(out), n_tok, d, m_split, is_f32, stream)
+        fused_ffn.reduce_launches += 1
     return out
 
 
 fused_ffn.launches = 0
+fused_ffn.reduce_launches = 0
+fused_ffn.last_plan = None
+_sm_counts: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sm_counts[index]
 
 
 def ln_matmul_reference(x, ln_w, ln_b, w) -> torch.Tensor:

@@ -11,8 +11,11 @@ and the CUDA toolkit:
 load, which a GPU machine without JAX does not need.)
 
 Shapes cover the ragged edges the main path's shapes do not: sequences and
-token counts that are not multiples of the kernels' 64- and 32-row tiles,
-and conv stacks whose last layers have fewer frames than one block.
+token counts that are not multiples of the kernels' 64-row tiles, every
+plan of the FFN's grid (one and several slices of the hidden dimension),
+and conv stacks whose last layers have fewer frames than one block.  The
+attention and FFN kernels use no atomics: the same call twice must give the
+same bits.
 Tolerances are chip_smoke.py's, with the same reasons, except for
 attention, whose bound here scales with the output (see the test).
 """
@@ -32,10 +35,12 @@ from mmer_tpu_torch.ops.conv_pyramid import (conv_encoder_reference,
 from mmer_tpu_torch.ops.flash_attention import (flash_attention,
                                                 flash_attention_varlen,
                                                 reference_attention,
-                                                reference_attention_varlen)
+                                                reference_attention_varlen,
+                                                tiled_attention_reference)
 from mmer_tpu_torch.ops.attention_variants import (MODES, attention_variant,
                                                    attention_variant_reference)
-from mmer_tpu_torch.ops.fused_blocks import (ffn_reference, fused_ffn,
+from mmer_tpu_torch.ops.fused_blocks import (ffn_reference,
+                                             ffn_split_reference, fused_ffn,
                                              fused_ln_matmul,
                                              ln_matmul_reference)
 
@@ -159,6 +164,87 @@ def test_ffn_kernel_matches_plain(cuda, n_tok, x_dtype, d, m):
         assert mx <= 0.0625 and mean <= 1e-3, (mx, mean)
     else:
         assert mx <= 2e-3 and mean <= 1e-4, (mx, mean)
+
+
+def _ffn_args(dev, tokens, x_dtype, d, m, seed=0):
+    g = _gen(dev, seed)
+    x = torch.randn(*tokens, d, generator=g, device=dev).to(x_dtype)
+    w1 = (torch.randn(m, d, generator=g, device=dev) * d ** -0.5).bfloat16()
+    w2 = (torch.randn(d, m, generator=g, device=dev) * m ** -0.5).bfloat16()
+    vec = [torch.randn(n, generator=g, device=dev) * 0.1 for n in (d, d, m, d)]
+    return (x, vec[0] + 1, vec[1], w1, vec[2], w2, vec[3])
+
+
+@pytest.mark.parametrize("tokens,x_dtype,d,m,m_split,tol", [
+    ((65,), torch.bfloat16, 768, 3072, 12, (0.0625, 1e-3)),
+    ((65,), torch.float32, 1024, 4096, 16, (4e-3, 1e-4)),
+    ((1, 1500), torch.float32, 1024, 4096, 3, (4e-3, 1e-4)),
+    ((8, 1569), torch.bfloat16, 768, 3072, 1, (0.0625, 1e-3)),
+    ((12552,), torch.float32, 1024, 4096, 1, (8e-3, 1e-4)),
+])
+def test_ffn_kernel_plans_match_plain_and_repeat(cuda, tokens, x_dtype, d, m,
+                                                 m_split, tol):
+    """One row tile past a boundary (65 = 64 + 1), the longest serving piece
+    (1,500 frames), the ViViT batch (12,552 = 196 x 64 + 8) in both streams:
+    every plan a main path reaches, the reduce pass counted when there is
+    one, chip_smoke.py's bounds, and the same bits on a second call."""
+    if torch.cuda.get_device_properties(cuda).multi_processor_count != 132:
+        pytest.skip("the expected plans are those of a 132-SM card")
+    args = _ffn_args(cuda, tokens, x_dtype, d, m, seed=7)
+    n0, r0 = fused_ffn.launches, fused_ffn.reduce_launches
+    got = fused_ffn(*args)
+    assert fused_ffn.launches == n0 + 1
+    assert fused_ffn.reduce_launches == r0 + (m_split > 1)
+    assert fused_ffn.last_plan == (64, 2, m_split)
+    assert got.dtype == x_dtype and got.shape == args[0].shape
+    mx, mean = _err(got, ffn_reference(*args))
+    assert mx <= tol[0] and mean <= tol[1], (mx, mean)
+    assert torch.equal(got, fused_ffn(*args))
+    if m_split > 1:
+        # The kernel's own order of sums, in plain PyTorch.
+        mx, mean = _err(got, ffn_split_reference(*args, m_split))
+        assert mx <= tol[0] and mean <= tol[1], (mx, mean)
+
+
+@pytest.mark.parametrize("s", [64, 65, 1569])
+def test_attention_kernel_is_the_same_on_every_call(cuda, s):
+    g = _gen(cuda, 3)
+    q, k, v = (torch.randn(2, 12, s, 64, generator=g, device=cuda).bfloat16()
+               for _ in range(3))
+    assert torch.equal(flash_attention(q, k, v), flash_attention(q, k, v))
+    lens = torch.tensor([s, max(1, s // 3)], device=cuda)
+    assert torch.equal(flash_attention(q, k, v, key_lens=lens),
+                       flash_attention(q, k, v, key_lens=lens))
+    for mode in ("nomask", "noexp", "mxumask", "kt_nosoftmax"):
+        assert torch.equal(attention_variant(q, k, v, mode),
+                           attention_variant(q, k, v, mode))
+
+
+def test_varlen_attention_kernel_at_the_extraction_length(cuda):
+    """S = 249 (3 x 64 + 57 query rows: a last block that is partly
+    padding) with lengths 0, 1, a key-tile boundary, one past it, and S: the
+    mask runs on the tile that holds the length and on no other."""
+    s = 249
+    g = _gen(cuda, 4)
+    q, k, v = (torch.randn(5, 16, s, 64, generator=g, device=cuda).bfloat16()
+               for _ in range(3))
+    lens = torch.tensor([0, 1, 64, 65, 249], device=cuda)
+    got = flash_attention(q, k, v, key_lens=lens)
+    want = reference_attention_varlen(q, k, v, lens)
+    assert torch.isfinite(got.float()).all()
+    mx, mean = _err(got[1:], want[1:])
+    scale = want[1:].float().abs()
+    assert mx <= 2 ** -6 * float(scale.max()), (mx, float(scale.max()))
+    assert mean <= 2 ** -7 * float(scale.mean()), (mean, float(scale.mean()))
+    uniform = v[0].float().mean(-2, keepdim=True).expand_as(got[0])
+    assert float((got[0].float() - uniform).abs().max()) <= 2 ** -7
+    # One key: every query row is that key's value row, exactly.
+    assert torch.equal(got[1], v[1, :, :1].expand_as(got[1]))
+    # The tiled order of operations in plain PyTorch, on two heads.
+    tiled = tiled_attention_reference(q[:, :2].cpu(), k[:, :2].cpu(),
+                                      v[:, :2].cpu(), lens.cpu())
+    mx, mean = _err(got[1:, :2].cpu(), tiled[1:])
+    assert mx <= 2 ** -6 * float(scale.max()) and mean <= 2 ** -9 * float(scale.mean())
 
 
 def _conv_args(cfg, dev):
