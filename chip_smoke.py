@@ -18,7 +18,11 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    (``scaled_dot_product_attention``), that call's (CUDA events, after
    warm-up); and the least time the card could take, from the shapes
    (``bound_ms``).  The two conv routes (``mega`` on and off) are also held
-   against each other.  The attention and FFN kernels are each called twice
+   against each other, and the whole-pyramid route's seven launches are timed
+   one by one, each beside its bound, its grid and a yardstick no port code
+   calls (``F.conv1d`` in bf16, ``F.layer_norm``, ``F.gelu``: three library
+   calls; the kernel-3 layer kernel gets the same).  The attention, FFN and
+   conv kernels are each called twice
    on the same inputs and must give the same bits; ``fused_ffn`` also runs at
    every grid plan a serving request reaches (``ffn_plan``: 65, 998 and 1,500
    tokens x 1024) and logs the plan beside each time.
@@ -329,6 +333,78 @@ def _conv_bound(cfg, wave, conv_args, out, tag) -> dict:
                  tag)
 
 
+def conv_layer_ms(wave, conv_args, cfg, iters: int) -> list:
+    """Device time of each of ``fused_conv_encoder``'s seven launches, read
+    from a torch.profiler trace of ``iters`` calls after a warm-up one, so
+    that the host's time between two launches is not counted."""
+    from mmer_tpu_torch.ops.conv_pyramid import fused_conv_encoder
+    from mmer_tpu_torch.scripts.timing import kernel_device_ms
+
+    ms = kernel_device_ms(lambda: fused_conv_encoder(wave, *conv_args, cfg),
+                          "ln_gelu_kernel", iters)
+    if len(ms) != len(cfg.conv_dims):
+        raise AssertionError(f"the profiler saw {len(ms)} conv kernels a call")
+    return ms
+
+
+def three_call_ms(x_cf, weight, conv_bias, ln_w, ln_b, stride: int, iters: int) -> float:
+    """The yardstick of one conv layer: ``F.conv1d`` over the channels-first
+    bf16 input, ``F.layer_norm`` over the channels, ``F.gelu``, in bf16.
+    Timed only: the port never calls it, and no single call computes the
+    layer (hence no ``library_ms``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mmer_tpu_torch.ops.fused_blocks import LN_EPS
+
+    bf = torch.bfloat16
+    w, cb, lw, lb = (t.to(bf) for t in (weight, conv_bias, ln_w, ln_b))
+    x = x_cf.to(bf).contiguous()
+
+    def layer():
+        y = F.conv1d(x, w, cb, stride=stride).transpose(1, 2)
+        return F.gelu(F.layer_norm(y, (w.shape[0],), lw, lb, LN_EPS))
+
+    return cuda_ms(layer, iters)
+
+
+def conv_layers_report(dev, cfg, wave, conv_args, iters: int, tag: str) -> dict:
+    """Per-layer device times of the whole-pyramid route with each layer's
+    bound, three-call yardstick on inputs of the layer's shape, and the grid
+    its launch used (logged)."""
+    import torch
+
+    from mmer_tpu_torch.ops.conv_pyramid import fused_conv_encoder
+    from mmer_tpu_torch.scripts.timing import PEAK_BYTES, PEAK_FLOPS
+
+    bsz = wave.shape[0]
+    lengths = _layer_lengths(cfg, wave.shape[1])
+    ms = conv_layer_ms(wave, conv_args, cfg, iters)
+    grids = fused_conv_encoder.last_grids
+    out = {f"layer_ms{tag}": ms, f"layer_three_call_ms{tag}": [],
+           f"layer_bound_ms{tag}": []}
+    t_in, c_in = wave.shape[1], 1
+    for i, (w, cb, lw, lb) in enumerate(zip(*conv_args)):
+        k, s, t_out = cfg.conv_kernels[i], cfg.conv_strides[i], lengths[i]
+        x_cf = (wave.unsqueeze(1) if i == 0 else
+                torch.randn(bsz, c_in, t_in, device=dev, dtype=torch.bfloat16))
+        yard = three_call_ms(x_cf, w, cb, lw, lb, s, iters)
+        flops = 2.0 * bsz * t_out * k * c_in * 512
+        moved = (x_cf.numel() * (4 if i == 0 else 2) + 512 * k * c_in * 2
+                 + bsz * t_out * 512 * 2 + 3 * 512 * 4)
+        t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
+        grid = grids[i]
+        out[f"layer_three_call_ms{tag}"].append(yard)
+        out[f"layer_bound_ms{tag}"].append(max(t_ops, t_bytes))
+        log(f"time conv layer {i} on {tuple(wave.shape)}: kernel {ms[i]:.4f} ms (device), "
+            f"three library calls {yard:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms by "
+            f"{'operations' if t_ops >= t_bytes else 'bytes'}, grid {grid} = "
+            f"{grid[0] * grid[1]} blocks ({t_in} x {c_in} -> {t_out} x 512, k {k}, stride {s})")
+        t_in, c_in = t_out, 512
+        del x_cf
+    return out
+
+
 def check_kernels(dev) -> dict:
     """Each kernel vs its plain version at the main paths' shapes."""
     import torch
@@ -529,6 +605,7 @@ def check_kernels(dev) -> dict:
         r2 = _compare("fused_conv_encoder", got, want, key=tol)
         r3 = _compare("fused_conv_encoder", per_layer, want, key=tol)
         r4 = _compare("fused_conv_encoder", per_layer, got, key=tol)
+        _same_bits("fused_conv_encoder", got, fused_conv_encoder(wave, *conv_args, cfg))
         exact = conv_encoder_reference(
             wave, *conv_args, dataclasses.replace(cfg, compute_dtype="float32"))
         e_mega = float((got.float() - exact).abs().mean())
@@ -548,6 +625,7 @@ def check_kernels(dev) -> dict:
                   f"plain_ms{tag}": cuda_ms(
                       lambda: conv_encoder_reference(wave, *conv_args, cfg), 3),
                   f"shape{tag}": f"wave {shape} f32 -> ({shape[0]},{t_out},512) bf16"})
+        r.update(conv_layers_report(dev, cfg, wave, conv_args, iters, tag))
         rl.update({f"route_max_abs_err{tag}": r3["max_abs_err"],
                    f"route_vs_mega_max_abs_err{tag}": r4["max_abs_err"],
                    f"route_ms{tag}": cuda_ms(
@@ -621,8 +699,14 @@ def check_kernels(dev) -> dict:
         want = k3_ln_gelu_reference(xm, w01, w2, *vecs, t_pad)
         torch.cuda.synchronize()
         r2 = _compare("conv_k3_ln_gelu", got, want, key="conv_layer")
+        _same_bits("conv_k3_ln_gelu", got, _call_k3(xm, w01, w2, *vecs, t_pad))
         r.update(bound(2.0 * 64 * t_pad * 1536 * 512,
                        nbytes(xm, w01, w2, got, *vecs), tag))
+        # The same layer as three library calls on the unmerged activation:
+        # the (512, 512, 3) weight whose taps are [W0; W1] and W2.
+        weight = torch.stack([w01[:512].t(), w01[512:].t(), w2.t()], dim=-1)
+        r[f"three_call_ms{tag}"] = three_call_ms(
+            xm.view(64, 2 * rows, 512).transpose(1, 2), weight, *vecs, 2, 10)
         r.update({f"max_abs_err{tag}": r2["max_abs_err"],
                   f"mean_abs_err{tag}": r2["mean_abs_err"],
                   f"ms{tag}": cuda_ms(
@@ -639,10 +723,12 @@ def check_kernels(dev) -> dict:
         for tag in sorted({k[len("shape"):] for k in r if k.startswith("shape")}):
             lib = r.get("library_ms" + tag)
             plan = r.get("plan" + tag)
+            three = r.get("three_call_ms" + tag)
             log(f"time {name}: kernel {r['ms' + tag]:.4f} ms, plain "
                 f"{r['plain_ms' + tag]:.4f} ms, bound {r['bound_ms' + tag]:.4f} ms "
                 f"by {r['bound_by' + tag]}"
                 + (f", library call {lib:.4f} ms" if lib is not None else "")
+                + (f", three library calls {three:.4f} ms" if three is not None else "")
                 + (f", grid plan (rows, D slices, M slices) {tuple(plan)}"
                    if plan else "")
                 + f" ({r['shape' + tag]})")

@@ -1,138 +1,228 @@
 // One Wav2Vec2 feature-encoder layer: VALID 1-D conv as a GEMM, + bias,
 // LayerNorm over the 512 channels, exact-erf GELU, bf16 out.
 //
-// Replaces the Pallas kernel mmer_tpu/ops/conv_pyramid.py:_mega_kernel
-// (fused_conv_encoder(mega=True)); the Python wrapper launches this kernel
-// once per layer.  Same numerics as that kernel's _epilogue: the input is
-// rounded to bf16 (the f32 waveform for layer 0), the conv accumulates in
-// f32 and is rounded to bf16, the bias is added in bf16, LayerNorm runs in
-// f32 (flax: eps 1e-6, var = max(0, E[x^2] - E[x]^2)) and is rounded to
-// bf16, GELU runs in f32 and is rounded to bf16.
+// Replaces the Pallas kernel mmer_tpu/ops/conv_pyramid.py:_mega_kernel (:278,
+// fused_conv_encoder(mega=True)); the Python wrapper launches one kernel of
+// this file per layer.  Same numerics as that kernel's _epilogue: the input is
+// rounded to bf16 (the f32 waveform for layer 0), the conv accumulates in f32
+// and is rounded to bf16, the bias is added in bf16, LayerNorm runs in f32
+// (flax: eps 1e-6, var = max(0, E[x^2] - E[x]^2)) and is rounded to bf16,
+// GELU runs in f32 and is rounded to bf16.  The TPU kernel's 64-way
+// phase-split layout worked around a Mosaic relayout and does not carry over.
 //
-// What bounds it on the H100: the k3/k2 layers are tensor-core GEMMs
-// (K = 1536 or 1024, N = 512) with the activation read once and written
-// once; layer 0 (10 taps on one channel) is bound by writing its
-// (T, 512) bf16 output.  Design: because every output frame t reads the
-// contiguous input rows [s*t, s*t + k), row t of the conv's im2col matrix is
-// one contiguous stretch of the (T_in, C_in) activation starting at
-// s*t*C_in; a block stages 32 such rows x 64 taps at a time in shared memory
-// (no patch matrix ever reaches device memory) and multiplies them with WMMA
-// 16x16x16 bf16 tiles against the (512, K) weight read straight from global
-// memory.  The block holds all 512 channels of its 32 frames, so the
-// LayerNorm is block-local.  The TPU kernel's 64-way phase-split layout
-// worked around a Mosaic relayout and does not carry over; fusing the whole
-// pyramid into one launch is later work.
-#include "common.cuh"
+// What bounds each layer type on the H100, and the design:
+//   - kernel-3 and kernel-2 layers (K = 1536 / 1024, N = 512): tensor-core
+//     operations (512 / 341 FLOP a byte of activation read and written, above
+//     the card's ~295).  conv_ln_gelu_kernel is the body of conv_tile.cuh:
+//     im2col row t is the contiguous stretch of the (T_in, C_in) activation at
+//     s*t*C_in, so 64 rows x 64 k of it and 512 channels x 64 k of the
+//     K-major (512, kp) weight go by cp.async through a three-stage ring in
+//     shared memory, wgmma m64n256k16 products accumulate in registers, and
+//     the epilogue runs on the accumulators.  L2 bandwidth caps it (57 FLOP a
+//     staged byte; conv_tile.cuh);
+//   - layer 0 (10 taps of one f32 channel, stride 5): bytes by the card's
+//     rates, the (T, 512) bf16 output (1.05 GB at (64, 80000), 0.31 ms at
+//     3.35 TB/s), but ~40 instructions an output (10 FMAs, the roundings,
+//     the LayerNorm and an exact erf), ~0.8 ms of instructions at that shape.
+//     Tensor cores buy nothing there: conv0_ln_gelu_kernel computes each
+//     output as 10 FMAs on bf16-rounded operands with f32 sums on the CUDA
+//     cores, the block's waveform window and the weight staged once in
+//     shared memory, and runs the epilogue from registers a warp a row (32
+//     sums a thread, 80 registers, three blocks an SM to hide latency).  The
+//     wgmma body's epilogue would hold 128 sums a thread and one block an SM,
+//     which hid no latency here (2.01 ms against 1.29 ms at (64, 80000) on
+//     an H100 SXM).
+#include "conv_tile.cuh"
 
 namespace {
 
 using mmer::bf16;
-using namespace nvcuda;
+namespace conv = mmer::conv;
 
-constexpr int C = 512;        // output channels
-constexpr int BT = 32;        // output frames per block
-constexpr int KC = 64;        // taps staged per step
-constexpr int NWARP = 8;
-constexpr int NTHREAD = NWARP * 32;
-constexpr int LDA = KC + 8;   // bf16 row stride of the staged im2col rows
-constexpr int LDY = C + 4;    // f32 row stride of the conv output tile
-constexpr int NT = (C / 4) / 16;  // col tiles per warp: 4 column groups x 2 row tiles
+constexpr int KMAX = 16;      // layer-0 taps (k * c_in) the CUDA-core path takes
 
-constexpr size_t SMEM_BYTES =
-    size_t(BT) * LDA * sizeof(bf16) + size_t(BT) * LDY * sizeof(float);
-
-template <typename IT>
-__global__ void __launch_bounds__(NTHREAD)
-conv_ln_gelu_kernel(const IT* __restrict__ x, const bf16* __restrict__ w,
+// A kernel-3 (K = 3) or kernel-2 (K = 2) stride-2 layer over a bf16
+// activation of 512 channels: im2col rows of K * 512 values, ROW_STRIDE apart.
+template <int K>
+__global__ void __launch_bounds__(conv::NTHREAD, 1)
+conv_ln_gelu_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                     const float* __restrict__ cb, const float* __restrict__ ln_w,
                     const float* __restrict__ ln_b, bf16* __restrict__ out, int t_in,
-                    int t_out, int c_in, int k, int stride, int kp) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* as = reinterpret_cast<bf16*>(smem);
-  float* ys = reinterpret_cast<float*>(smem + size_t(BT) * LDA * sizeof(bf16));
+                    int t_out) {
+  constexpr int KP = K * conv::C;
+  extern __shared__ unsigned char smem_raw[];
+  const conv::Shared sm = conv::carve(smem_raw);
+  const int tid = threadIdx.x, t0 = blockIdx.x * conv::BM;
+  const int limit = t_in * conv::C;
+  conv::stage_vectors(sm.vs, cb, ln_w, ln_b, tid);
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int t0 = blockIdx.x * BT;
-  const IT* xb = x + size_t(blockIdx.y) * t_in * c_in;
-  const int kfull = k * c_in;
-  const int rt = warp & 1;                 // 16-row tile of this warp
-  const int col0 = (warp >> 1) * (C / 4);  // first output channel of this warp
+  float acc[128];
+  conv::mainloop<0, KP / conv::KC>(
+      acc, sm.ring, x + size_t(blockIdx.y) * limit, limit, t0, t_out,
+      [&](uint32_t dst, int step) { conv::load_b_kmajor<KP>(dst, w, step * conv::KC, tid); },
+      tid);
+  conv::bias_ln_gelu_store(acc, sm.stats, sm.vs, out + size_t(blockIdx.y) * t_out * conv::C,
+                           t0, t_out, tid);
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NT];
+// Shared memory of the layer-0 kernel: the weight as f32 (kdim x 512, tap
+// major), the block's window of input values, the epilogue's vectors.
+size_t conv0_smem(int kdim, int window) {
+  return size_t(kdim) * conv::C * 4 + size_t(window + 3) / 4 * 16 + conv::VEC_BYTES;
+}
+
+// Rows a warp of the layer-0 kernel computes together.
+constexpr int L0_PAIR = 2;
+
+// Layer 0 over the f32 waveform (any c_in, k * c_in <= KMAX) on the CUDA
+// cores: output (t, n) = sum over tap i of bf16(x[s t c_in + i]) bf16(w[n, i]),
+// in f32, tap by tap.  Warp w takes rows 8w .. 8w + 7 of the block's 64, two
+// at a time; lane l holds channels 128 g + 4 l + e (g, e < 4) of both rows
+// in registers, so the weight is read as four conflict-free float4 a tap and
+// the LayerNorm statistics are a warp's sum (per lane in (g, e) order, then
+// the xor butterfly of warp_sum).
+__global__ void __launch_bounds__(conv::NTHREAD, 3)
+conv0_ln_gelu_kernel(const float* __restrict__ x, const bf16* __restrict__ w,
+                     const float* __restrict__ cb, const float* __restrict__ ln_w,
+                     const float* __restrict__ ln_b, bf16* __restrict__ out, int t_in,
+                     int t_out, int c_in, int k, int stride, int kp) {
+  extern __shared__ __align__(16) float smem_f[];
+  const int kdim = k * c_in, row_stride = stride * c_in;
+  const int window = (conv::BM - 1) * row_stride + kdim;
+  float* ws = smem_f;                                  // [tap][channel]
+  float* xs = ws + kdim * conv::C;
+  float* vs = xs + (window + 3) / 4 * 4;
+  const int tid = threadIdx.x, t0 = blockIdx.x * conv::BM;
+  const long long limit = (long long)t_in * c_in;
+  const float* xb = x + size_t(blockIdx.y) * limit;
+  const long long start = (long long)t0 * row_stride;
+
+  // The weight in 16-byte rows of 8 taps (kp is a multiple of 16), each
+  // spread over its taps' rows of ws.
+  for (int i = tid; i < conv::C * kp / 8; i += conv::NTHREAD) {
+    const int n = i / (kp / 8), tap0 = i % (kp / 8) * 8;
+    const uint4 v = *reinterpret_cast<const uint4*>(w + size_t(i) * 8);
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
 #pragma unroll
-  for (int j = 0; j < NT; ++j) wmma::fill_fragment(acc[j], 0.f);
+    for (int t = 0; t < 8; ++t)
+      if (tap0 + t < kdim) ws[(tap0 + t) * conv::C + n] = __bfloat162float(e[t]);
+  }
+  for (int i = tid; i < window; i += conv::NTHREAD)
+    xs[i] = start + i < limit ? mmer::round_bf16(xb[start + i]) : 0.f;
+  conv::stage_vectors(vs, cb, ln_w, ln_b, tid);
+  __syncthreads();
 
-  for (int k0 = 0; k0 < kp; k0 += KC) {
-    const int kc = min(KC, kp - k0);  // a multiple of 16
-    __syncthreads();
-    for (int i = tid; i < BT * KC; i += NTHREAD) {
-      const int r = i / KC, c = i % KC;
-      const int t = t0 + r, kk = k0 + c;
-      float val = 0.f;
-      if (c < kc && t < t_out && kk < kfull)
-        val = mmer::to_f32(xb[size_t(t) * stride * c_in + kk]);
-      as[r * LDA + c] = __float2bfloat16_rn(val);
+  const int warp = tid >> 5, lane = tid & 31;
+  const float4* ws4 = reinterpret_cast<const float4*>(ws) + lane;
+  const float4* cb4 = reinterpret_cast<const float4*>(vs) + lane;
+  const float4* lw4 = cb4 + conv::C / 4;
+  const float4* lb4 = lw4 + conv::C / 4;
+  bf16* ob = out + size_t(blockIdx.y) * t_out * conv::C + 4 * lane;
+#pragma unroll 1
+  for (int r0 = warp * (conv::BM / 8); r0 < (warp + 1) * (conv::BM / 8) && t0 + r0 < t_out;
+       r0 += L0_PAIR) {
+    float acc[L0_PAIR][16];
+#pragma unroll
+    for (int i = 0; i < L0_PAIR; ++i)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) acc[i][j] = 0.f;
+#pragma unroll 2
+    for (int tap = 0; tap < kdim; ++tap) {
+      float xv[L0_PAIR];
+#pragma unroll
+      for (int i = 0; i < L0_PAIR; ++i) xv[i] = xs[(r0 + i) * row_stride + tap];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const float4 wv = ws4[tap * (conv::C / 4) + 32 * g];
+#pragma unroll
+        for (int i = 0; i < L0_PAIR; ++i) {
+          acc[i][4 * g] = fmaf(xv[i], wv.x, acc[i][4 * g]);
+          acc[i][4 * g + 1] = fmaf(xv[i], wv.y, acc[i][4 * g + 1]);
+          acc[i][4 * g + 2] = fmaf(xv[i], wv.z, acc[i][4 * g + 2]);
+          acc[i][4 * g + 3] = fmaf(xv[i], wv.w, acc[i][4 * g + 3]);
+        }
+      }
     }
-    __syncthreads();
-    for (int kk = 0; kk < kc; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, as + rt * 16 * LDA + kk, LDA);
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(b, w + size_t(col0 + j * 16) * kp + k0 + kk, kp);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
+    for (int i = 0; i < L0_PAIR; ++i) {
+      float s = 0.f, ss = 0.f;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const float4 c = cb4[32 * g];
+        const float cv[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float y = mmer::round_bf16(mmer::round_bf16(acc[i][4 * g + e]) +
+                                           mmer::round_bf16(cv[e]));
+          acc[i][4 * g + e] = y;
+          s += y;
+          ss += y * y;
+        }
+      }
+      s = mmer::warp_sum(s);
+      ss = mmer::warp_sum(ss);
+      const float mean = s / conv::C;
+      const float var = fmaxf(ss / conv::C - mean * mean, 0.f);
+      const float rstd = 1.0f / sqrtf(var + 1e-6f);
+      if (t0 + r0 + i < t_out) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const float4 lw = lw4[32 * g], lb = lb4[32 * g];
+          const float* y = acc[i] + 4 * g;
+          const uint2 o = make_uint2(
+              conv::pack_bf16(mmer::gelu_erf(mmer::round_bf16((y[0] - mean) * rstd * lw.x + lb.x)),
+                              mmer::gelu_erf(mmer::round_bf16((y[1] - mean) * rstd * lw.y + lb.y))),
+              conv::pack_bf16(mmer::gelu_erf(mmer::round_bf16((y[2] - mean) * rstd * lw.z + lb.z)),
+                              mmer::gelu_erf(mmer::round_bf16((y[3] - mean) * rstd * lw.w + lb.w))));
+          *reinterpret_cast<uint2*>(ob + size_t(t0 + r0 + i) * conv::C + 128 * g) = o;
+        }
       }
     }
   }
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-    wmma::store_matrix_sync(ys + rt * 16 * LDY + col0 + j * 16, acc[j], LDY,
-                            wmma::mem_row_major);
-  __syncthreads();
-
-  // Epilogue, one warp per frame row: each lane holds 16 of the 512 channels.
-  for (int r = warp; r < BT; r += NWARP) {
-    const int t = t0 + r;
-    if (t >= t_out) continue;
-    mmer::bias_ln_gelu_row<C>(ys + r * LDY, cb, ln_w, ln_b,
-                              out + (size_t(blockIdx.y) * t_out + t) * C, lane);
-  }
-}
-
-template <typename IT>
-int launch(const void* x, const void* w, const void* cb, const void* ln_w,
-           const void* ln_b, void* out, int batch, int t_in, int t_out, int c_in,
-           int k, int stride, int kp, cudaStream_t stream) {
-  auto kern = conv_ln_gelu_kernel<IT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM_BYTES));
-  if (err != cudaSuccess) return int(err);
-  dim3 grid((t_out + BT - 1) / BT, batch);
-  kern<<<grid, NTHREAD, SMEM_BYTES, stream>>>(
-      static_cast<const IT*>(x), static_cast<const bf16*>(w),
-      static_cast<const float*>(cb), static_cast<const float*>(ln_w),
-      static_cast<const float*>(ln_b), static_cast<bf16*>(out), t_in, t_out, c_in, k,
-      stride, kp);
-  return int(cudaGetLastError());
 }
 
 }  // namespace
 
 // x: (batch, t_in, c_in) contiguous, f32 (x_is_f32 = 1, the layer-0
-// waveform with c_in = 1) or bf16; w: (512, kp) bf16, the conv weight as
-// (out, k, c_in) flattened and zero-padded to kp, a multiple of 16;
-// cb, ln_w, ln_b: (512,) f32; out: (batch, t_out, 512) bf16.
+// waveform, k * c_in <= 16) or bf16 (c_in = 512, stride 2, k = 2 or 3); w:
+// (512, kp) bf16, the conv weight as (out, k, c_in) flattened and
+// zero-padded to kp, a multiple of 16 (kp = k * c_in for bf16 x); cb, ln_w,
+// ln_b: (512,) f32; out: (batch, t_out, 512) bf16.  grid (host, two ints):
+// the grid launched, x then y.
 MMER_EXPORT int mmer_conv_ln_gelu(const void* x, const void* w, const void* cb,
                                   const void* ln_w, const void* ln_b, void* out,
                                   int batch, int t_in, int t_out, int c_in, int c_out,
                                   int k, int stride, int kp, int x_is_f32,
-                                  void* stream) {
-  if (c_out != C || kp % 16 != 0 || kp < k * c_in || t_out <= 0 || batch <= 0 ||
-      (t_out - 1) * stride + k > t_in)
+                                  void* stream, int* grid) {
+  if (c_out != conv::C || kp % 16 != 0 || kp < k * c_in || t_out <= 0 || batch <= 0 ||
+      (t_out - 1) * stride + k > t_in || (long long)t_in * c_in >= (1LL << 30))
     return int(cudaErrorInvalidValue);
+  const dim3 g = conv::grid_of(t_out, batch);
+  grid[0] = int(g.x);
+  grid[1] = int(g.y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return x_is_f32
-             ? launch<float>(x, w, cb, ln_w, ln_b, out, batch, t_in, t_out, c_in, k, stride, kp, s)
-             : launch<bf16>(x, w, cb, ln_w, ln_b, out, batch, t_in, t_out, c_in, k, stride, kp, s);
+  const float* cbf = static_cast<const float*>(cb);
+  const float* lwf = static_cast<const float*>(ln_w);
+  const float* lbf = static_cast<const float*>(ln_b);
+  if (x_is_f32) {
+    if (k * c_in > KMAX) return int(cudaErrorInvalidValue);
+    const size_t smem =
+        conv0_smem(k * c_in, (conv::BM - 1) * stride * c_in + k * c_in);
+    cudaError_t err = cudaFuncSetAttribute(
+        conv0_ln_gelu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return int(err);
+    conv0_ln_gelu_kernel<<<g, conv::NTHREAD, smem, s>>>(
+        static_cast<const float*>(x), static_cast<const bf16*>(w), cbf, lwf, lbf,
+        static_cast<bf16*>(out), t_in, t_out, c_in, k, stride, kp);
+    return int(cudaGetLastError());
+  }
+  if (c_in != conv::C || stride != 2 || kp != k * c_in || (k != 2 && k != 3))
+    return int(cudaErrorInvalidValue);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* wb = static_cast<const bf16*>(w);
+  bf16* ob = static_cast<bf16*>(out);
+  return int(k == 3 ? conv::launch(conv_ln_gelu_kernel<3>, t_out, batch, s, xb, wb, cbf, lwf, lbf,
+                                   ob, t_in, t_out)
+                    : conv::launch(conv_ln_gelu_kernel<2>, t_out, batch, s, xb, wb, cbf, lwf, lbf,
+                                   ob, t_in, t_out));
 }

@@ -21,6 +21,14 @@ On a CPU tensor ``mega=True`` runs :func:`conv_encoder_reference` and
 ``mega=False`` the same composition over :func:`gemm_ln_gelu_reference` and
 :func:`k3_ln_gelu_reference`.
 
+The kernel-3 and kernel-2 layers of ``mega=True`` and the kernel-3 layers of
+``mega=False`` share one body (``csrc/conv_tile.cuh``: 64-row tiles, 64-deep
+K steps, the LayerNorm statistics of the two 256-channel halves added);
+layer 0 of ``mega=True`` has a kernel of its own on the CUDA cores (a warp a
+row, the statistics a warp's sum).  :func:`tiled_conv_encoder_reference` and
+:func:`tiled_k3_reference` repeat their order of operations in plain PyTorch
+for the CPU tests.
+
 Rounding points follow the Pallas ``_epilogue``: the input is rounded to the
 compute dtype, the conv output is rounded, the bias is added in the compute
 dtype, LayerNorm runs in float32 and is rounded, GELU runs in float32 and
@@ -39,10 +47,11 @@ import torch.nn.functional as F
 
 from mmer_tpu_torch.config import torch_dtype
 from mmer_tpu_torch.ops import _build
-from mmer_tpu_torch.ops.fused_blocks import layer_norm
+from mmer_tpu_torch.ops.fused_blocks import LN_EPS, layer_norm
 
 __all__ = ["conv_encoder_reference", "fused_conv_encoder", "gemm_ln_gelu_reference",
-           "gemm_weight", "k3_ln_gelu_reference", "supports_config"]
+           "gemm_weight", "halves_row_stats", "k3_ln_gelu_reference", "lane_row_stats",
+           "supports_config", "tiled_conv_encoder_reference", "tiled_k3_reference"]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -135,6 +144,127 @@ def k3_ln_gelu_reference(xm: torch.Tensor, w01: torch.Tensor, w2: torch.Tensor,
     y32 = torch.matmul(rows[:, :t_pad], w01.float()) \
         + torch.matmul(rows[:, 1:, :c], w2.float())
     return _epilogue(y32, cb, scale, bias, xm.dtype)
+
+
+# The CUDA kernels' tiling (csrc/conv_tile.cuh): output rows a block, K a step.
+CONV_ROWS, CONV_KSTEP = 64, 64
+
+
+def tiled_conv_sums(x: torch.Tensor, row_stride: int, kdim: int, t_rows: int,
+                    w: torch.Tensor) -> torch.Tensor:
+    """The product of the kernels' shared body in plain PyTorch: row t of the
+    operand is the ``kdim`` values of clip b's flattened activation ``x[b]``
+    that start at ``t * row_stride``; rows come in tiles of CONV_ROWS and K in
+    steps of CONV_KSTEP, whose f32 products are added in step order.  A value
+    at or beyond the end of its clip's array, and every row at or beyond
+    ``t_rows``, reads as zero: the clips are gathered from one flat array, so
+    a value past a clip's end would otherwise be the next clip's.  ``w`` is
+    (kdim, N); returns (B, rows, N) f32 sums, ``rows`` = t_rows rounded up to
+    whole tiles."""
+    bsz = x.shape[0]
+    n = x[0].numel()
+    flat = x.reshape(-1)
+    rows = _round_up(t_rows, CONV_ROWS)
+    r = torch.arange(rows, device=x.device)[:, None]
+    idx = r * row_stride + torch.arange(kdim, device=x.device)[None, :]
+    valid = (idx < n) & (r < t_rows)
+    start = torch.arange(bsz, device=x.device)[:, None, None] * n
+    a = flat[(start + idx).clamp(max=flat.numel() - 1)].float()
+    a = torch.where(valid, a, torch.zeros((), dtype=a.dtype, device=x.device))
+    acc = torch.zeros(bsz, rows, w.shape[1], device=x.device)
+    for k0 in range(0, kdim, CONV_KSTEP):
+        acc = acc + torch.matmul(a[..., k0:k0 + CONV_KSTEP],
+                                 w[k0:k0 + CONV_KSTEP].float())
+    return acc
+
+
+def halves_row_stats(y: torch.Tensor):
+    """Each row's sum and sum of squares as the wgmma body takes them: over
+    each half of the channels (a warpgroup's), then added, first half first."""
+    c = y.shape[-1]
+    lo, hi = y[..., :c // 2], y[..., c // 2:]
+    return (lo.sum(-1, keepdim=True) + hi.sum(-1, keepdim=True),
+            (lo * lo).sum(-1, keepdim=True) + (hi * hi).sum(-1, keepdim=True))
+
+
+def lane_row_stats(y: torch.Tensor):
+    """Each row's sum and sum of squares as the layer-0 kernel takes them:
+    lane l of a warp holds channels 128 g + 4 l + e and adds them in (g, e)
+    order, then the 32 lanes' sums meet in an xor butterfly (16, 8, 4, 2,
+    1), each lane adding its partner's sum to its own."""
+    c = y.shape[-1]
+    v = F.pad(y, (0, -c % 128)).unflatten(-1, (-1, 32, 4))    # (..., g, lane, e)
+    s = torch.zeros_like(v[..., 0, :, 0])
+    ss = torch.zeros_like(s)
+    for g in range(v.shape[-3]):
+        for e in range(4):
+            x = v[..., g, :, e]
+            s, ss = s + x, ss + x * x
+    lane = torch.arange(32, device=y.device)
+    for d in (16, 8, 4, 2, 1):
+        s, ss = s + s[..., lane ^ d], ss + ss[..., lane ^ d]
+    return s[..., :1], ss[..., :1]
+
+
+def tiled_epilogue(y32: torch.Tensor, cb: torch.Tensor, scale: torch.Tensor,
+                   bias: torch.Tensor, dt: torch.dtype,
+                   row_stats=halves_row_stats) -> torch.Tensor:
+    """:func:`_epilogue` with a kernel's LayerNorm statistics: each row's
+    sum and sum of squares in the order of ``row_stats``
+    (:func:`halves_row_stats` for the wgmma body, :func:`lane_row_stats` for
+    layer 0)."""
+    y = (y32.to(dt) + cb.to(dt)).float()
+    c = y.shape[-1]
+    s, ss = row_stats(y)
+    mean = s / c
+    rstd = 1.0 / torch.sqrt((ss / c - mean * mean).clamp_min(0.0) + LN_EPS)
+    ln = ((y - mean) * rstd * scale.float() + bias.float()).to(dt)
+    return F.gelu(ln.float()).to(dt)
+
+
+def tiled_conv_encoder_reference(wave: torch.Tensor, weights: Sequence[torch.Tensor],
+                                 biases: Sequence[torch.Tensor],
+                                 ln_weights: Sequence[torch.Tensor],
+                                 ln_biases: Sequence[torch.Tensor], cfg) -> torch.Tensor:
+    """``fused_conv_encoder(mega=True)`` in the order of operations of
+    ``csrc/conv_encoder.cu``, in plain PyTorch (same arguments): layer 0 on
+    its own path, output (t, n) summed tap by tap in f32 over the rounded
+    waveform and weight, its statistics by :func:`lane_row_stats`; every
+    later layer through :func:`tiled_conv_sums` over the im2col rows of the
+    unmerged activation against the K-major weight, its statistics by
+    :func:`halves_row_stats`; :func:`tiled_epilogue` after each."""
+    _check_args(wave, weights, cfg)
+    dt = torch_dtype(cfg)
+    x = wave.to(dt).unsqueeze(-1)                          # (B, L, 1)
+    for i, (w, cb, lw, lb, k, s) in enumerate(zip(
+            weights, biases, ln_weights, ln_biases, cfg.conv_kernels,
+            cfg.conv_strides)):
+        bsz, t_in, c_in = x.shape
+        t_out = (t_in - k) // s + 1
+        kdim = k * c_in
+        wg = gemm_weight(w, dt)[:, :kdim].float()          # (C, kdim)
+        if i == 0:
+            rows = x.unfold(1, k, s).permute(0, 1, 3, 2).reshape(bsz, t_out, kdim)
+            acc = torch.zeros(bsz, t_out, wg.shape[0], device=x.device)
+            for tap in range(kdim):
+                acc = acc + rows[..., tap:tap + 1].float() * wg[:, tap]
+            x = tiled_epilogue(acc, cb, lw, lb, dt, lane_row_stats)
+        else:
+            acc = tiled_conv_sums(x, s * c_in, kdim, t_out, wg.t())[:, :t_out]
+            x = tiled_epilogue(acc, cb, lw, lb, dt)
+    return x
+
+
+def tiled_k3_reference(xm: torch.Tensor, w01: torch.Tensor, w2: torch.Tensor,
+                       cb: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                       t_pad: int) -> torch.Tensor:
+    """:func:`_call_k3` in the order of operations of ``csrc/conv_layers.cu``
+    (same arguments): row t of the operand is the 3C contiguous values at
+    merged row t, multiplied by ``[w01; w2]`` through :func:`tiled_conv_sums`."""
+    c2 = xm.shape[2]
+    y32 = tiled_conv_sums(xm, c2, c2 + w2.shape[0], t_pad,
+                          torch.cat([w01, w2]))[:, :t_pad]
+    return tiled_epilogue(y32, cb, scale, bias, xm.dtype)
 
 
 def _check_layer_args(name: str, x, mats, vecs) -> list:
@@ -262,8 +392,11 @@ def _per_layer_encoder(wave, weights, biases, ln_weights, ln_biases,
 
 
 # mmer_conv_ln_gelu(x, w, cb, ln_w, ln_b, out, batch, t_in, t_out, c_in,
-#                   c_out, k, stride, kp, x_is_f32, stream)
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+#                   c_out, k, stride, kp, x_is_f32, stream, grid)
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2
+# Taps of the first layer that csrc/conv_encoder.cu's layer-0 kernel takes
+# (its weight and window live in shared memory); mega=False takes any.
+MAX_FIRST_TAPS = 16
 
 
 def fused_conv_encoder(wave: torch.Tensor, weights: Sequence[torch.Tensor],
@@ -277,7 +410,10 @@ def fused_conv_encoder(wave: torch.Tensor, weights: Sequence[torch.Tensor],
     ``weights[i]`` is layer i's Conv1d weight (C_out, C_in, k); ``biases``,
     ``ln_weights``, ``ln_biases`` its conv bias and LayerNorm params.
     ``mega`` picks the route (module docstring).  On CUDA the kernels take a
-    bf16 compute dtype and 512 channels per layer.
+    bf16 compute dtype and 512 channels per layer, and ``mega=True`` a first
+    layer of at most MAX_FIRST_TAPS taps; ``fused_conv_encoder.last_grids``
+    holds the grid (blocks along the frames, clips) each layer's launch of
+    the latest ``mega=True`` call used.
     """
     if wave.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_conv_encoder: unsupported device {wave.device}")
@@ -292,9 +428,14 @@ def fused_conv_encoder(wave: torch.Tensor, weights: Sequence[torch.Tensor],
     if not mega:
         return _per_layer_encoder(wave, weights, biases, ln_weights, ln_biases,
                                   cfg)
+    if cfg.conv_kernels[0] > MAX_FIRST_TAPS:
+        raise ValueError(f"fused_conv_encoder: the layer-0 kernel takes at most "
+                         f"{MAX_FIRST_TAPS} taps, got {cfg.conv_kernels[0]}; "
+                         "mega=False takes any")
     stream = _build.stream_ptr(wave.device)
     x = wave.contiguous()
     bsz = x.shape[0]
+    grids = []
     for w, cb, lw, lb, k, s in zip(weights, biases, ln_weights, ln_biases,
                                    cfg.conv_kernels, cfg.conv_strides):
         c_out, c_in = w.shape[0], w.shape[1]
@@ -311,15 +452,19 @@ def fused_conv_encoder(wave: torch.Tensor, weights: Sequence[torch.Tensor],
                                  "one device")
         out = torch.empty((bsz, t_out, c_out), dtype=torch.bfloat16,
                           device=x.device)
+        grid = (ctypes.c_int * 2)()
         _build.call(
             "conv_encoder", "mmer_conv_ln_gelu", _ARGTYPES,
             _build.ptr(x), _build.ptr(wg), _build.ptr(vecs[0]),
             _build.ptr(vecs[1]), _build.ptr(vecs[2]), _build.ptr(out),
             bsz, t_in, t_out, c_in, c_out, k, s, wg.shape[1],
-            int(x.dtype == torch.float32), stream)
+            int(x.dtype == torch.float32), stream, ctypes.addressof(grid))
         fused_conv_encoder.launches += 1
+        grids.append(tuple(grid))
         x = out
+    fused_conv_encoder.last_grids = grids
     return x
 
 
 fused_conv_encoder.launches = 0
+fused_conv_encoder.last_grids = []

@@ -40,6 +40,31 @@ def event_ms(fn: Callable, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_device_ms(fn: Callable, match: str, iters: int) -> list:
+    """Device time of each kernel launch of one ``fn()`` call whose name holds
+    ``match``, in launch order, in milliseconds averaged over ``iters`` calls
+    after a warm-up one.  Read from a torch.profiler trace of the card, so the
+    host's time between two launches is not counted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA and match in e.name),
+                     key=lambda e: e.time_range.start)
+    if not kernels or len(kernels) % iters:
+        raise RuntimeError(f"the profiler saw {len(kernels)} kernels named "
+                           f"*{match}* in {iters} calls")
+    n = len(kernels) // iters
+    return [sum(e.time_range.elapsed_us() for e in kernels[i::n]) / iters / 1e3
+            for i in range(n)]
+
+
 def timed_ms(fn: Callable, inputs: Sequence[tuple], device: torch.device,
              rounds: int = ROUNDS) -> float:
     """Milliseconds per call of ``fn(*args)``, cycling over the distinct

@@ -13,9 +13,9 @@ load, which a GPU machine without JAX does not need.)
 Shapes cover the ragged edges the main path's shapes do not: sequences and
 token counts that are not multiples of the kernels' 64-row tiles, every
 plan of the FFN's grid (one and several slices of the hidden dimension),
-and conv stacks whose last layers have fewer frames than one block.  The
-attention and FFN kernels use no atomics: the same call twice must give the
-same bits.
+conv layers whose output lengths sit around the conv kernels' 64-row tiles,
+and conv stacks whose last layers have fewer frames than one block.  No
+kernel uses atomics: the same call twice must give the same bits.
 Tolerances are chip_smoke.py's, with the same reasons, except for
 attention, whose bound here scales with the output (see the test).
 """
@@ -31,7 +31,9 @@ from mmer_tpu_torch.ops import conv_pyramid
 from mmer_tpu_torch.ops.conv_pyramid import (conv_encoder_reference,
                                              fused_conv_encoder,
                                              gemm_ln_gelu_reference,
-                                             k3_ln_gelu_reference)
+                                             k3_ln_gelu_reference,
+                                             tiled_conv_encoder_reference,
+                                             tiled_k3_reference)
 from mmer_tpu_torch.ops.flash_attention import (flash_attention,
                                                 flash_attention_varlen,
                                                 reference_attention,
@@ -360,6 +362,83 @@ def test_conv_encoder_per_layer_route_matches_plain_and_mega(cuda, batch, length
     assert _err(got, exact)[1] <= 1.25 * _err(want, exact)[1]
 
 
+@pytest.mark.parametrize("batch,length", [(3, 400), (3, 20240), (3, 20560),
+                                          (3, 20880), (4, 48000)])
+def test_conv_encoder_kernel_ragged_tiles_and_repeat(cuda, batch, length):
+    """Last-layer lengths 1, 63, 64, 65 (one 64-row tile less one, exactly,
+    plus one) and 149 (the serving shape, 4 x 48,000 samples), every earlier
+    layer at other odd and even lengths: within the conv bound of the plain
+    version and of the kernels' order of operations in plain PyTorch, as
+    close to the f32 path as the plain version, seven launches a call, the
+    same bits on a second call, a 64-row block a tile of each clip."""
+    cfg = Wav2Vec2Config()
+    args = _conv_args(cfg, cuda)
+    wave = torch.randn(batch, length, generator=_gen(cuda, 6), device=cuda)
+    n0 = fused_conv_encoder.launches
+    got = fused_conv_encoder(wave, *args, cfg)
+    assert fused_conv_encoder.launches == n0 + len(cfg.conv_dims)
+    t = feat_extract_output_length(cfg, length)
+    assert got.shape == (batch, t, 512) and t in (1, 63, 64, 65, 149)
+    want = conv_encoder_reference(wave, *args, cfg)
+    for ref in (want, tiled_conv_encoder_reference(wave, *args, cfg)):
+        mx, mean = _err(got, ref)
+        assert mx <= 0.06 and mean <= 5e-3, (mx, mean)
+    exact = conv_encoder_reference(
+        wave, *args, dataclasses.replace(cfg, compute_dtype="float32"))
+    assert _err(got, exact)[1] <= 1.25 * _err(want, exact)[1]
+    assert torch.equal(got, fused_conv_encoder(wave, *args, cfg))
+    assert fused_conv_encoder.launches == n0 + 2 * len(cfg.conv_dims)
+    lengths, n = [], length
+    for k, s in zip(cfg.conv_kernels, cfg.conv_strides):
+        n = (n - k) // s + 1
+        lengths.append(n)
+    assert fused_conv_encoder.last_grids == [(-(-n // 64), batch) for n in lengths]
+
+
+def _k3_operands(dev, batch, t_in, seed):
+    """An activation of t_in frames padded to even length with a zero row,
+    as merged rows, and the split weights."""
+    a, w2, vecs = _layer_operands(dev, batch, t_in + t_in % 2, 512, seed=seed)
+    a[:, t_in:] = 0
+    g = _gen(dev, seed + 1)
+    w01 = (torch.randn(1024, 512, generator=g, device=dev) * 1536 ** -0.5).bfloat16()
+    return a.view(batch, -1, 1024), w01, w2, vecs
+
+
+@pytest.mark.parametrize("parity", [1, 0])
+@pytest.mark.parametrize("t_out", [1, 63, 64, 65, 149])
+def test_k3_layer_kernel_ragged_tiles_and_repeat(cuda, t_out, parity):
+    """Output lengths around the 64-row tile, from an odd (2 t_out + 1) and
+    an even (2 t_out + 2) input length: the last row of an odd one takes its
+    third tap from the zero pad row, the pad row of an even one reads past the
+    clip's array (zeros, never the next clip).  Within the layer bound of the
+    plain version and of the kernel's order of operations; one launch a call;
+    the same bits on a second call."""
+    t_in = 2 * t_out + 2 - parity
+    xm, w01, w2, vecs = _k3_operands(cuda, 3, t_in, seed=t_in)
+    t_pad = t_out + t_out % 2
+    n0 = conv_pyramid._call_k3.launches
+    got = conv_pyramid._call_k3(xm, w01, w2, *vecs, t_pad)
+    assert conv_pyramid._call_k3.launches == n0 + 1
+    assert got.shape == (3, t_pad, 512) and torch.isfinite(got.float()).all()
+    for ref in (k3_ln_gelu_reference(xm, w01, w2, *vecs, t_pad),
+                tiled_k3_reference(xm, w01, w2, *vecs, t_pad)):
+        mx, mean = _err(got, ref)
+        assert mx <= 0.0625 and mean <= 1e-3, (mx, mean)
+    assert torch.equal(got, conv_pyramid._call_k3(xm, w01, w2, *vecs, t_pad))
+    assert conv_pyramid._call_k3.launches == n0 + 2
+
+
+def test_k3_layer_kernel_at_the_even_extraction_length(cuda):
+    """16,001 frames in (8,001 merged rows), 8,000 out: the last row reads a
+    merged row that exists.  Two clips of the extraction shape."""
+    xm, w01, w2, vecs = _k3_operands(cuda, 2, 16002, seed=11)
+    got = conv_pyramid._call_k3(xm, w01, w2, *vecs, 8000)
+    mx, mean = _err(got, k3_ln_gelu_reference(xm, w01, w2, *vecs, 8000))
+    assert mx <= 0.0625 and mean <= 1e-3, (mx, mean)
+    assert torch.equal(got, conv_pyramid._call_k3(xm, w01, w2, *vecs, 8000))
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     g = _gen(cuda)
     q = torch.randn(1, 1, 8, 32, generator=g, device=cuda).bfloat16()
@@ -394,6 +473,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):           # f32 compute dtype
         fused_conv_encoder(torch.zeros(1, 1600, device=cuda),
                            *_conv_args(Wav2Vec2Config(), cuda), cfg)
+    cfg = Wav2Vec2Config(conv_kernels=(17, 3, 3, 3, 3, 2, 2))
+    with pytest.raises(ValueError, match="mega=False"):    # 17 layer-0 taps
+        fused_conv_encoder(torch.zeros(1, 1600, device=cuda), *_conv_args(cfg, cuda), cfg)
 
 
 @pytest.mark.parametrize("tokens,d,n,x_dtype", [

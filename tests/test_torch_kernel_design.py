@@ -20,6 +20,19 @@ functions:
 - f32 FFN: atol = rtol = 2e-5; bf16 FFN: max 2^-7 of max |out|, mean 1e-5 (same
   rounding points, only f32 summation order can flip a bf16 rounding).
 
+The conv-encoder kernels (``csrc/conv_encoder.cu``, ``conv_layers.cu``'s
+kernel-3 layers) share one body, ``csrc/conv_tile.cuh``:
+``tiled_conv_encoder_reference`` and ``tiled_k3_reference`` repeat its
+schedule (64-row tiles, 64-deep K steps over the im2col rows or the merged
+view with zero fill past each clip's end, LayerNorm statistics of the two
+channel halves added, layer 0 summed tap by tap on its own path).  They are
+held to the plain versions and to the JAX functions in interpret mode under
+the bounds of tests/test_torch_ops.py: f32 atol = rtol = 2e-4 (seven layers
+of K <= 1536 sums in another order; 2e-5 for one layer), bf16 max 0.06 and
+mean 5e-3 (a flipped rounding propagates through the next LayerNorm; one
+layer against the Pallas kernel, whose interpret mode skips intermediate
+roundings: max 0.06, mean 2e-3).
+
 ``ffn_plan``, the host function that picks the FFN grid, is checked with
 hypothesis.  The kernels themselves: tests/test_torch_cuda.py, on a GPU.
 """
@@ -31,8 +44,18 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+from mmer_tpu.config import Wav2Vec2Config as JaxWav2Vec2Config
+from mmer_tpu.models.wav2vec2 import ConvFeatureEncoder as JaxConvEncoder
+from mmer_tpu.ops import conv_pyramid as jax_conv
 from mmer_tpu.ops import flash_attention as jax_attn
 from mmer_tpu.ops import fused_blocks as jax_blocks
+from mmer_tpu_torch.config import Wav2Vec2Config
+from mmer_tpu_torch.models.convert import conv_encoder_from_flax
+from mmer_tpu_torch.ops.conv_pyramid import (CONV_ROWS, conv_encoder_reference,
+                                             halves_row_stats, k3_ln_gelu_reference,
+                                             lane_row_stats,
+                                             tiled_conv_encoder_reference,
+                                             tiled_k3_reference)
 from mmer_tpu_torch.ops.flash_attention import (KEY_TILE, reference_attention,
                                                 reference_attention_varlen,
                                                 tiled_attention_reference)
@@ -214,6 +237,158 @@ def test_ffn_split_is_the_same_on_every_call():
     assert torch.equal(a, ffn_split_reference(*_port_args(p), 2))
 
 
+# -- conv encoder ------------------------------------------------------------
+
+# A three-layer stack of the supported family (layer 0, one kernel-3 and one
+# kernel-2 stride-2 layer), 64 channels: K = 192 and 128, three and two K
+# steps.  The lengths put the last layer's t_out at 1, the tile height - 1,
+# the tile height and + 1; the layers before it run odd and even lengths.
+_STACK = dict(conv_kernels=(10, 3, 2), conv_strides=(5, 2, 2), conv_dims=(64, 64, 64))
+_LENGTHS = {34: (5, 2, 1), 1285: (256, 127, 63), 1290: (257, 128, 64),
+            1320: (263, 131, 65)}
+
+
+def _conv_case(length, dtype, stack=_STACK, batch=3, seed=0):
+    """JAX config and params, the port's config and arguments, a waveform
+    batch of clips whose ends fall mid-tile."""
+    import jax
+
+    jcfg = JaxWav2Vec2Config(compute_dtype=dtype, **stack)
+    cfg = Wav2Vec2Config(compute_dtype=dtype, **stack)
+    params = JaxConvEncoder(jcfg).init({"params": jax.random.PRNGKey(seed)},
+                                       jnp.zeros((1, 1600), jnp.float32))
+    sd = conv_encoder_from_flax(params)
+    n = len(cfg.conv_dims)
+    args = [[sd[f"{kind}.{i}.{name}"] for i in range(n)]
+            for kind, name in (("convs", "weight"), ("convs", "bias"),
+                               ("norms", "weight"), ("norms", "bias"))]
+    wave = np.random.default_rng(seed).normal(size=(batch, length)).astype(np.float32)
+    return jcfg, params, cfg, args, wave
+
+
+@pytest.mark.parametrize("length", sorted(_LENGTHS))
+def test_tiled_conv_encoder_f32_matches_plain_and_pallas(length):
+    jcfg, params, cfg, args, wave = _conv_case(length, "float32")
+    got = tiled_conv_encoder_reference(_t(wave), *args, cfg)
+    assert got.shape == (3, _LENGTHS[length][-1], 64)
+    got = got.numpy()
+    plain = conv_encoder_reference(_t(wave), *args, cfg).numpy()
+    np.testing.assert_allclose(got, plain, atol=2e-4, rtol=2e-4)
+    pallas = jax_conv.fused_conv_encoder(jnp.asarray(wave), params["params"], jcfg,
+                                         interpret=True, mega=True)
+    np.testing.assert_allclose(got, np.asarray(pallas), atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("length", [1285, 1320])
+def test_tiled_conv_encoder_bf16_rounding_points(length):
+    jcfg, params, cfg, args, wave = _conv_case(length, "bfloat16", seed=1)
+    got = tiled_conv_encoder_reference(_t(wave), *args, cfg)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    for want in (conv_encoder_reference(_t(wave), *args, cfg).float().numpy(),
+                 np.asarray(jax_conv.fused_conv_encoder(
+                     jnp.asarray(wave), params["params"], jcfg, interpret=True,
+                     mega=True), np.float32)):
+        diff = np.abs(got - want)
+        assert float(diff.max()) <= 0.06, float(diff.max())
+        assert float(diff.mean()) <= 5e-3, float(diff.mean())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tiled_conv_encoder_at_the_real_widths(dtype):
+    """The seven 512-wide layers (K = 1536 and 1024: 24 and 16 K steps, two
+    halves of 256 channels), 1,923 samples: odd and even lengths."""
+    stack = dict(conv_kernels=(10, 3, 3, 3, 3, 2, 2),
+                 conv_strides=(5, 2, 2, 2, 2, 2, 2), conv_dims=(512,) * 7)
+    jcfg, params, cfg, args, wave = _conv_case(1923, dtype, stack, batch=2, seed=2)
+    got = tiled_conv_encoder_reference(_t(wave), *args, cfg).float().numpy()
+    pallas = np.asarray(jax_conv.fused_conv_encoder(
+        jnp.asarray(wave), params["params"], jcfg, interpret=True, mega=True), np.float32)
+    plain = conv_encoder_reference(_t(wave), *args, cfg).float().numpy()
+    for want in (plain, pallas):
+        if dtype == "float32":
+            np.testing.assert_allclose(got, want, atol=2e-4, rtol=2e-4)
+        else:
+            diff = np.abs(got - want)
+            assert float(diff.max()) <= 0.06 and float(diff.mean()) <= 5e-3
+
+
+@pytest.mark.parametrize("c", [64, 512])
+def test_row_stats_orders_agree_with_a_plain_sum(c):
+    """The two kernels' orders of the LayerNorm sums (the wgmma body's two
+    channel halves, layer 0's 32 lanes) agree with a plain sum to f32
+    rounding; at 64 channels lanes 16-31 hold nothing."""
+    y = torch.randn(3, 5, c, generator=torch.Generator().manual_seed(c))
+    for row_stats in (halves_row_stats, lane_row_stats):
+        s, ss = row_stats(y)
+        assert s.shape == ss.shape == (3, 5, 1)
+        torch.testing.assert_close(s, y.sum(-1, keepdim=True), atol=1e-4, rtol=1e-5)
+        torch.testing.assert_close(ss, (y * y).sum(-1, keepdim=True), atol=1e-4, rtol=1e-5)
+
+
+def _k3_case(t_in, c=64, batch=3, seed=0):
+    """A (batch, t_in, c) activation padded to even length (the pad row is
+    zero, as the merged view of an odd-length layer holds), viewed as merged
+    rows; weights split as the per-layer route splits them."""
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(batch, t_in + t_in % 2, c)).astype(np.float32)
+    a[:, t_in:] = 0.0
+    w = (rng.normal(size=(3, c, c)) * (3 * c) ** -0.5).astype(np.float32)
+    vecs = ((rng.normal(size=(c,)) * 0.1).astype(np.float32),
+            (1.0 + rng.normal(size=(c,)) * 0.1).astype(np.float32),
+            (rng.normal(size=(c,)) * 0.1).astype(np.float32))
+    t_out = (t_in - 3) // 2 + 1
+    return a.reshape(batch, -1, 2 * c), w[:2].reshape(2 * c, c), w[2], vecs, t_out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t_in", [3, 127, 128, 129, 131, 262])
+def test_tiled_k3_layer_matches_plain_and_pallas(t_in, dtype):
+    """t_out 1, 63, 63, 64, 65 and 130 (the tile height - 1, itself, + 1, and
+    not a multiple of it); odd and even input lengths (the last row of an odd
+    one takes its third tap from the pad row, of an even one from past the
+    clip's end: zeros); three clips, each ending mid-tile."""
+    xm, w01, w2, vecs, t_out = _k3_case(t_in, seed=t_in)
+    t_pad = t_out + t_out % 2
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    targs = [_t(a).to(tdt) for a in (xm, w01, w2)] + [_t(v) for v in vecs]
+    got = tiled_k3_reference(*targs, t_pad)
+    assert got.shape == (3, t_pad, 64) and got.dtype == tdt
+    got = got.float().numpy()[:, :t_out]
+    plain = k3_ln_gelu_reference(*targs, t_pad).float().numpy()[:, :t_out]
+    pallas = np.asarray(jax_conv._call_k3(
+        *(jnp.asarray(a).astype(jdt) for a in (xm, w01, w2)),
+        *(jnp.asarray(v) for v in vecs), t_out, t_pad, True).astype(jnp.float32))[:, :t_out]
+    if dtype == "float32":
+        np.testing.assert_allclose(got, plain, atol=2e-5, rtol=2e-5)
+        np.testing.assert_allclose(got, pallas, atol=2e-5, rtol=2e-5)
+    else:
+        d = np.abs(got - plain)
+        assert float(d.max()) <= 0.06 and float(d.mean()) <= 2e-3
+        d = np.abs(got - pallas)
+        assert float(d.max()) <= 0.06 and float(d.mean()) <= 2e-3
+
+
+def test_tiled_k3_never_reads_the_next_clip():
+    """An even input length: the last output row's third tap lies past the
+    clip's array, where the next clip starts.  It reads zeros: changing the
+    next clip changes nothing in this one, and the row equals the one
+    computed from an explicit zero row."""
+    xm, w01, w2, vecs, t_out = _k3_case(128, seed=5)
+    t_pad = t_out + t_out % 2
+    assert t_pad == xm.shape[1] and t_pad % CONV_ROWS == 0
+    args = [_t(a) for a in (xm, w01, w2)] + [_t(v) for v in vecs]
+    want = tiled_k3_reference(*args, t_pad)
+    other = xm.copy()
+    other[1:] += 100.0
+    got = tiled_k3_reference(_t(other), *args[1:], t_pad)
+    assert torch.equal(got[0], want[0])
+    padded = np.concatenate([xm, np.zeros_like(xm[:, :1])], axis=1)
+    alone = tiled_k3_reference(_t(padded), *args[1:], t_pad)
+    torch.testing.assert_close(want, alone, atol=0, rtol=0)
+
+
 # -- the grid plan -----------------------------------------------------------
 
 _SHAPES = st.tuples(st.integers(1, 40000), st.sampled_from([768, 1024]),
@@ -286,3 +461,14 @@ def test_profile_serve_script_runs_on_cpu():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             profile_serve.main(["--tiny"])
+
+
+def test_compare_builds_script_needs_the_card(tmp_path):
+    """It launches kernels of two builds: without a card it raises, on the
+    CPU too (no plain fallback: there would be nothing to compare)."""
+    from mmer_tpu_torch.scripts import compare_builds
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compare_builds.main(["--other", str(tmp_path)])
