@@ -21,8 +21,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    against each other, and the whole-pyramid route's seven launches are timed
    one by one, each beside its bound, its grid and a yardstick no port code
    calls (``F.conv1d`` in bf16, ``F.layer_norm``, ``F.gelu``: three library
-   calls; the kernel-3 layer kernel gets the same).  The attention, FFN and
-   conv kernels are each called twice
+   calls; the per-layer route's two kernels get the same, with their grids
+   logged).  Every kernel case is called twice
    on the same inputs and must give the same bits; ``fused_ffn`` also runs at
    every grid plan a serving request reaches (``ffn_plan``: 65, 998 and 1,500
    tokens x 1024) and logs the plan beside each time.
@@ -340,11 +340,8 @@ def conv_layer_ms(wave, conv_args, cfg, iters: int) -> list:
     from mmer_tpu_torch.ops.conv_pyramid import fused_conv_encoder
     from mmer_tpu_torch.scripts.timing import kernel_device_ms
 
-    ms = kernel_device_ms(lambda: fused_conv_encoder(wave, *conv_args, cfg),
-                          "ln_gelu_kernel", iters)
-    if len(ms) != len(cfg.conv_dims):
-        raise AssertionError(f"the profiler saw {len(ms)} conv kernels a call")
-    return ms
+    return kernel_device_ms(lambda: fused_conv_encoder(wave, *conv_args, cfg),
+                            "ln_gelu_kernel", iters, len(cfg.conv_dims))
 
 
 def three_call_ms(x_cf, weight, conv_bias, ln_w, ln_b, stride: int, iters: int) -> float:
@@ -421,6 +418,7 @@ def check_kernels(dev) -> dict:
                                                     reference_attention,
                                                     reference_attention_varlen)
     from mmer_tpu_torch.ops.fused_blocks import ffn_reference, fused_ffn
+    from mmer_tpu_torch.scripts.timing import kernel_device_ms
 
     g = torch.Generator(device=dev)
     case = iter(range(10 ** 6))
@@ -671,14 +669,36 @@ def check_kernels(dev) -> dict:
         shape = f"x (64,{rows},{kdim}) bf16 -> (64,{t_pad},512)"
         log(f"kernel conv_gemm_ln_gelu, {shape}")
         got = _call_gemm(x, w, *vecs, t_pad)
+        grid = _call_gemm.last_grid
         want = gemm_ln_gelu_reference(x, w, *vecs, t_pad)
         torch.cuda.synchronize()
         r2 = _compare("conv_gemm_ln_gelu", got, want, key="conv_layer")
+        _same_bits("conv_gemm_ln_gelu", got, _call_gemm(x, w, *vecs, t_pad))
+        log(f"kernel conv_gemm_ln_gelu: grid {grid} = {grid[0] * grid[1]} blocks, "
+            f"{'the wgmma body' if kdim >= 64 else 'the CUDA-core kernel'} (K {kdim})")
         r.update(bound(2.0 * 64 * t_pad * kdim * 512, nbytes(x, w, got, *vecs),
                        tag))
+        # The same layer as three library calls on the unmerged input: layer
+        # 0 over a waveform whose stride-5 windows are the patches (its
+        # first 10 taps), a kernel-2 layer over the (64, 2 rows, 512)
+        # activation with the (512, 512, 2) weight whose taps are W's halves.
+        if kdim == 16:
+            x_cf = randn(64, 1, 5 * (t_pad - 1) + 10)
+            weight = w[:10].t().unsqueeze(1)
+            stride = 5
+        else:
+            x_cf = x.view(64, 2 * rows, 512).transpose(1, 2)
+            weight = torch.stack([w[:512].t(), w[512:].t()], dim=-1)
+            stride = 2
+        r[f"three_call_ms{tag}"] = three_call_ms(x_cf, weight, *vecs, stride, 10)
+        del x_cf
         r.update({f"max_abs_err{tag}": r2["max_abs_err"],
                   f"mean_abs_err{tag}": r2["mean_abs_err"],
                   f"ms{tag}": cuda_ms(lambda: _call_gemm(x, w, *vecs, t_pad), 20),
+                  # The launch alone, from a torch.profiler trace: events
+                  # around a ctypes call also count the host's time.
+                  f"device_ms{tag}": kernel_device_ms(
+                      lambda: _call_gemm(x, w, *vecs, t_pad), "gemm", 10, 1)[0],
                   f"plain_ms{tag}": cuda_ms(
                       lambda: gemm_ln_gelu_reference(x, w, *vecs, t_pad), 3),
                   f"shape{tag}": shape})
@@ -724,7 +744,10 @@ def check_kernels(dev) -> dict:
             lib = r.get("library_ms" + tag)
             plan = r.get("plan" + tag)
             three = r.get("three_call_ms" + tag)
-            log(f"time {name}: kernel {r['ms' + tag]:.4f} ms, plain "
+            device = r.get("device_ms" + tag)
+            log(f"time {name}: kernel {r['ms' + tag]:.4f} ms"
+                + (f" ({device:.4f} ms device time)" if device is not None else "")
+                + ", plain "
                 f"{r['plain_ms' + tag]:.4f} ms, bound {r['bound_ms' + tag]:.4f} ms "
                 f"by {r['bound_by' + tag]}"
                 + (f", library call {lib:.4f} ms" if lib is not None else "")
@@ -748,6 +771,7 @@ def check_probe_kernels(dev) -> dict:
     from mmer_tpu_torch.ops.flash_attention import flash_attention
     from mmer_tpu_torch.ops.fused_blocks import (LN_EPS, fused_ln_matmul,
                                                  ln_matmul_reference)
+    from mmer_tpu_torch.scripts.timing import kernel_device_ms
 
     g = torch.Generator(device=dev)
     bf = torch.bfloat16
@@ -776,12 +800,18 @@ def check_probe_kernels(dev) -> dict:
                    "bf16")
         log(f"kernel fused_ln_matmul, {shape_s}")
         r2 = _compare("fused_ln_matmul", got, want)
+        _same_bits("fused_ln_matmul", got, fused_ln_matmul(x, ln_w, ln_b, w))
+        plan = fused_ln_matmul.last_plan
+        log(f"kernel fused_ln_matmul: grid plan (rows, N slices) {plan}, "
+            f"{-(-x.numel() // d // plan[0]) * plan[1]} blocks")
         ln_w_bf, ln_b_bf = ln_w.to(bf), ln_b.to(bf)
         xb = x.to(bf)
         r.update({
             f"max_abs_err{tag}": r2["max_abs_err"],
             f"mean_abs_err{tag}": r2["mean_abs_err"],
             f"ms{tag}": cuda_ms(lambda: fused_ln_matmul(x, ln_w, ln_b, w), iters),
+            f"device_ms{tag}": kernel_device_ms(
+                lambda: fused_ln_matmul(x, ln_w, ln_b, w), "ln_matmul_kernel", 10, 1)[0],
             f"plain_ms{tag}": cuda_ms(
                 lambda: ln_matmul_reference(x, ln_w, ln_b, w), 5),
             # Not one call but two (LayerNorm, then the product), in bf16.
@@ -793,8 +823,10 @@ def check_probe_kernels(dev) -> dict:
         del x, w, got, want, xb
     r["library_ms"] = None          # LayerNorm and the product are two calls
     res["fused_ln_matmul"] = r
-    log(f"time fused_ln_matmul: kernel {r['ms']:.4f} ms, LayerNorm + linear in "
-        f"bf16 (two library calls) {r['two_call_ms']:.4f} ms")
+    for tag in ("", "_w2v2"):
+        log(f"time fused_ln_matmul: kernel {r['ms' + tag]:.4f} ms ({r['device_ms' + tag]:.4f} "
+            f"ms device time), LayerNorm + linear in bf16 (two library calls) "
+            f"{r['two_call_ms' + tag]:.4f} ms ({r['shape' + tag]})")
 
     # The attention probe: all seven modes on one (q, k, v).
     b, h, s, d = PROBE_SHAPE

@@ -24,6 +24,14 @@ def torch_dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
 
+def compute_dtype_limit(cfg) -> str | None:
+    """The CUDA kernels' limit on a config's compute dtype (bf16 operands),
+    as a sentence naming it; None if the config keeps it."""
+    if cfg.compute_dtype != "bfloat16":
+        return f"the CUDA kernels take a bf16 compute dtype, not {cfg.compute_dtype}"
+    return None
+
+
 @dataclass(frozen=True)
 class ModelConfig:
     """CrossModalFusion + EmotionClassifier hyperparameters (the canonical

@@ -6,9 +6,10 @@
 // launch.  mmer_error_string turns such a code into CUDA's own message.
 #pragma once
 
+#include <cstdint>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 namespace mmer {
 
@@ -40,46 +41,18 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// LayerNorm of one row of D values by one warp, in f32 with flax semantics
-// (eps 1e-6, var = max(0, E[x^2] - E[x]^2)), rounded to bf16 into ``dst``:
-// the prologue shared by the fused FFN and the fused LN-matmul kernels.
-template <int D, typename XT>
-__device__ __forceinline__ void ln_row_bf16(const XT* xr, const float* ln_w,
-                                            const float* ln_b, bf16* dst, int lane) {
-  float s = 0.f, ss = 0.f;
-  for (int c = lane; c < D; c += 32) {
-    float v = to_f32(xr[c]);
-    s += v;
-    ss += v * v;
-  }
-  s = warp_sum(s);
-  ss = warp_sum(ss);
-  const float mean = s / D;
-  const float var = fmaxf(ss / D - mean * mean, 0.f);
-  const float rstd = 1.0f / sqrtf(var + 1e-6f);
-  for (int c = lane; c < D; c += 32) {
-    float v = (to_f32(xr[c]) - mean) * rstd;
-    dst[c] = __float2bfloat16_rn(v * ln_w[c] + ln_b[c]);
-  }
+// v[i] for a lane-dependent i without local memory.
+__device__ __forceinline__ uint32_t pick4(const uint32_t (&v)[4], int i) {
+  return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
 }
 
-// LayerNorm (ln_row_bf16) of the ``rows`` token rows that start at row ``n0``
-// of x (n_tok, D) into a bf16 tile of row stride ``ld``, one warp per row;
-// rows at or past n_tok are never read and become zero rows.
-template <int D, typename XT>
-__device__ __forceinline__ void ln_tile_bf16(const XT* x, const float* ln_w,
-                                             const float* ln_b, bf16* tile, int ld,
-                                             long n0, int n_tok, int rows, int warp,
-                                             int nwarp, int lane) {
-  for (int r = warp; r < rows; r += nwarp) {
-    const long n = n0 + r;
-    if (n >= n_tok) {
-      for (int c = lane; c < D; c += 32) tile[r * ld + c] = __float2bfloat16_rn(0.f);
-      continue;
-    }
-    ln_row_bf16<D>(x + n * D, ln_w, ln_b, tile + r * ld, lane);
-  }
+// Two bf16 values as one word, ``lo`` in the low half; the f32 values back.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
 }
+__device__ __forceinline__ float lo_bf16(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float hi_bf16(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
 
 // Eight consecutive values of a row as floats, by 16-byte loads.
 __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
@@ -99,12 +72,15 @@ __device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
   }
 }
 
-// ln_tile_bf16 into the shared-memory layout wgmma reads (wgmma.cuh): the
+// LayerNorm of the ``rows`` token rows that start at row ``n0`` of x (n_tok, D),
+// one warp a row, into the shared-memory layout wgmma reads (wgmma.cuh): the
 // (rows, D) tile is D/64 tiles of (rows x 64 bf16), each row 128 bytes with its
-// 16-byte chunks in the 128-byte swizzle; ``tile`` is 1024-byte aligned.  Same
-// rounding points as ln_row_bf16 (f32 statistics with flax semantics, one
-// rounding to bf16); a lane owns chunks of eight consecutive columns, loaded
-// and stored 16 bytes at a time.  Rows at or past n_tok are zero rows.
+// 16-byte chunks in the 128-byte swizzle; ``tile`` is 1024-byte aligned.  f32
+// statistics with flax semantics (eps 1e-6, var = max(0, E[x^2] - E[x]^2)),
+// one rounding to bf16: the prologue of the fused FFN and LN-matmul kernels.
+// A lane owns chunks of eight consecutive columns (chunk lane + 32 i), loaded
+// and stored 16 bytes at a time, and sums them in (i, column) order before
+// warp_sum's xor butterfly.  Rows at or past n_tok are zero rows.
 template <int D, typename XT>
 __device__ __forceinline__ void ln_tile_bf16_sw128(const XT* x, const float* ln_w,
                                                    const float* ln_b, unsigned char* tile,
@@ -150,38 +126,6 @@ __device__ __forceinline__ void ln_tile_bf16_sw128(const XT* x, const float* ln_
       *reinterpret_cast<uint4*>(tile + size_t(c >> 6) * rows * 128 + r * 128 +
                                 ((((c >> 3) & 7) ^ (r & 7)) << 4)) = packed;
     }
-  }
-}
-
-// The conv feature encoder's epilogue on one output frame, by one warp: the
-// f32 conv sums ``yrow`` (C channels) are rounded to bf16, the bias is added
-// in bf16, LayerNorm runs in f32 (flax: eps 1e-6, var = max(0, E[x^2] -
-// E[x]^2)) and is rounded to bf16, exact-erf GELU runs in f32 and is rounded
-// to bf16 into ``dst`` -- the rounding points of the Pallas ``_epilogue``
-// (mmer_tpu/ops/conv_pyramid.py).  Each lane holds C/32 channels.
-template <int C>
-__device__ __forceinline__ void bias_ln_gelu_row(const float* yrow, const float* cb,
-                                                 const float* ln_w, const float* ln_b,
-                                                 bf16* dst, int lane) {
-  float y[C / 32];
-  float s = 0.f, ss = 0.f;
-#pragma unroll
-  for (int i = 0; i < C / 32; ++i) {
-    const int c = lane + 32 * i;
-    y[i] = round_bf16(round_bf16(yrow[c]) + round_bf16(cb[c]));
-    s += y[i];
-    ss += y[i] * y[i];
-  }
-  s = warp_sum(s);
-  ss = warp_sum(ss);
-  const float mean = s / C;
-  const float var = fmaxf(ss / C - mean * mean, 0.f);
-  const float rstd = 1.0f / sqrtf(var + 1e-6f);
-#pragma unroll
-  for (int i = 0; i < C / 32; ++i) {
-    const int c = lane + 32 * i;
-    const float ln = round_bf16((y[i] - mean) * rstd * ln_w[c] + ln_b[c]);
-    dst[c] = __float2bfloat16_rn(gelu_erf(ln));
   }
 }
 

@@ -114,10 +114,7 @@ conv0_ln_gelu_kernel(const float* __restrict__ x, const bf16* __restrict__ w,
 
   const int warp = tid >> 5, lane = tid & 31;
   const float4* ws4 = reinterpret_cast<const float4*>(ws) + lane;
-  const float4* cb4 = reinterpret_cast<const float4*>(vs) + lane;
-  const float4* lw4 = cb4 + conv::C / 4;
-  const float4* lb4 = lw4 + conv::C / 4;
-  bf16* ob = out + size_t(blockIdx.y) * t_out * conv::C + 4 * lane;
+  bf16* ob = out + size_t(blockIdx.y) * t_out * conv::C;
 #pragma unroll 1
   for (int r0 = warp * (conv::BM / 8); r0 < (warp + 1) * (conv::BM / 8) && t0 + r0 < t_out;
        r0 += L0_PAIR) {
@@ -144,40 +141,9 @@ conv0_ln_gelu_kernel(const float* __restrict__ x, const bf16* __restrict__ w,
       }
     }
 #pragma unroll
-    for (int i = 0; i < L0_PAIR; ++i) {
-      float s = 0.f, ss = 0.f;
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const float4 c = cb4[32 * g];
-        const float cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float y = mmer::round_bf16(mmer::round_bf16(acc[i][4 * g + e]) +
-                                           mmer::round_bf16(cv[e]));
-          acc[i][4 * g + e] = y;
-          s += y;
-          ss += y * y;
-        }
-      }
-      s = mmer::warp_sum(s);
-      ss = mmer::warp_sum(ss);
-      const float mean = s / conv::C;
-      const float var = fmaxf(ss / conv::C - mean * mean, 0.f);
-      const float rstd = 1.0f / sqrtf(var + 1e-6f);
-      if (t0 + r0 + i < t_out) {
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          const float4 lw = lw4[32 * g], lb = lb4[32 * g];
-          const float* y = acc[i] + 4 * g;
-          const uint2 o = make_uint2(
-              conv::pack_bf16(mmer::gelu_erf(mmer::round_bf16((y[0] - mean) * rstd * lw.x + lb.x)),
-                              mmer::gelu_erf(mmer::round_bf16((y[1] - mean) * rstd * lw.y + lb.y))),
-              conv::pack_bf16(mmer::gelu_erf(mmer::round_bf16((y[2] - mean) * rstd * lw.z + lb.z)),
-                              mmer::gelu_erf(mmer::round_bf16((y[3] - mean) * rstd * lw.w + lb.w))));
-          *reinterpret_cast<uint2*>(ob + size_t(t0 + r0 + i) * conv::C + 128 * g) = o;
-        }
-      }
-    }
+    for (int i = 0; i < L0_PAIR; ++i)
+      conv::lane_bias_ln_gelu_store(acc[i], vs, ob + size_t(t0 + r0 + i) * conv::C, lane,
+                                    t0 + r0 + i < t_out);
   }
 }
 

@@ -30,123 +30,152 @@
 //     operands, go by cp.async through a three-stage ring in shared memory;
 //     wgmma m64n256k16 products accumulate in registers and the epilogue runs
 //     on the accumulators.  L2 bandwidth caps it (57 FLOP a staged byte);
-//   - layer 0 (K = 16; bytes: the (T, 512) bf16 output) and kernel-2 layers
-//     (K = 1024; operations) go through gemm_ln_gelu_kernel, a WMMA body: a
-//     block owns 32 output rows and all 512 channels; 8 warps, each a 16-row x
-//     128-channel slab of f32 accumulators; 32 rows x 64 taps of the operand
-//     are staged in shared memory per step as 16-byte vectors, the weight is
-//     read straight from global memory (at most 1 MB, L2-resident), and the
-//     accumulators go through a shared f32 tile into one warp per row of the
-//     common epilogue.  The TPU kernel's 8-row window with a one-hot row
-//     select and its K padding to 8 lanes answered Mosaic's block rules and do
-//     not carry over.
+//   - rows . W layers of K >= 64 (gemm_ln_gelu_kernel; the kernel-2 layers,
+//     K = 1024 merged rows: operations, 341 FLOP a byte) take the same body
+//     with their own addressing: operand row t is row t of the (rows, K)
+//     matrix, K contiguous values at t * K (load_a_rows), W (K, 512) row-major
+//     is an MN-major B; a K that is not a multiple of 64 has its last step
+//     zero-filled in both tiles.  It is the kernel-3 layer without the W2
+//     steps;
+//   - rows . W layers of K < 64 (gemm0_ln_gelu_kernel; layer 0's patches, K =
+//     16: bytes, the (T, 512) bf16 output, but ~40 instructions an output,
+//     half of them the exact-erf GELU).  Tensor cores buy nothing at one K
+//     step: the wgmma body's epilogue holds 128 sums a thread at one block an
+//     SM and hides no latency (it made the whole-pyramid route's layer 0
+//     slower than a WMMA body on the H100).  So each output is K FMAs on the
+//     CUDA cores over the bf16 operands with f32 sums, tap by tap, the weight
+//     (as f32) and the block's 64 rows staged once in shared memory, and the
+//     epilogue runs from registers a warp a row (conv_tile.cuh:
+//     lane_bias_ln_gelu_store, as conv_encoder.cu's layer 0; 32 sums a
+//     thread, three blocks an SM).  Its addressing is its own: explicit
+//     patches, not the waveform.
+// The TPU kernel's 8-row window with a one-hot row select and its K padding
+// to 8 lanes answered Mosaic's block rules and do not carry over.
 #include "conv_tile.cuh"
 
 namespace {
 
 using mmer::bf16;
-using namespace nvcuda;
+namespace conv = mmer::conv;
 
-constexpr int C = 512;        // output channels
-constexpr int BT = 32;        // output rows per block
-constexpr int KC = 64;        // operand columns staged per step
-constexpr int NWARP = 8;
-constexpr int NTHREAD = NWARP * 32;
-constexpr int LDA = KC + 8;   // bf16 row stride of the staged operand rows
-constexpr int LDY = C + 4;    // f32 row stride of the product tile
-constexpr int NT = (C / 4) / 16;  // col tiles per warp: 4 column groups x 2 row tiles
+constexpr int C = conv::C;     // output channels
+constexpr int KMIN_WGMMA = conv::KC;   // K from which a layer takes the wgmma body
 
-constexpr size_t SMEM_BYTES =
-    size_t(BT) * LDA * sizeof(bf16) + size_t(BT) * LDY * sizeof(float);
-
-using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// acc += A . W for the block's BT rows.  Row r of A is the kdim contiguous
-// elements of xb that start at (t0 + r) * row_stride + col_off; elements at
-// or beyond `limit` (the end of this clip's array) and rows at or beyond
-// t_rows read as zero.  W is (kdim, C) row-major.  Every offset is a
-// multiple of 8 elements, so the operand moves as 16-byte vectors.
-__device__ __forceinline__ void mma_rows(Acc (&acc)[NT], const bf16* __restrict__ xb,
-                                         long long limit, int row_stride, int col_off,
-                                         int kdim, const bf16* __restrict__ w, bf16* as,
-                                         int t0, int t_rows, int tid, int rt, int col0) {
-  for (int k0 = 0; k0 < kdim; k0 += KC) {
-    const int kc = min(KC, kdim - k0);  // a multiple of 16
-    __syncthreads();
-    for (int i = tid; i < BT * (KC / 8); i += NTHREAD) {
-      const int r = i / (KC / 8), c = (i % (KC / 8)) * 8;
-      const long long idx = (long long)(t0 + r) * row_stride + col_off + k0 + c;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (c < kc && t0 + r < t_rows && idx < limit)
-        v = *reinterpret_cast<const uint4*>(xb + idx);
-      *reinterpret_cast<uint4*>(as + r * LDA + c) = v;
-    }
-    __syncthreads();
-    for (int kk = 0; kk < kc; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, as + rt * 16 * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, w + size_t(k0 + kk) * C + col0 + j * 16, C);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
-      }
-    }
-  }
-}
-
-// The accumulators to shared memory, then one warp per output row through the
-// shared epilogue.
-__device__ __forceinline__ void finish_rows(Acc (&acc)[NT], float* ys,
-                                            const float* __restrict__ cb,
-                                            const float* __restrict__ ln_w,
-                                            const float* __restrict__ ln_b,
-                                            bf16* __restrict__ out_b, int t0, int t_rows,
-                                            int warp, int lane, int rt, int col0) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-    wmma::store_matrix_sync(ys + rt * 16 * LDY + col0 + j * 16, acc[j], LDY,
-                            wmma::mem_row_major);
-  __syncthreads();
-  for (int r = warp; r < BT; r += NWARP) {
-    const int t = t0 + r;
-    if (t < t_rows)
-      mmer::bias_ln_gelu_row<C>(ys + r * LDY, cb, ln_w, ln_b, out_b + size_t(t) * C, lane);
-  }
-}
-
-// out[b, t] = epilogue(x[b, t] . w) for t < t_rows; rows of x at or beyond
-// x_rows read as zero.
-__global__ void __launch_bounds__(NTHREAD)
+// out[b, t] = epilogue(x[b, t] . w) for t < t_rows, K >= 64: the wgmma body.
+// Rows of x at or beyond x_rows read as zero.
+__global__ void __launch_bounds__(conv::NTHREAD, 1)
 gemm_ln_gelu_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                     const float* __restrict__ cb, const float* __restrict__ ln_w,
                     const float* __restrict__ ln_b, bf16* __restrict__ out, int x_rows,
                     int kdim, int t_rows) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* as = reinterpret_cast<bf16*>(smem);
-  float* ys = reinterpret_cast<float*>(smem + size_t(BT) * LDA * sizeof(bf16));
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int t0 = blockIdx.x * BT;
-  const int rt = warp & 1, col0 = (warp >> 1) * (C / 4);
-  const long long limit = (long long)x_rows * kdim;
+  extern __shared__ unsigned char smem_raw[];
+  const conv::Shared sm = conv::carve(smem_raw);
+  const int tid = threadIdx.x, t0 = blockIdx.x * conv::BM;
+  const int limit = x_rows * kdim;
+  const bf16* xb = x + size_t(blockIdx.y) * limit;
+  conv::stage_vectors(sm.vs, cb, ln_w, ln_b, tid);
 
-  Acc acc[NT];
+  float acc[128];
+  conv::mainloop_steps<1>(
+      acc, sm.ring, (kdim + conv::KC - 1) / conv::KC,
+      [&](uint32_t dst, int step) {
+        conv::load_a_rows(dst, xb, limit, kdim, t0, t_rows, step * conv::KC, tid);
+      },
+      [&](uint32_t dst, int step) {
+        conv::load_b_mnmajor<true>(dst, w, step * conv::KC, tid, kdim);
+      },
+      tid);
+  conv::bias_ln_gelu_store(acc, sm.stats, sm.vs, out + size_t(blockIdx.y) * t_rows * C, t0,
+                           t_rows, tid);
+}
+
+// Shared memory of gemm0_ln_gelu_kernel: the weight as f32 (kdim x 512), the
+// block's 64 operand rows as f32, the epilogue's vectors.
+size_t gemm0_smem(int kdim) {
+  return size_t(kdim) * C * 4 + size_t(conv::BM) * kdim * 4 + conv::VEC_BYTES;
+}
+
+// Rows a warp of gemm0_ln_gelu_kernel computes together.
+constexpr int L0_PAIR = 2;
+
+// out[b, t] = epilogue(x[b, t] . w) for t < t_rows, K < 64, on the CUDA
+// cores: output (t, n) = sum over k of x[t, k] w[k, n] in f32, k by k.  Warp
+// w takes rows 8w .. 8w + 7 of the block's 64, two at a time; lane l holds
+// channels 128 g + 4 l + e (g, e < 4) of both rows in registers.  Rows of x
+// at or beyond x_rows read as zero.
+__global__ void __launch_bounds__(conv::NTHREAD, 3)
+gemm0_ln_gelu_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                     const float* __restrict__ cb, const float* __restrict__ ln_w,
+                     const float* __restrict__ ln_b, bf16* __restrict__ out, int x_rows,
+                     int kdim, int t_rows) {
+  extern __shared__ __align__(16) float smem_f[];
+  float* ws = smem_f;                                  // [k][channel]
+  float* xs = ws + kdim * C;                           // [row][k]
+  float* vs = xs + conv::BM * kdim;
+  const int tid = threadIdx.x, t0 = blockIdx.x * conv::BM;
+  const long long limit = (long long)x_rows * kdim;
+  const bf16* xb = x + size_t(blockIdx.y) * limit;
+
+  // The weight and the block's rows in 16-byte vectors of 8 values.
+  for (int i = tid; i < kdim * C / 8; i += conv::NTHREAD) {
+    const uint4 v = *reinterpret_cast<const uint4*>(w + size_t(i) * 8);
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
 #pragma unroll
-  for (int j = 0; j < NT; ++j) wmma::fill_fragment(acc[j], 0.f);
-  mma_rows(acc, x + size_t(blockIdx.y) * limit, limit, kdim, 0, kdim, w, as, t0, t_rows,
-           tid, rt, col0);
-  finish_rows(acc, ys, cb, ln_w, ln_b, out + size_t(blockIdx.y) * t_rows * C, t0, t_rows,
-              warp, lane, rt, col0);
+    for (int j = 0; j < 8; ++j) ws[i * 8 + j] = __bfloat162float(e[j]);
+  }
+  for (int i = tid; i < conv::BM * kdim / 8; i += conv::NTHREAD) {
+    const long long idx = (long long)t0 * kdim + i * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (idx < limit) v = *reinterpret_cast<const uint4*>(xb + idx);
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) xs[i * 8 + j] = __bfloat162float(e[j]);
+  }
+  conv::stage_vectors(vs, cb, ln_w, ln_b, tid);
+  __syncthreads();
+
+  const int warp = tid >> 5, lane = tid & 31;
+  const float4* ws4 = reinterpret_cast<const float4*>(ws) + lane;
+  bf16* ob = out + size_t(blockIdx.y) * t_rows * C;
+#pragma unroll 1
+  for (int r0 = warp * (conv::BM / 8); r0 < (warp + 1) * (conv::BM / 8) && t0 + r0 < t_rows;
+       r0 += L0_PAIR) {
+    float acc[L0_PAIR][16];
+#pragma unroll
+    for (int i = 0; i < L0_PAIR; ++i)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) acc[i][j] = 0.f;
+#pragma unroll 2
+    for (int k = 0; k < kdim; ++k) {
+      float xv[L0_PAIR];
+#pragma unroll
+      for (int i = 0; i < L0_PAIR; ++i) xv[i] = xs[(r0 + i) * kdim + k];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const float4 wv = ws4[k * (C / 4) + 32 * g];
+#pragma unroll
+        for (int i = 0; i < L0_PAIR; ++i) {
+          acc[i][4 * g] = fmaf(xv[i], wv.x, acc[i][4 * g]);
+          acc[i][4 * g + 1] = fmaf(xv[i], wv.y, acc[i][4 * g + 1]);
+          acc[i][4 * g + 2] = fmaf(xv[i], wv.z, acc[i][4 * g + 2]);
+          acc[i][4 * g + 3] = fmaf(xv[i], wv.w, acc[i][4 * g + 3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < L0_PAIR; ++i)
+      conv::lane_bias_ln_gelu_store(acc[i], vs, ob + size_t(t0 + r0 + i) * C, lane,
+                                    t0 + r0 + i < t_rows);
+  }
 }
 
 // out[b, t] = epilogue(xm[b, t] . w01 + xm[b, t + 1, :C] . w2) for t < t_rows,
 // xm (batch, th, 2C): merged rows at or beyond th read as zero.
-__global__ void __launch_bounds__(mmer::conv::NTHREAD, 1)
+__global__ void __launch_bounds__(conv::NTHREAD, 1)
 k3_ln_gelu_kernel(const bf16* __restrict__ xm, const bf16* __restrict__ w01,
                   const bf16* __restrict__ w2, const float* __restrict__ cb,
                   const float* __restrict__ ln_w, const float* __restrict__ ln_b,
                   bf16* __restrict__ out, int th, int t_rows) {
-  namespace conv = mmer::conv;
   extern __shared__ unsigned char smem_raw[];
   const conv::Shared sm = conv::carve(smem_raw);
   const int tid = threadIdx.x, t0 = blockIdx.x * conv::BM;
@@ -168,30 +197,38 @@ k3_ln_gelu_kernel(const bf16* __restrict__ xm, const bf16* __restrict__ w01,
                            t_rows, tid);
 }
 
-template <typename K>
-cudaError_t allow_smem(K kern) {
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              int(SMEM_BYTES));
-}
-
 }  // namespace
 
 // x: (batch, x_rows, kdim) bf16 contiguous, kdim a multiple of 16; w: (kdim, 512)
-// bf16; cb, ln_w, ln_b: (512,) f32; out: (batch, t_rows, 512) bf16.
+// bf16; cb, ln_w, ln_b: (512,) f32; out: (batch, t_rows, 512) bf16.  grid
+// (host, two ints): the grid launched, x then y.
 MMER_EXPORT int mmer_gemm_ln_gelu(const void* x, const void* w, const void* cb,
                                   const void* ln_w, const void* ln_b, void* out,
                                   int batch, int x_rows, int kdim, int c_out, int t_rows,
-                                  void* stream) {
+                                  void* stream, int* grid) {
   if (c_out != C || kdim <= 0 || kdim % 16 != 0 || batch <= 0 || x_rows <= 0 ||
-      t_rows <= 0)
+      t_rows <= 0 || (long long)x_rows * kdim >= (1LL << 30) ||
+      (long long)(t_rows + conv::BM) * kdim >= (1LL << 30))
     return int(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(gemm_ln_gelu_kernel);
+  const dim3 g = conv::grid_of(t_rows, batch);
+  grid[0] = int(g.x);
+  grid[1] = int(g.y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* wb = static_cast<const bf16*>(w);
+  const float* cbf = static_cast<const float*>(cb);
+  const float* lwf = static_cast<const float*>(ln_w);
+  const float* lbf = static_cast<const float*>(ln_b);
+  bf16* ob = static_cast<bf16*>(out);
+  if (kdim >= KMIN_WGMMA)
+    return int(conv::launch(gemm_ln_gelu_kernel, t_rows, batch, s, xb, wb, cbf, lwf, lbf, ob,
+                            x_rows, kdim, t_rows));
+  const size_t smem = gemm0_smem(kdim);
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm0_ln_gelu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  dim3 grid((t_rows + BT - 1) / BT, batch);
-  gemm_ln_gelu_kernel<<<grid, NTHREAD, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<const float*>(cb), static_cast<const float*>(ln_w),
-      static_cast<const float*>(ln_b), static_cast<bf16*>(out), x_rows, kdim, t_rows);
+  gemm0_ln_gelu_kernel<<<g, conv::NTHREAD, smem, s>>>(xb, wb, cbf, lwf, lbf, ob, x_rows, kdim,
+                                                      t_rows);
   return int(cudaGetLastError());
 }
 

@@ -2,7 +2,9 @@
 // with C = 512 output channels as a GEMM over im2col rows, then the Pallas
 // _epilogue (mmer_tpu/ops/conv_pyramid.py:80) from registers.  Used by
 // conv_encoder.cu (the whole-pyramid route's kernel-3 and kernel-2 layers) and
-// conv_layers.cu (the per-layer route's kernel-3 layers).  sm_90a only.
+// conv_layers.cu (the per-layer route's kernel-3 layers, and its rows . W
+// layers of K >= 64).  The layer-0 kernels of both routes run on the CUDA
+// cores and share this file's lane_bias_ln_gelu_store only.  sm_90a only.
 //
 // The operand.  Im2col row t of a stride-s conv over a (T_in, C_in) activation
 // is the k*C_in contiguous values that start at s*t*C_in: for a kernel-3
@@ -44,7 +46,7 @@
 // its row's values, the lane of the quad with the same row adds its sums (one
 // shuffle), and the two warpgroups trade them through 1 KB of shared memory,
 // adding in a fixed order (channels 0-255, then 256-511).  LayerNorm and GELU
-// follow with the _epilogue's roundings (those of common.cuh:bias_ln_gelu_row),
+// follow with the _epilogue's roundings (those of lane_bias_ln_gelu_store below),
 // eight channels at a time, each group one 16-byte store.
 #pragma once
 
@@ -84,6 +86,22 @@ __device__ __forceinline__ void load_a_tile(uint32_t dst, const bf16* a, int lim
   }
 }
 
+// K step ``k0`` of an A tile whose row t is row t of a (rows, kdim) matrix
+// ``a``: the kdim values at a + t * kdim.  A copy is zero-filled at or beyond
+// ``limit`` (the clip's own array), at or beyond column kdim (a K that is not
+// a multiple of KC fills its last step with zeros), or for a row at or
+// beyond t_rows.
+__device__ __forceinline__ void load_a_rows(uint32_t dst, const bf16* a, int limit, int kdim,
+                                            int t0, int t_rows, int k0, int tid) {
+#pragma unroll
+  for (int j = 0; j < BM * 8 / NTHREAD; ++j) {
+    const int r = (tid >> 3) + j * (NTHREAD / 8), col = k0 + (tid & 7) * 8;
+    const int idx = (t0 + r) * kdim + col;
+    const bool valid = t0 + r < t_rows && col < kdim && idx < limit;
+    cp_async_16(dst + sw128(r, tid & 7), a + (valid ? idx : 0), valid);
+  }
+}
+
 // K step ``k0`` of a K-major weight (C rows of KP values, row n channel n's
 // K): C rows of 64 k.  Copy j of a thread is 32 rows below copy j - 1, in
 // the same swizzle phase.
@@ -99,30 +117,34 @@ __device__ __forceinline__ void load_b_kmajor(uint32_t dst, const bf16* w, int k
 
 // K step ``k0`` of an MN-major weight (K rows of C values): C / 64 column
 // blocks of (64 k rows x 64 channels), MN_BLOCK_BYTES apart.  Copy j of a
-// thread is 4 k rows below copy j - 1.
-__device__ __forceinline__ void load_b_mnmajor(uint32_t dst, const bf16* w, int k0, int tid) {
+// thread is 4 k rows below copy j - 1.  With RAGGED, k rows at or beyond
+// ``k_rows`` are zero-filled (a K that is not a multiple of KC).
+template <bool RAGGED = false>
+__device__ __forceinline__ void load_b_mnmajor(uint32_t dst, const bf16* w, int k0, int tid,
+                                               int k_rows = 0) {
   const int row = tid >> 6, cn = tid & 63;
   const bf16* src = w + (k0 + row) * C + cn * 8;
   const uint32_t to = dst + (cn >> 3) * MN_BLOCK_BYTES;
 #pragma unroll
-  for (int j = 0; j < KC * (C / 8) / NTHREAD; ++j)
-    cp_async_16(to + sw128(row + 4 * j, cn & 7), src + j * 4 * C, true);
+  for (int j = 0; j < KC * (C / 8) / NTHREAD; ++j) {
+    const bool valid = !RAGGED || k0 + row + 4 * j < k_rows;
+    cp_async_16(to + sw128(row + 4 * j, cn & 7), valid ? src + j * 4 * C : w, valid);
+  }
 }
 
-// acc (this warpgroup's 64 x 256 f32) = A . B over NSTEP K steps: the A
-// tile as load_a_tile describes it, the B tile of step s copied into a stage
-// by ``load_b(stage_address, s)``; TRANS_B as load_b lays it out (0: K-major,
+// acc (this warpgroup's 64 x 256 f32) = A . B over ``nstep`` K steps: the A
+// and B tiles of step s copied into a stage by ``load_a(stage_address, s)``
+// and ``load_b(stage_address, s)``; TRANS_B as load_b lays B out (0: K-major,
 // 1: MN-major).  Every thread of the block takes part; nothing is in flight
 // on return.
-template <int TRANS_B, int NSTEP, typename LoadB>
-__device__ __forceinline__ void mainloop(float (&acc)[128], uint32_t ring, const bf16* a,
-                                         int limit, int t0, int t_rows, LoadB&& load_b,
-                                         int tid) {
+template <int TRANS_B, typename LoadA, typename LoadB>
+__device__ __forceinline__ void mainloop_steps(float (&acc)[128], uint32_t ring, int nstep,
+                                               LoadA&& load_a, LoadB&& load_b, int tid) {
   const int wg = tid >> 7;
   auto start_copy = [&](int step) {
-    if (step < NSTEP) {
+    if (step < nstep) {
       const uint32_t stage = ring + (step % NSTAGE) * STAGE_BYTES;
-      load_a_tile(stage, a, limit, t0, t_rows, step * KC, tid);
+      load_a(stage, step);
       load_b(stage + A_BYTES, step);
     }
     cp_async_commit();
@@ -133,7 +155,7 @@ __device__ __forceinline__ void mainloop(float (&acc)[128], uint32_t ring, const
   for (int i = 0; i < 128; ++i) acc[i] = 0.f;
 
 #pragma unroll 1
-  for (int step = 0; step < NSTEP; ++step) {
+  for (int step = 0; step < nstep; ++step) {
     cp_async_wait<NSTAGE - 2>();      // this step's tiles have landed ...
     fence_proxy_async();
     __syncthreads();                  // ... for every thread, visible to wgmma
@@ -156,6 +178,17 @@ __device__ __forceinline__ void mainloop(float (&acc)[128], uint32_t ring, const
   }
   wgmma_wait<0>();
   wgmma_fence_operand(acc);
+}
+
+// mainloop_steps over NSTEP steps of an im2col A tile (load_a_tile).
+template <int TRANS_B, int NSTEP, typename LoadB>
+__device__ __forceinline__ void mainloop(float (&acc)[128], uint32_t ring, const bf16* a,
+                                         int limit, int t0, int t_rows, LoadB&& load_b,
+                                         int tid) {
+  mainloop_steps<TRANS_B>(
+      acc, ring, NSTEP,
+      [&](uint32_t dst, int step) { load_a_tile(dst, a, limit, t0, t_rows, step * KC, tid); },
+      load_b, tid);
 }
 
 // A block's shared memory (SMEM_BYTES of dynamic shared memory): the ring,
@@ -198,18 +231,6 @@ __device__ __forceinline__ void stage_vectors(float* vs, const float* __restrict
     vs[2 * C + i] = ln_b[i];
   }
 }
-
-__device__ __forceinline__ uint32_t pick4(const uint32_t (&v)[4], int i) {
-  return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
-}
-
-// Two bf16 values as one word, ``lo`` in the low half; the f32 values back.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-__device__ __forceinline__ float lo_bf16(uint32_t u) { return __uint_as_float(u << 16); }
-__device__ __forceinline__ float hi_bf16(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
 
 // The _epilogue on the block's accumulators (layout in the note above): f32
 // sums rounded to bf16, the bias added in bf16, LayerNorm in f32 (flax: eps
@@ -285,6 +306,52 @@ __device__ __forceinline__ void bias_ln_gelu_store(float (&acc)[128], float2* st
       o[d] = pack_bf16(g0, g1);
     }
     if (store) *reinterpret_cast<uint4*>(dst + 16 * b) = make_uint4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+// The _epilogue on one output row held by a warp, as the layer-0 kernels
+// hold it (conv_encoder.cu, conv_layers.cu): lane l has the f32 sums of
+// channels 128 g + 4 l + e in y[4 g + e] (g, e < 4).  The rounded, biased
+// values replace the sums in ``y``; the row's statistics are the lane's sum
+// in (g, e) order, then warp_sum's xor butterfly; the row goes to ``dst``
+// (C bf16) as four 8-byte stores a lane if ``store``.  ``vs`` holds
+// stage_vectors' [cb | ln_w | ln_b].
+__device__ __forceinline__ void lane_bias_ln_gelu_store(float (&y)[16], const float* vs,
+                                                        bf16* __restrict__ dst, int lane,
+                                                        bool store) {
+  const float4* cb4 = reinterpret_cast<const float4*>(vs) + lane;
+  const float4* lw4 = cb4 + C / 4;
+  const float4* lb4 = lw4 + C / 4;
+  float s = 0.f, ss = 0.f;
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    const float4 c = cb4[32 * g];
+    const float cv[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float v = round_bf16(round_bf16(y[4 * g + e]) + round_bf16(cv[e]));
+      y[4 * g + e] = v;
+      s += v;
+      ss += v * v;
+    }
+  }
+  s = warp_sum(s);
+  ss = warp_sum(ss);
+  const float mean = s / C;
+  const float var = fmaxf(ss / C - mean * mean, 0.f);
+  const float rstd = 1.0f / sqrtf(var + 1e-6f);
+  if (store) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const float4 lw = lw4[32 * g], lb = lb4[32 * g];
+      const float* v = y + 4 * g;
+      const uint2 o = make_uint2(
+          pack_bf16(gelu_erf(round_bf16((v[0] - mean) * rstd * lw.x + lb.x)),
+                    gelu_erf(round_bf16((v[1] - mean) * rstd * lw.y + lb.y))),
+          pack_bf16(gelu_erf(round_bf16((v[2] - mean) * rstd * lw.z + lb.z)),
+                    gelu_erf(round_bf16((v[3] - mean) * rstd * lw.w + lb.w))));
+      *reinterpret_cast<uint2*>(dst + 4 * lane + 128 * g) = o;
+    }
   }
 }
 

@@ -32,6 +32,15 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight, self.bias)
 
 
+def refuse_kernel_limit(name: str, device, limit: str | None) -> None:
+    """Raise ValueError at construction when a module that will launch CUDA
+    kernels on ``device`` has a config whose ``limit`` (the first kernel
+    limit it breaks, or None) would make a forward raise."""
+    if limit and torch.device(device).type == "cuda":
+        raise ValueError(f"{name}: {limit}; the plain path (use_kernels=False) "
+                         "takes this config")
+
+
 def dense(x: torch.Tensor, lin: nn.Linear, dt: torch.dtype) -> torch.Tensor:
     """flax ``Dense(dtype=dt)`` over an ``nn.Linear``'s float32 params: the
     product of the operands cast to ``dt`` is rounded to ``dt`` before the

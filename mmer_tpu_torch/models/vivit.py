@@ -18,11 +18,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from mmer_tpu_torch.config import ViViTConfig, torch_dtype
+from mmer_tpu_torch.config import ViViTConfig, compute_dtype_limit, torch_dtype
 from mmer_tpu_torch.models.layers import (LayerNorm, dense, init_like_flax,
-                                         param_generator)
-from mmer_tpu_torch.ops.flash_attention import flash_attention, reference_attention
-from mmer_tpu_torch.ops.fused_blocks import ffn_reference, fused_ffn
+                                         param_generator, refuse_kernel_limit)
+from mmer_tpu_torch.ops.flash_attention import (attention_limits, flash_attention,
+                                                reference_attention)
+from mmer_tpu_torch.ops.fused_blocks import ffn_limits, ffn_reference, fused_ffn
 
 
 def max_tokens(cfg: ViViTConfig) -> int:
@@ -30,6 +31,14 @@ def max_tokens(cfg: ViViTConfig) -> int:
             * (cfg.image_size[0] // cfg.patch_size[0])
             * (cfg.image_size[1] // cfg.patch_size[1])
             + (1 if cfg.pool == "cls" else 0))
+
+
+def kernel_limits(cfg: ViViTConfig) -> str | None:
+    """The first limit of the CUDA kernels (attention, FFN) that a ViViT
+    config breaks, as a sentence naming it; None if it breaks none.  The
+    plain path takes any config."""
+    return (compute_dtype_limit(cfg) or attention_limits(cfg.dim_head)
+            or ffn_limits(cfg.dim, cfg.mlp_dim))
 
 
 class TubeletEmbed(nn.Module):
@@ -93,11 +102,15 @@ class PreNormBlock(nn.Module):
 
 
 class ViViTFeatureExtractor(nn.Module):
-    """Batched chunk embedder: (B, F, H, W, C) → (B, dim) float32."""
+    """Batched chunk embedder: (B, F, H, W, C) → (B, dim) float32.  On a
+    CUDA device with ``use_kernels`` a config the kernels do not take is
+    refused here (:func:`kernel_limits`)."""
 
     def __init__(self, cfg: ViViTConfig, *, device: torch.device | str,
                  use_kernels: bool = True):
         super().__init__()
+        if use_kernels:
+            refuse_kernel_limit("ViViTFeatureExtractor", device, kernel_limits(cfg))
         self.cfg = cfg
         d = cfg.dim
         self.embed = TubeletEmbed(cfg, device=device)

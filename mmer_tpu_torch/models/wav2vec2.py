@@ -32,14 +32,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mmer_tpu_torch.config import Wav2Vec2Config, torch_dtype
+from mmer_tpu_torch.config import Wav2Vec2Config, compute_dtype_limit, torch_dtype
 from mmer_tpu_torch.core.buckets import batch_bucket
 from mmer_tpu_torch.models.layers import (LayerNorm, dense, init_like_flax,
-                                         load_or_save_params, param_generator)
+                                         load_or_save_params, param_generator,
+                                         refuse_kernel_limit)
+from mmer_tpu_torch.ops import conv_pyramid
 from mmer_tpu_torch.ops.conv_pyramid import (conv_encoder_reference,
                                              fused_conv_encoder, supports_config)
-from mmer_tpu_torch.ops.flash_attention import flash_attention
-from mmer_tpu_torch.ops.fused_blocks import ffn_reference, fused_ffn
+from mmer_tpu_torch.ops.flash_attention import attention_limits, flash_attention
+from mmer_tpu_torch.ops.fused_blocks import ffn_limits, ffn_reference, fused_ffn
 
 
 def feat_extract_output_length(cfg: Wav2Vec2Config, input_length: int) -> int:
@@ -50,10 +52,27 @@ def feat_extract_output_length(cfg: Wav2Vec2Config, input_length: int) -> int:
     return max(length, 0)
 
 
+def kernel_limits(cfg: Wav2Vec2Config, use_kernels: bool = True,
+                  use_flash_attn: bool = False, mega: bool = True) -> str | None:
+    """The first limit of the CUDA kernels that a Wav2Vec2 config breaks on
+    the routes named (with ``use_kernels`` the conv encoder on route ``mega``
+    and the FFN, with ``use_flash_attn`` attention), as a sentence naming it;
+    None if it breaks none.  The plain path takes any config."""
+    limits = []
+    if use_kernels:
+        limits += [conv_pyramid.kernel_limits(cfg, mega),
+                   ffn_limits(cfg.hidden_dim, cfg.ffn_dim)]
+    if use_flash_attn:
+        limits += [compute_dtype_limit(cfg),
+                   attention_limits(cfg.hidden_dim // cfg.num_heads)]
+    return next((limit for limit in limits if limit), None)
+
+
 class ConvFeatureEncoder(nn.Module):
     """Raw waveform (B, L) → frame features (B, T, conv_dims[-1]).
     ``mega`` picks the route of ``fused_conv_encoder`` (whole-pyramid port or
-    the per-layer merged-view kernels)."""
+    the per-layer merged-view kernels).  On a CUDA device with
+    ``use_kernels`` a config the kernels do not take is refused here."""
 
     def __init__(self, cfg: Wav2Vec2Config, *, device: torch.device | str,
                  use_kernels: bool = True, mega: bool = True):
@@ -61,6 +80,9 @@ class ConvFeatureEncoder(nn.Module):
         if not supports_config(cfg):
             raise ValueError("ConvFeatureEncoder: only the layer-norm, stride-2 "
                              "k2/k3 conv stacks are ported")
+        if use_kernels:
+            refuse_kernel_limit("ConvFeatureEncoder", device,
+                                conv_pyramid.kernel_limits(cfg, mega))
         self.cfg = cfg
         self.use_kernels = use_kernels
         self.mega = mega
@@ -179,10 +201,13 @@ class Wav2Vec2Encoder(nn.Module):
                  use_flash_attn: Optional[bool] = None, mega: bool = True):
         """``use_flash_attn=None`` follows ``use_kernels``, as the JAX
         encoder's follows ``use_pallas``; an explicit False keeps the conv and
-        FFN kernels while attention stays plain."""
+        FFN kernels while attention stays plain.  On a CUDA device a config
+        the chosen kernels do not take is refused here (:func:`kernel_limits`)."""
         super().__init__()
         self.cfg = cfg
         flash = use_kernels if use_flash_attn is None else use_flash_attn
+        refuse_kernel_limit("Wav2Vec2Encoder", device,
+                            kernel_limits(cfg, use_kernels, flash, mega))
         self.feature_encoder = ConvFeatureEncoder(cfg, device=device,
                                                   use_kernels=use_kernels,
                                                   mega=mega)

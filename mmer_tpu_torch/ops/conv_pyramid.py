@@ -17,17 +17,22 @@ GELU.  It has two hand-written routes on a CUDA tensor:
   weight split ``[W0;W1]`` + ``W2``.  Their kernels are
   ``csrc/conv_layers.cu`` (the ports of ``_gemm_kernel`` and ``_k3_kernel``).
 
+On CUDA both routes take a bf16 compute dtype and 512 channels in every
+layer, and ``mega=True`` a first layer of at most MAX_FIRST_TAPS taps:
+:func:`kernel_limits` names the first of these a config breaks, so that a
+model refuses it when it is built.
+
 On a CPU tensor ``mega=True`` runs :func:`conv_encoder_reference` and
 ``mega=False`` the same composition over :func:`gemm_ln_gelu_reference` and
 :func:`k3_ln_gelu_reference`.
 
-The kernel-3 and kernel-2 layers of ``mega=True`` and the kernel-3 layers of
-``mega=False`` share one body (``csrc/conv_tile.cuh``: 64-row tiles, 64-deep
-K steps, the LayerNorm statistics of the two 256-channel halves added);
-layer 0 of ``mega=True`` has a kernel of its own on the CUDA cores (a warp a
-row, the statistics a warp's sum).  :func:`tiled_conv_encoder_reference` and
-:func:`tiled_k3_reference` repeat their order of operations in plain PyTorch
-for the CPU tests.
+Every layer of K >= 64 on either route runs one body (``csrc/conv_tile.cuh``:
+64-row tiles, 64-deep K steps, the LayerNorm statistics of the two
+256-channel halves added); layer 0 of each route has a kernel of its own on
+the CUDA cores (a warp a row, the statistics a warp's sum).
+:func:`tiled_conv_encoder_reference`, :func:`tiled_k3_reference` and
+:func:`tiled_gemm_reference` repeat their order of operations in plain
+PyTorch for the CPU tests.
 
 Rounding points follow the Pallas ``_epilogue``: the input is rounded to the
 compute dtype, the conv output is rounded, the bias is added in the compute
@@ -45,13 +50,15 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
-from mmer_tpu_torch.config import torch_dtype
+from mmer_tpu_torch.config import compute_dtype_limit, torch_dtype
 from mmer_tpu_torch.ops import _build
 from mmer_tpu_torch.ops.fused_blocks import LN_EPS, layer_norm
 
-__all__ = ["conv_encoder_reference", "fused_conv_encoder", "gemm_ln_gelu_reference",
-           "gemm_weight", "halves_row_stats", "k3_ln_gelu_reference", "lane_row_stats",
-           "supports_config", "tiled_conv_encoder_reference", "tiled_k3_reference"]
+__all__ = ["MAX_FIRST_TAPS", "conv_encoder_reference", "fused_conv_encoder",
+           "gemm_ln_gelu_reference", "gemm_weight", "halves_row_stats",
+           "k3_ln_gelu_reference", "kernel_limits", "lane_row_stats",
+           "supports_config", "tiled_conv_encoder_reference", "tiled_gemm_reference",
+           "tiled_k3_reference"]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -59,11 +66,40 @@ def _round_up(x: int, m: int) -> int:
 
 
 def supports_config(cfg) -> bool:
-    """The HF Wav2Vec2 feature-encoder family the kernels cover: layer-norm
-    variant, any first layer, then stride-2 layers with kernel 2 or 3."""
+    """The HF Wav2Vec2 feature-encoder family the port covers, as the JAX
+    function's: layer-norm variant, any first layer, then stride-2 layers
+    with kernel 2 or 3.  What the CUDA kernels take within it (the first
+    layer's taps on ``mega=True``, the widths): :func:`kernel_limits`."""
     return (cfg.feat_extract_norm == "layer"
             and all(s == 2 and k in (2, 3)
                     for k, s in zip(cfg.conv_kernels[1:], cfg.conv_strides[1:])))
+
+
+# Taps of the first layer that csrc/conv_encoder.cu's layer-0 kernel takes
+# (its weight and window live in shared memory); mega=False takes any.
+MAX_FIRST_TAPS = 16
+CONV_CHANNELS = 512
+
+
+def kernel_limits(cfg, mega: bool = True) -> str | None:
+    """The first limit of the CUDA conv kernels that ``cfg`` breaks on the
+    route ``mega`` picks, as a sentence naming it; None if it breaks none.
+    A function of the config alone: the CPU versions take any config that
+    :func:`supports_config` accepts."""
+    if not supports_config(cfg):
+        return (f"conv stack outside the ported family (kernels "
+                f"{tuple(cfg.conv_kernels)}, strides {tuple(cfg.conv_strides)}, "
+                f"norm {cfg.feat_extract_norm})")
+    dtype_limit = compute_dtype_limit(cfg)
+    if dtype_limit:
+        return dtype_limit
+    if any(d != CONV_CHANNELS for d in cfg.conv_dims):
+        return (f"the conv kernels take {CONV_CHANNELS} channels in every layer, "
+                f"got conv_dims {tuple(cfg.conv_dims)}")
+    if mega and cfg.conv_kernels[0] > MAX_FIRST_TAPS:
+        return (f"the mega=True layer-0 kernel takes at most {MAX_FIRST_TAPS} "
+                f"first-layer taps, got {cfg.conv_kernels[0]}; mega=False takes any")
+    return None
 
 
 def gemm_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -255,6 +291,27 @@ def tiled_conv_encoder_reference(wave: torch.Tensor, weights: Sequence[torch.Ten
     return x
 
 
+def tiled_gemm_reference(x: torch.Tensor, w: torch.Tensor, cb: torch.Tensor,
+                         scale: torch.Tensor, bias: torch.Tensor,
+                         t_pad: int) -> torch.Tensor:
+    """:func:`_call_gemm` in the order of operations of ``csrc/conv_layers.cu``
+    (same arguments).  K >= CONV_KSTEP: the wgmma body, row t of the operand
+    the K values of clip b's flattened rows at ``t * K``, through
+    :func:`tiled_conv_sums`, statistics by :func:`halves_row_stats`.  K below
+    it (layer 0's patches): the CUDA-core kernel, each output summed k by k in
+    f32, statistics by :func:`lane_row_stats`.  Rows of ``x`` at or beyond T
+    read as zero."""
+    kdim = x.shape[2]
+    if kdim >= CONV_KSTEP:
+        y32 = tiled_conv_sums(x, kdim, kdim, t_pad, w)[:, :t_pad]
+        return tiled_epilogue(y32, cb, scale, bias, x.dtype)
+    rows = _rows(x, t_pad).float()
+    acc = torch.zeros(x.shape[0], t_pad, w.shape[1], device=x.device)
+    for k in range(kdim):
+        acc = acc + rows[..., k:k + 1] * w[k].float()
+    return tiled_epilogue(acc, cb, scale, bias, x.dtype, lane_row_stats)
+
+
 def tiled_k3_reference(xm: torch.Tensor, w01: torch.Tensor, w2: torch.Tensor,
                        cb: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                        t_pad: int) -> torch.Tensor:
@@ -285,8 +342,8 @@ def _check_layer_args(name: str, x, mats, vecs) -> list:
 
 
 # mmer_gemm_ln_gelu(x, w, cb, ln_w, ln_b, out, batch, x_rows, kdim, c_out,
-#                   t_rows, stream)
-_ARGTYPES_GEMM = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+#                   t_rows, stream, grid)
+_ARGTYPES_GEMM = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
 # mmer_k3_ln_gelu(xm, w01, w2, cb, ln_w, ln_b, out, batch, th, c_in, c_out,
 #                 t_rows, stream)
 _ARGTYPES_K3 = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -297,7 +354,9 @@ def _call_gemm(x: torch.Tensor, w: torch.Tensor, cb: torch.Tensor,
     """Rows times weight → bias → LayerNorm → GELU: ``x`` (B, T, K) holds
     layer-0 patches or stride-merged rows of a kernel-2 layer, ``w`` is
     (K, 512); returns (B, t_pad, 512) in x's dtype.  Rows of ``x`` at or
-    beyond T read as zero.  On CUDA: bf16, K a multiple of 16."""
+    beyond T read as zero.  On CUDA: bf16, K a multiple of 16; K >= 64 runs
+    the wgmma body, a smaller K the CUDA-core kernel; ``_call_gemm.last_grid``
+    holds the grid (blocks along the rows, clips) of the latest launch."""
     if x.dim() != 3 or w.dim() != 2 or w.shape[0] != x.shape[2] or t_pad < 1:
         raise ValueError(f"_call_gemm: x (B, T, K) and w (K, C) expected, got "
                          f"{tuple(x.shape)}, {tuple(w.shape)}, t_pad {t_pad}")
@@ -309,11 +368,13 @@ def _call_gemm(x: torch.Tensor, w: torch.Tensor, cb: torch.Tensor,
         raise ValueError(f"_call_gemm: kernel needs K % 16 == 0 and 512 output "
                          f"channels, got w {tuple(w.shape)}")
     out = torch.empty((bsz, t_pad, 512), dtype=x.dtype, device=x.device)
+    grid = (ctypes.c_int * 2)()
     _build.call("conv_layers", "mmer_gemm_ln_gelu", _ARGTYPES_GEMM,
                 _build.ptr(x), _build.ptr(w), *(_build.ptr(t) for t in vecs),
                 _build.ptr(out), bsz, x_rows, kdim, 512, t_pad,
-                _build.stream_ptr(x.device))
+                _build.stream_ptr(x.device), ctypes.addressof(grid))
     _call_gemm.launches += 1
+    _call_gemm.last_grid = tuple(grid)
     return out
 
 
@@ -348,6 +409,7 @@ def _call_k3(xm: torch.Tensor, w01: torch.Tensor, w2: torch.Tensor,
 
 
 _call_gemm.launches = 0
+_call_gemm.last_grid = None
 _call_k3.launches = 0
 
 
@@ -394,9 +456,6 @@ def _per_layer_encoder(wave, weights, biases, ln_weights, ln_biases,
 # mmer_conv_ln_gelu(x, w, cb, ln_w, ln_b, out, batch, t_in, t_out, c_in,
 #                   c_out, k, stride, kp, x_is_f32, stream, grid)
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2
-# Taps of the first layer that csrc/conv_encoder.cu's layer-0 kernel takes
-# (its weight and window live in shared memory); mega=False takes any.
-MAX_FIRST_TAPS = 16
 
 
 def fused_conv_encoder(wave: torch.Tensor, weights: Sequence[torch.Tensor],
@@ -409,9 +468,8 @@ def fused_conv_encoder(wave: torch.Tensor, weights: Sequence[torch.Tensor],
 
     ``weights[i]`` is layer i's Conv1d weight (C_out, C_in, k); ``biases``,
     ``ln_weights``, ``ln_biases`` its conv bias and LayerNorm params.
-    ``mega`` picks the route (module docstring).  On CUDA the kernels take a
-    bf16 compute dtype and 512 channels per layer, and ``mega=True`` a first
-    layer of at most MAX_FIRST_TAPS taps; ``fused_conv_encoder.last_grids``
+    ``mega`` picks the route (module docstring).  On CUDA the kernels take
+    what :func:`kernel_limits` allows; ``fused_conv_encoder.last_grids``
     holds the grid (blocks along the frames, clips) each layer's launch of
     the latest ``mega=True`` call used.
     """
@@ -429,9 +487,7 @@ def fused_conv_encoder(wave: torch.Tensor, weights: Sequence[torch.Tensor],
         return _per_layer_encoder(wave, weights, biases, ln_weights, ln_biases,
                                   cfg)
     if cfg.conv_kernels[0] > MAX_FIRST_TAPS:
-        raise ValueError(f"fused_conv_encoder: the layer-0 kernel takes at most "
-                         f"{MAX_FIRST_TAPS} taps, got {cfg.conv_kernels[0]}; "
-                         "mega=False takes any")
+        raise ValueError(f"fused_conv_encoder: {kernel_limits(cfg, mega)}")
     stream = _build.stream_ptr(wave.device)
     x = wave.contiguous()
     bsz = x.shape[0]

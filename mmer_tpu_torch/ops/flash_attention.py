@@ -29,6 +29,15 @@ import torch
 from mmer_tpu_torch.ops import _build
 
 KEY_BIAS = -1e9   # finite, so a fully masked row softmaxes to uniform, not NaN
+HEAD_DIM = 64     # the head dim csrc/attention.cu takes
+
+
+def attention_limits(head_dim: int) -> str | None:
+    """The limit of the CUDA attention kernels that a head dim breaks, as a
+    sentence naming it; None if it breaks none."""
+    if head_dim != HEAD_DIM:
+        return f"the attention kernel takes head dim {HEAD_DIM}, got {head_dim}"
+    return None
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor,
@@ -107,8 +116,9 @@ def _check_qkv(name: str, q, k, v) -> None:
         raise ValueError(f"{name}: q, k, v must share one (B, H, S, D) "
                          f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    if q.shape[-1] != 64:
-        raise ValueError(f"{name}: kernel needs head dim 64, got {q.shape[-1]}")
+    limit = attention_limits(q.shape[-1])
+    if limit:
+        raise ValueError(f"{name}: {limit}")
     for t in (q, k, v):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{name}: kernel takes bf16, got {t.dtype}")

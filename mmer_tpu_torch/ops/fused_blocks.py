@@ -20,6 +20,13 @@ written to device memory (``csrc/ln_matmul.cu``, the port of the Pallas
 ``_ln_matmul_kernel``; plain version :func:`ln_matmul_reference`).  No model
 routes through it, as in the JAX package: the profile script
 (``scripts/profile_fused_blocks.py``) times it against LayerNorm + a matmul.
+Its grid comes from :func:`ln_matmul_plan`; :func:`ln_matmul_tiled_reference`
+repeats the kernel's order of operations in plain PyTorch.
+
+On CUDA both kernels take D in {768, 1024} and bf16 weights, the FFN an M
+that is a multiple of 256, the LN-matmul an N that is a multiple of 64:
+:func:`ffn_limits` and :func:`ln_matmul_limits` name the first of these a
+shape breaks.
 """
 
 from __future__ import annotations
@@ -32,6 +39,28 @@ import torch.nn.functional as F
 from mmer_tpu_torch.ops import _build
 
 LN_EPS = 1e-6
+# The widths D the kernels of csrc/ffn.cu and csrc/ln_matmul.cu take.
+KERNEL_WIDTHS = (768, 1024)
+
+
+def ffn_limits(d: int, m: int) -> str | None:
+    """The first limit of the CUDA FFN kernel that a (D, M) sublayer breaks,
+    as a sentence naming it; None if it breaks none."""
+    if d not in KERNEL_WIDTHS:
+        return f"the FFN kernel takes D in {KERNEL_WIDTHS}, got D = {d}"
+    if m < FFN_CHUNK or m % FFN_CHUNK:
+        return f"the FFN kernel takes M a multiple of {FFN_CHUNK}, got M = {m}"
+    return None
+
+
+def ln_matmul_limits(d: int, n: int) -> str | None:
+    """The first limit of the CUDA LN-matmul kernel that a (D, N) product
+    breaks, as a sentence naming it; None if it breaks none."""
+    if d not in KERNEL_WIDTHS:
+        return f"the LN-matmul kernel takes D in {KERNEL_WIDTHS}, got D = {d}"
+    if n < 1 or n % LN_MATMUL_COLS:
+        return f"the LN-matmul kernel takes N a multiple of {LN_MATMUL_COLS}, got N = {n}"
+    return None
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -57,6 +86,9 @@ def ffn_reference(x, ln_w, ln_b, w1, b1, w2, b2) -> torch.Tensor:
 # The kernel's tiling (csrc/ffn.cu): token rows a block, blocks that share a
 # row tile (each owns D / 2 output columns), hidden units a chunk.
 FFN_ROWS, FFN_D_SPLIT, FFN_CHUNK = 64, 2, 256
+# csrc/ln_matmul.cu: token rows a block, output columns a tile of the N walk,
+# K a step; N must be a multiple of LN_MATMUL_COLS.
+LN_MATMUL_ROWS, LN_MATMUL_TILE, LN_MATMUL_KSTEP, LN_MATMUL_COLS = 64, 256, 64, 64
 
 
 def ffn_plan(n_tok: int, d: int, m: int, sm_count: int) -> tuple[int, int, int]:
@@ -134,9 +166,9 @@ def fused_ffn(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
         raise TypeError(f"fused_ffn: x must be bf16 or f32, got {x.dtype}")
     if w1.dtype != torch.bfloat16 or w2.dtype != torch.bfloat16:
         raise TypeError("fused_ffn: the CUDA kernel takes bf16 weights")
-    if d not in (768, 1024) or m % FFN_CHUNK or m < FFN_CHUNK:
-        raise ValueError(f"fused_ffn: kernel needs D in (768, 1024) and M % 256 "
-                         f"== 0, got D={d}, M={m}")
+    limit = ffn_limits(d, m)
+    if limit:
+        raise ValueError(f"fused_ffn: {limit}")
     if tuple(w1.shape) != (m, d) or tuple(w2.shape) != (d, m):
         raise ValueError(f"fused_ffn: weight shapes {tuple(w1.shape)}, "
                          f"{tuple(w2.shape)} do not fit D={d}")
@@ -191,8 +223,63 @@ def ln_matmul_reference(x, ln_w, ln_b, w) -> torch.Tensor:
     return torch.matmul(y.float(), w.float().t()).to(w.dtype)
 
 
-# mmer_fused_ln_matmul(x, ln_w, ln_b, w, out, n_tok, d, n, x_is_f32, stream)
-_ARGTYPES_LN_MATMUL = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+def ln_matmul_plan(n_tok: int, n: int, sm_count: int) -> tuple[int, int]:
+    """``(rows, n_split)`` of the LN-matmul kernel's grid for ``n_tok``
+    tokens and N output columns: ``ceil(n_tok / rows) * n_split`` blocks,
+    block ``(x, y)`` computing its rows for the 256-column tiles ``[y T //
+    n_split, (y + 1) T // n_split)`` of ``T = ceil(n / 256)``.  One slice when
+    the row tiles alone put a block on every SM (a block then computes its
+    LayerNorm once for all of N); otherwise enough slices to reach
+    ``sm_count`` blocks, at most one tile a slice.  A function of the shape
+    and the card alone."""
+    if n_tok < 1 or n < 1 or sm_count < 1:
+        raise ValueError(f"ln_matmul_plan: n_tok={n_tok}, n={n}, sm_count={sm_count}")
+    rows = -(-n_tok // LN_MATMUL_ROWS)
+    tiles = -(-n // LN_MATMUL_TILE)
+    n_split = 1 if rows >= sm_count else min(tiles, -(-sm_count // rows))
+    return LN_MATMUL_ROWS, n_split
+
+
+def _lane_sums(v: torch.Tensor) -> torch.Tensor:
+    """Sums over the last axis of ``v`` (..., 32 lanes) as a warp's xor
+    butterfly takes them (16, 8, 4, 2, 1), each lane adding its partner's."""
+    lane = torch.arange(32, device=v.device)
+    for d in (16, 8, 4, 2, 1):
+        v = v + v[..., lane ^ d]
+    return v[..., 0]
+
+
+def ln_matmul_tiled_reference(x, ln_w, ln_b, w) -> torch.Tensor:
+    """:func:`fused_ln_matmul` in the order of operations of
+    ``csrc/ln_matmul.cu`` (same arguments; D a multiple of 256): the
+    LayerNorm statistics as ``common.cuh:ln_tile_bf16_sw128`` takes them
+    (lane l holds the 8-column chunks l + 32 i and sums them in (i, column)
+    order, then the warp's xor butterfly), the LN output rounded once to
+    w's dtype, the f32 product summed over K in 64-deep steps in step order,
+    rounded once."""
+    d = x.shape[-1]
+    xf = x.float()
+    v = xf.unflatten(-1, (d // 256, 32, 8))                 # (..., i, lane, e)
+    s = torch.zeros_like(v[..., 0, :, 0])
+    ss = torch.zeros_like(s)
+    for i in range(d // 256):
+        for e in range(8):
+            s, ss = s + v[..., i, :, e], ss + v[..., i, :, e] * v[..., i, :, e]
+    mean = (_lane_sums(s) / d)[..., None]
+    var = (_lane_sums(ss) / d)[..., None] - mean * mean
+    rstd = 1.0 / torch.sqrt(var.clamp_min(0.0) + LN_EPS)
+    y = ((xf - mean) * rstd * ln_w.float() + ln_b.float()).to(w.dtype).float()
+    acc = torch.zeros(*x.shape[:-1], w.shape[0], device=x.device)
+    for k0 in range(0, d, LN_MATMUL_KSTEP):
+        acc = acc + torch.matmul(y[..., k0:k0 + LN_MATMUL_KSTEP],
+                                 w[:, k0:k0 + LN_MATMUL_KSTEP].float().t())
+    return acc.to(w.dtype)
+
+
+# mmer_fused_ln_matmul(x, ln_w, ln_b, w, out, n_tok, d, n, x_is_f32, stream,
+#                      n_split)
+_ARGTYPES_LN_MATMUL = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+                       + [ctypes.c_int])
 
 
 def fused_ln_matmul(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
@@ -204,8 +291,10 @@ def fused_ln_matmul(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
     the compute dtype, the ``nn.Linear`` layout (the JAX function takes the
     transpose, (D, N)).  Returns (..., N) in **w's** dtype.
 
-    On CUDA the kernel takes a bf16 weight, D in {768, 1024} and N a multiple
-    of 64, and raises on anything else.
+    On CUDA the kernel takes a bf16 weight and what :func:`ln_matmul_limits`
+    allows, and raises on anything else.  The grid follows
+    :func:`ln_matmul_plan` (``fused_ln_matmul.last_plan`` holds the plan of
+    the latest launch).
     """
     if x.device.type == "cpu":
         return ln_matmul_reference(x, ln_w, ln_b, w)
@@ -220,9 +309,9 @@ def fused_ln_matmul(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
         raise ValueError(f"fused_ln_matmul: weight shape {tuple(w.shape)} does "
                          f"not fit D={d}")
     n = w.shape[0]
-    if d not in (768, 1024) or n % 64:
-        raise ValueError(f"fused_ln_matmul: kernel needs D in (768, 1024) and "
-                         f"N % 64 == 0, got D={d}, N={n}")
+    limit = ln_matmul_limits(d, n)
+    if limit:
+        raise ValueError(f"fused_ln_matmul: {limit}")
     vecs = [t.float().contiguous() for t in (ln_w, ln_b)]
     if [t.numel() for t in vecs] != [d, d]:
         raise ValueError("fused_ln_matmul: LN params must be (D,), (D,)")
@@ -232,13 +321,17 @@ def fused_ln_matmul(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError("fused_ln_matmul: tensors must be contiguous")
     out = torch.empty(*x.shape[:-1], n, dtype=w.dtype, device=x.device)
+    n_tok = x.numel() // d
+    plan = ln_matmul_plan(n_tok, n, _sm_count(x.device))
     _build.call(
         "ln_matmul", "mmer_fused_ln_matmul", _ARGTYPES_LN_MATMUL,
         _build.ptr(x), _build.ptr(vecs[0]), _build.ptr(vecs[1]), _build.ptr(w),
-        _build.ptr(out), x.numel() // d, d, n, int(x.dtype == torch.float32),
-        _build.stream_ptr(x.device))
+        _build.ptr(out), n_tok, d, n, int(x.dtype == torch.float32),
+        _build.stream_ptr(x.device), plan[1])
     fused_ln_matmul.launches += 1
+    fused_ln_matmul.last_plan = plan
     return out
 
 
 fused_ln_matmul.launches = 0
+fused_ln_matmul.last_plan = None

@@ -11,10 +11,13 @@ the two outputs are the same bits and times both in turns (other, this,
 this, other: CUDA events after warm-up; for the conv encoder also each
 layer's device time from a torch.profiler trace), one JSON line a case.  The
 cases are the main paths' shapes: the conv encoder (``mega=True``) at the
-serving waveform and the two extraction batches, the per-layer route's kernel-3 layer
+serving waveform and the two extraction batches (also on its per-layer route,
+``mega=False``), the per-layer route's kernel-3 layer
 at 8000 / 4000 / 2000 / 1000 merged rows and its ``_call_gemm`` at the layer-0
-and kernel-2 shapes of a 5 s batch, and one shape each of ``fused_ln_matmul``,
-``fused_ffn`` and ``flash_attention``.  Needs a CUDA device.
+and kernel-2 shapes of both extraction batches, ``fused_ln_matmul`` at the
+profile and the Wav2Vec2 shapes (both routes of the encoder, ``_call_gemm``
+and ``fused_ln_matmul`` also by device time from a torch.profiler trace), and one shape each of ``fused_ffn`` and ``flash_attention``.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -35,6 +38,12 @@ from mmer_tpu_torch.scripts.timing import event_ms, kernel_device_ms
 
 THIS = _build.CSRC
 ITERS = 10                      # timed calls a turn, after warm-up
+# Cases also timed by device time: a part of their kernels' names and the
+# launches a call makes (each of the conv encoder's seven on both routes, the
+# per-layer route's rows . W layer, the LN-matmul).
+DEVICE_TIMED = {"fused_conv_encoder": ("ln_gelu_kernel", 7),
+                "fused_conv_encoder(mega=False)": ("ln_gelu_kernel", 7),
+                "conv_gemm_ln_gelu": ("gemm", 1), "fused_ln_matmul": ("ln_matmul_kernel", 1)}
 
 
 def use(csrc: Path) -> None:
@@ -66,6 +75,8 @@ def cases(dev):
         wave = randn(*shape)
         yield ("fused_conv_encoder", f"wave {shape} f32",
                lambda wave=wave, conv=conv: fused_conv_encoder(wave, *conv, cfg))
+        yield ("fused_conv_encoder(mega=False)", f"wave {shape} f32",
+               lambda wave=wave, conv=conv: fused_conv_encoder(wave, *conv, cfg, mega=False))
     for seed, rows in enumerate((8000, 4000, 2000, 1000), start=10):
         g.manual_seed(seed)
         xm = randn(64, rows, 1024, dtype=bf)
@@ -74,7 +85,8 @@ def cases(dev):
         vecs = vectors()
         yield ("conv_k3_ln_gelu", f"xm (64,{rows},1024) bf16",
                lambda a=(xm, w01, w2, *vecs), t=rows: _call_k3(*a, t))
-    for seed, (rows, kdim) in enumerate(((16000, 16), (500, 1024)), start=20):
+    for seed, (rows, kdim) in enumerate(((16000, 16), (500, 1024), (32000, 16), (250, 1024),
+                                         (1000, 1024)), start=20):
         g.manual_seed(seed)
         x = randn(64, rows, kdim, dtype=bf)
         w = randn(kdim, 512, std=kdim ** -0.5, dtype=bf)
@@ -87,6 +99,12 @@ def cases(dev):
     w = randn(2304, 768, std=768 ** -0.5, dtype=bf)
     yield ("fused_ln_matmul", "x (16,1569,768) bf16, w (2304,768)",
            lambda: fused_ln_matmul(x, *ln, w))
+    g.manual_seed(33)
+    x32 = randn(4, 149, 1024)
+    ln32 = (1.0 + randn(1024, std=0.1), randn(1024, std=0.1))
+    w32 = randn(3072, 1024, std=1024 ** -0.5, dtype=bf)
+    yield ("fused_ln_matmul", "x (4,149,1024) f32, w (3072,1024)",
+           lambda: fused_ln_matmul(x32, *ln32, w32))
     g.manual_seed(31)
     ffn = (randn(64, 249, 1024), 1.0 + randn(1024, std=0.1), randn(1024, std=0.1),
            randn(4096, 1024, std=1024 ** -0.5, dtype=bf), randn(4096, std=0.1, dtype=bf),
@@ -111,7 +129,7 @@ def main(argv=None) -> list:
     rows = []
     try:
         for name, shape, call in cases(torch.device("cuda")):
-            outs, ms, layer_ms = {}, {"other": [], "this": []}, {"other": [], "this": []}
+            outs, ms, device_ms = {}, {"other": [], "this": []}, {"other": [], "this": []}
             for side, csrc in (("other", args.other), ("this", THIS)):
                 use(csrc)
                 outs[side] = call().clone()
@@ -119,15 +137,16 @@ def main(argv=None) -> list:
                                ("other", args.other)):
                 use(csrc)
                 ms[side].append(event_ms(call, ITERS))
-                if name == "fused_conv_encoder":
-                    layer_ms[side].append(kernel_device_ms(call, "ln_gelu_kernel", ITERS))
+                if name in DEVICE_TIMED:
+                    match, per_call = DEVICE_TIMED[name]
+                    device_ms[side].append(kernel_device_ms(call, match, ITERS, per_call))
             row = {"name": name, "shape": shape,
                    "same_bits": bool(torch.equal(outs["other"], outs["this"])),
                    "max_abs_diff": float((outs["other"].float()
                                           - outs["this"].float()).abs().max()),
                    "ms_this": ms["this"], "ms_other": ms["other"], "card": card}
-            if name == "fused_conv_encoder":
-                row.update(layer_ms_this=layer_ms["this"], layer_ms_other=layer_ms["other"])
+            if name in DEVICE_TIMED:
+                row.update(device_ms_this=device_ms["this"], device_ms_other=device_ms["other"])
             print(json.dumps(row), flush=True)
             rows.append(row)
             del outs

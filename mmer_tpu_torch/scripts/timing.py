@@ -40,29 +40,40 @@ def event_ms(fn: Callable, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn: Callable, match: str, iters: int) -> list:
-    """Device time of each kernel launch of one ``fn()`` call whose name holds
-    ``match``, in launch order, in milliseconds averaged over ``iters`` calls
-    after a warm-up one.  Read from a torch.profiler trace of the card, so the
-    host's time between two launches is not counted."""
+# Traced windows kernel_device_ms tries before it gives up.  On an H100 a
+# window now and then showed fewer kernels than were launched (19 of 21, 9 of
+# 10); the next window of the same calls showed them all.
+TRACE_ATTEMPTS = 3
+
+
+def kernel_device_ms(fn: Callable, match: str, iters: int, per_call: int) -> list:
+    """Device time of each of the ``per_call`` kernel launches of one
+    ``fn()`` call whose name holds ``match``, in launch order, in
+    milliseconds averaged over ``iters`` calls after a warm-up one.  Read from
+    a torch.profiler trace of the card, so the host's time between two
+    launches is not counted.  A window that does not show exactly ``per_call
+    * iters`` such kernels is traced again, up to TRACE_ATTEMPTS windows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kernels = sorted((e for e in prof.events()
-                      if e.device_type == DeviceType.CUDA and match in e.name),
-                     key=lambda e: e.time_range.start)
-    if not kernels or len(kernels) % iters:
-        raise RuntimeError(f"the profiler saw {len(kernels)} kernels named "
-                           f"*{match}* in {iters} calls")
-    n = len(kernels) // iters
-    return [sum(e.time_range.elapsed_us() for e in kernels[i::n]) / iters / 1e3
-            for i in range(n)]
+    seen = []
+    for _ in range(TRACE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = sorted((e for e in prof.events()
+                          if e.device_type == DeviceType.CUDA and match in e.name),
+                         key=lambda e: e.time_range.start)
+        if len(kernels) == per_call * iters:
+            return [sum(e.time_range.elapsed_us() for e in kernels[i::per_call]) / iters / 1e3
+                    for i in range(per_call)]
+        seen.append(len(kernels))
+    raise RuntimeError(f"the profiler saw {seen} kernels named *{match}* in "
+                       f"{TRACE_ATTEMPTS} windows of {iters} calls, not "
+                       f"{per_call * iters}")
 
 
 def timed_ms(fn: Callable, inputs: Sequence[tuple], device: torch.device,

@@ -33,6 +33,7 @@ from mmer_tpu_torch.ops.conv_pyramid import (conv_encoder_reference,
                                              gemm_ln_gelu_reference,
                                              k3_ln_gelu_reference,
                                              tiled_conv_encoder_reference,
+                                             tiled_gemm_reference,
                                              tiled_k3_reference)
 from mmer_tpu_torch.ops.flash_attention import (flash_attention,
                                                 flash_attention_varlen,
@@ -43,8 +44,9 @@ from mmer_tpu_torch.ops.attention_variants import (MODES, attention_variant,
                                                    attention_variant_reference)
 from mmer_tpu_torch.ops.fused_blocks import (ffn_reference,
                                              ffn_split_reference, fused_ffn,
-                                             fused_ln_matmul,
-                                             ln_matmul_reference)
+                                             fused_ln_matmul, ln_matmul_plan,
+                                             ln_matmul_reference,
+                                             ln_matmul_tiled_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -294,8 +296,9 @@ def _layer_operands(dev, batch, rows, kdim, seed=3):
     (1, 1, 16, 2), (3, 79, 16, 80), (2, 383, 16, 384),      # layer-0 patches
     (3, 33, 1024, 34), (2, 24, 1024, 24), (1, 7, 1024, 4)])  # k=2 merged rows
 def test_gemm_layer_kernel_matches_plain(cuda, batch, rows, kdim, t_pad):
-    """Rows not a multiple of the 32-row tile, batch > 1, t_pad above the
-    operand's rows (the pad row comes from zeros) and below them."""
+    """Rows not a multiple of the 64-row tile, batch > 1, t_pad above the
+    operand's rows (the pad row comes from zeros) and below them; K = 16 runs
+    the CUDA-core kernel, K = 1024 the wgmma body."""
     x, w, vecs = _layer_operands(cuda, batch, rows, kdim)
     n0 = conv_pyramid._call_gemm.launches
     got = conv_pyramid._call_gemm(x, w, *vecs, t_pad)
@@ -305,6 +308,41 @@ def test_gemm_layer_kernel_matches_plain(cuda, batch, rows, kdim, t_pad):
     # One layer: a flipped bf16 rounding of the conv sum moves the output by
     # at most a few bf16 steps of an O(1) value.
     assert mx <= 0.0625 and mean <= 1e-3, (mx, mean)
+
+
+@pytest.mark.parametrize("kdim", [16, 32, 48, 80, 1024])
+@pytest.mark.parametrize("t_out", [1, 63, 64, 65])
+def test_gemm_layer_kernel_ragged_tiles_and_repeat(cuda, kdim, t_out):
+    """Output lengths around the 64-row tile, each of three clips holding
+    t_out rows padded to even t_pad (the pad row reads past the clip's
+    array: zeros, never the next clip); K 16 / 32 / 48 on the CUDA-core
+    kernel, 80 (a zero-filled last K step) and 1024 on the wgmma body.  Within
+    the layer bound of the plain version and of the kernel's order of
+    operations; one launch a call on a 64-row block a tile of each clip; the
+    same bits on a second call."""
+    x, w, vecs = _layer_operands(cuda, 3, t_out, kdim, seed=kdim + t_out)
+    t_pad = t_out + t_out % 2
+    n0 = conv_pyramid._call_gemm.launches
+    got = conv_pyramid._call_gemm(x, w, *vecs, t_pad)
+    assert conv_pyramid._call_gemm.launches == n0 + 1
+    assert conv_pyramid._call_gemm.last_grid == (-(-t_pad // 64), 3)
+    assert got.shape == (3, t_pad, 512) and torch.isfinite(got.float()).all()
+    for ref in (gemm_ln_gelu_reference(x, w, *vecs, t_pad),
+                tiled_gemm_reference(x, w, *vecs, t_pad)):
+        mx, mean = _err(got, ref)
+        assert mx <= 0.0625 and mean <= 1e-3, (mx, mean)
+    assert torch.equal(got, conv_pyramid._call_gemm(x, w, *vecs, t_pad))
+
+
+@pytest.mark.parametrize("kdim", [16, 1024])
+def test_gemm_layer_kernel_never_reads_the_next_clip(cuda, kdim):
+    """Clip 0 ends mid-tile (65 rows, t_pad 66): changing the clips after it
+    changes none of its bits, on either body."""
+    x, w, vecs = _layer_operands(cuda, 3, 65, kdim, seed=7)
+    got = conv_pyramid._call_gemm(x, w, *vecs, 66)
+    other = x.clone()
+    other[1:] += 100.0
+    assert torch.equal(got[0], conv_pyramid._call_gemm(other, w, *vecs, 66)[0])
 
 
 @pytest.mark.parametrize("batch,t_in", [(1, 3), (3, 79), (2, 80), (2, 81),
@@ -506,6 +544,51 @@ def test_ln_matmul_kernel_matches_plain(cuda, tokens, d, n, x_dtype):
     scale = want.float().abs()
     assert mx <= 2 ** -7 * float(scale.max()), (mx, float(scale.max()))
     assert mean <= 2 ** -14 * float(scale.mean()), (mean, float(scale.mean()))
+
+
+def _ln_matmul_operands(dev, tokens, d, n, x_dtype, seed):
+    g = _gen(dev, seed)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * std
+
+    return (randn(*tokens, d).to(x_dtype), 1.0 + randn(d, std=0.1), randn(d, std=0.1),
+            randn(n, d, std=d ** -0.5).bfloat16())
+
+
+@pytest.mark.parametrize("n_tok", [1, 63, 64, 65])
+@pytest.mark.parametrize("n,d,x_dtype", [(64, 768, torch.bfloat16),
+                                         (192, 1024, torch.float32),
+                                         (2304, 768, torch.bfloat16)])
+def test_ln_matmul_kernel_ragged_tiles_and_repeat(cuda, n_tok, n, d, x_dtype):
+    """Token counts around the 64-row block, N of one 64-column group, a
+    partial 256-column tile, and nine whole tiles; both widths and stream
+    dtypes.  Within the bound of the plain version and of the kernel's order
+    of operations; the grid from ln_matmul_plan; the same bits on a second
+    call."""
+    args = _ln_matmul_operands(cuda, (n_tok,), d, n, x_dtype, seed=n_tok + n)
+    got = fused_ln_matmul(*args)
+    assert got.shape == (n_tok, n) and got.dtype == torch.bfloat16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert fused_ln_matmul.last_plan == ln_matmul_plan(n_tok, n, sms)
+    for ref in (ln_matmul_reference(*args), ln_matmul_tiled_reference(*args)):
+        mx, mean = _err(got, ref)
+        scale = ref.float().abs()
+        assert mx <= 2 ** -7 * float(scale.max()), (mx, float(scale.max()))
+        assert mean <= 2 ** -14 * float(scale.mean()), (mean, float(scale.mean()))
+    assert torch.equal(got, fused_ln_matmul(*args))
+
+
+def test_ln_matmul_kernel_fills_the_card_at_the_wav2vec2_width(cuda):
+    """(4, 149) f32 tokens x (3072, 1024): ten row tiles, so the plan spreads
+    N over at least 120 blocks; the result does not depend on the plan."""
+    args = _ln_matmul_operands(cuda, (4, 149), 1024, 3072, torch.float32, seed=9)
+    got = fused_ln_matmul(*args)
+    rows, n_split = fused_ln_matmul.last_plan
+    assert -(-596 // rows) * n_split >= 120
+    mx, _ = _err(got, ln_matmul_tiled_reference(*args))
+    assert mx <= 2 ** -7 * float(got.float().abs().max())
+    assert torch.equal(got, fused_ln_matmul(*args))
 
 
 def test_ln_matmul_kernel_rejects_what_it_does_not_take(cuda):

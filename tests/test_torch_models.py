@@ -320,11 +320,15 @@ def test_wav2vec2_layer_bf16_rounding_points(jax_w2v2):
 
 def test_audio_embedder_bf16_matches_jax(jax_w2v2):
     """The whole bf16 embedder against the JAX one on its Pallas route
-    (conv encoder and FFN kernels in interpret mode).  They differ in one
-    place: JAX's bf16 GELU after the positional conv rounds its
-    intermediate ops on the CPU (a third of its outputs differ from one
-    rounding), torch's rounds once.  That puts them 1.8e-3 apart, against
-    3.2e-3 between JAX's bf16 and f32 embeddings."""
+    (conv encoder and FFN kernels in interpret mode): 1.8e-3 apart, against
+    3.2e-3 between JAX's bf16 and f32 embeddings.  JAX's own bf16 routes are
+    as far from one another (Pallas against XLA 1.4e-3, XLA jitted against
+    op by op 2.1e-3): the distance is bf16 rounding order spread over the
+    layers.  The positional conv's GELU is not what sets it: the port rounds
+    it once, JAX's ``0.5 x erfc(-x bf16(sqrt 1/2))`` rounds each op (op by
+    op) or all but the erfc argument (jitted), which moves a third of that
+    module's outputs by one rounding, yet taking either sequence in the port
+    moves this distance only to 1.75e-3 / 1.79e-3 (ROADMAP C4)."""
     _, _, params = jax_w2v2
     params = _perturbed(params, 2)
     rng = np.random.default_rng(1)
