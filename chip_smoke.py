@@ -41,6 +41,23 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    agree within 0.5 % relative L2 (the extractor feature-noise contract);
    video embeddings of the kernel path must be no further from the f32
    path than the plain bf16 path's (see ``VIDEO_F32_FACTOR``).
+4b. serving file path: ``InferenceEngine.infer_frames`` at the same full
+   configs with the native Haar cascade (its numpy fallback fails the run)
+   on 480x640 frames holding the packaged face
+   (``mmer_tpu_torch/assets/face_300x256.npy``, seeded jitter): A, 96 face
+   frames with 3.2 s of audio; B, 160 frames with the face gone from frames
+   64-79 (two sequences), with IG explanations, and again without; C, 32
+   frames with no face.  The audio comes through the port's container code:
+   a synthetic H.264 + AAC FLV through the HTTP server's ``/remux/``, a
+   seeded PCM track muxed in, ``extract_audio_track`` on the written file.
+   Gates: boxes on at least 90 % of the face frames and none elsewhere, the
+   best box's IoU with the face at least 0.5, items at the first frame of
+   each subchunk, probabilities finite and normalised, exact launch counts
+   per request (C launches nothing), the same classes with and without IG,
+   finite attributions whose completeness residual matches an f32 CPU run
+   within ``IG_RESIDUAL_TOL``; ``/ping``, ``/health``, ``/remux/`` (the bytes
+   of ``flv_to_mp4``), 422 and 413 from the server.  Each request's warm
+   latency is logged by stage.
 5. extraction: 96 seeded WAV files (1.5-5 s, one 12 s, one 44.1 kHz stereo,
    one 10 ms) → ``mmer_tpu_torch.preprocess.extract.main`` → 96 float16
    (1024,) artifacts; the same folder through ``iter_audio_embeddings`` on
@@ -157,6 +174,18 @@ CONV_F32_FACTOR = 1.25
 # that accumulates its hidden chunks in bf16 reads 1.07-1.11.
 EMBED_REL_L2 = 0.005
 VIDEO_F32_FACTOR = 1.05
+# The serving file path's frames: the packaged face pasted at (y, x) on a
+# 480x640 background; the face itself (ear to ear, brow to chin) lies at
+# (x1, y1, x2, y2) in the 300x256 asset, read off the image.
+FACE_AT = (90, 192)
+FACE_RECT = (80, 50, 180, 160)
+# IG completeness does not hold for the fusion model at a zero baseline (a
+# LayerNorm after each bias-free input projection makes f(ax) a step near
+# a = 0 that 50 Gauss-Legendre nodes cannot resolve: f32 residuals of a third
+# of a logit on the served windows).  The card's residual must instead match
+# an f32 CPU run's on the same inputs and targets: on an H100 they read at
+# most 0.0569 logits apart over the five windows; the limit is 3.5 times that.
+IG_RESIDUAL_TOL = 0.2
 SOURCES = {
     "flash_attention": ("mmer_tpu_torch/csrc/attention.cu",
                         "mmer_tpu/ops/flash_attention.py:51"),
@@ -1095,12 +1124,14 @@ def main() -> int:
     kernels = check_kernels(dev)
     kernels.update(check_probe_kernels(dev))
     serving = run_main_path(dev)
+    file_path = run_serving_file_path(dev)
     extraction = run_extraction(dev)
     profile = run_profile_scripts()
     run_training(dev)
     # launches: of the main path that runs the kernel.  The serving requests
-    # for the three kernels on the clip path (which the extraction CLI also
-    # runs: launches_extraction_cli), the all-kernel extraction run for the
+    # for the three kernels on the clip path (which the serving file path and
+    # the extraction CLI also run: launches_serving_file_path,
+    # launches_extraction_cli), the all-kernel extraction run for the
     # varlen attention and the per-layer conv kernels, the profile and probe
     # scripts for the kernels only they launch.
     lines = [
@@ -1109,6 +1140,7 @@ def main() -> int:
          "launches": (profile[name] if name in PROBE_KERNELS else
                       serving[name] or extraction["all_kernel"][name]),
          "launches_serving": serving[name],
+         "launches_serving_file_path": file_path["launches"][name],
          "launches_extraction_cli": extraction["cli"][name],
          "launches_extraction_all_kernel": extraction["all_kernel"][name],
          "launches_profile_scripts": profile[name],
@@ -1266,6 +1298,400 @@ def run_main_path(dev) -> dict:
             raise AssertionError(f"{name}: the kernels move video embeddings "
                                  "further from f32 than the plain bf16 path")
     return launches
+
+
+# -- phase 4b: the serving file path -------------------------------------------
+#
+# Copies of the FLV builders of tests/test_remux.py (the script imports no
+# test module: those import the JAX package).
+
+class _BitWriter:
+    def __init__(self):
+        self.bits = []
+
+    def u(self, value: int, bits: int):
+        for i in reversed(range(bits)):
+            self.bits.append((value >> i) & 1)
+
+    def ue(self, value: int):
+        code = value + 1
+        n = code.bit_length()
+        self.u(0, n - 1)
+        self.u(code, n)
+
+    def bytes(self) -> bytes:
+        bits = self.bits + [0] * (-len(self.bits) % 8)
+        return bytes(int("".join(map(str, bits[i:i + 8])), 2)
+                     for i in range(0, len(bits), 8))
+
+
+def _make_sps(width_mbs: int = 40, height_mbs: int = 30) -> bytes:
+    """Baseline-profile SPS for (width_mbs*16) x (height_mbs*16) pixels."""
+    w = _BitWriter()
+    for value, bits in ((0x67, 8), (66, 8), (0, 8), (30, 8)):
+        w.u(value, bits)               # NAL type 7, baseline, level 3.0
+    for value in (0, 0, 0, 0, 1):      # sps id, frame num, poc type, lsb, refs
+        w.ue(value)
+    w.u(0, 1)
+    w.ue(width_mbs - 1)
+    w.ue(height_mbs - 1)
+    for flag in (1, 0, 0, 0, 1):       # frame_mbs_only ... rbsp stop bit
+        w.u(flag, 1)
+    return w.bytes()
+
+
+def _flv_tag(tag_type: int, ts: int, body: bytes) -> bytes:
+    import struct
+
+    return (bytes([tag_type]) + len(body).to_bytes(3, "big")
+            + (ts & 0xFFFFFF).to_bytes(3, "big") + bytes([ts >> 24])
+            + b"\x00\x00\x00" + body + struct.pack(">I", 11 + len(body)))
+
+
+def _make_flv(n_video: int = 96, n_audio: int = 50) -> bytes:
+    """A synthetic H.264 + AAC FLV at 30 fps (real SPS and
+    AudioSpecificConfig, opaque sample payloads, as tests/test_remux.py
+    builds it)."""
+    import struct
+
+    sps, pps = _make_sps(), b"\x68\xce\x38\x80"
+    avcc = (bytes([1, sps[1], sps[2], sps[3], 0xFF, 0xE1])
+            + struct.pack(">H", len(sps)) + sps
+            + bytes([1]) + struct.pack(">H", len(pps)) + pps)
+
+    def video(ts, payload, key, pkt=1):
+        head = bytes([((1 if key else 2) << 4) | 7, pkt]) + b"\x00\x00\x00"
+        return _flv_tag(9, ts, head + payload)
+
+    def audio(ts, payload, pkt=1):
+        return _flv_tag(8, ts, bytes([0xAF, pkt]) + payload)
+
+    out = bytearray(b"FLV\x01\x05" + struct.pack(">I", 9) + b"\x00" * 4)
+    out += video(0, avcc, True, pkt=0)
+    out += audio(0, bytes([0x14, 0x08]), pkt=0)      # AAC-LC, 16 kHz, mono
+    for i in range(n_video):
+        key = i % 30 == 0
+        body = bytes([0x65 if key else 0x41]) + b"frame-%04d" % i
+        out += video(i * 1000 // 30, struct.pack(">I", len(body)) + body, key)
+    for i in range(n_audio):
+        out += audio(i * 64, b"aac-frame-%d" % i)  # 1024 samples at 16 kHz
+    return bytes(out)
+
+
+def _iou(a, b) -> float:
+    x1, y1 = max(a[0], b[0]), max(a[1], b[1])
+    x2, y2 = min(a[2], b[2]), min(a[3], b[3])
+    inter = max(0.0, x2 - x1) * max(0.0, y2 - y1)
+    union = (a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1]) - inter
+    return inter / union if union > 0 else 0.0
+
+
+def _face_frames(n: int, absent, rng):
+    """``n`` 480x640 RGB frames: the packaged face (300x256, seeded ±8
+    jitter a frame) pasted at FACE_AT on a smooth background, except the
+    frames in ``absent``, which hold the background alone."""
+    import numpy as np
+
+    face = np.load(os.path.join(REPO, "mmer_tpu_torch", "assets",
+                                "face_300x256.npy"))
+    yy, xx = np.mgrid[0:480, 0:640]
+    background = np.stack([70 + yy * 0.15, 90 + xx * 0.1, 110 + yy * 0.05],
+                          -1).astype(np.uint8)
+    y0, x0 = FACE_AT
+    for i in range(n):
+        frame = background.copy()
+        if i not in absent:
+            jitter = face.astype(np.int16) + rng.integers(-8, 8, face.shape)
+            frame[y0:y0 + 300, x0:x0 + 256] = np.clip(jitter, 0, 255)
+        yield frame
+
+
+def _serve_http(engine, flv: bytes) -> bytes:
+    """The port's server on 127.0.0.1 in a thread: /ping, /health,
+    /remux/ (returns the MP4), /infer/ without a file, an oversized upload."""
+    import http.client
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from mmer_tpu_torch.serve.app import make_handler
+    from mmer_tpu_torch.serve.remux import flv_to_mp4
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(engine))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    port = httpd.server_address[1]
+
+    def request(method, path, body=b"", headers=None, send_body=True):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            if send_body:
+                conn.request(method, path, body=body, headers=headers or {})
+            else:                      # headers only: the server must not wait
+                conn.putrequest(method, path)
+                for k, v in (headers or {}).items():
+                    conn.putheader(k, v)
+                conn.endheaders()
+            r = conn.getresponse()
+            return r.status, r.getheader("Content-Type"), r.read()
+        finally:
+            conn.close()
+
+    boundary = "smokebound"
+    multipart = {"Content-Type": f"multipart/form-data; boundary={boundary}"}
+    upload = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
+              f"filename=\"clip.flv\"\r\n\r\n").encode() + flv \
+        + f"\r\n--{boundary}--\r\n".encode()
+    try:
+        got = {
+            "/ping": request("GET", "/ping"),
+            "/health": request("GET", "/health"),
+            "/remux/": request("POST", "/remux/", upload, multipart),
+            "/infer/ without a file": request(
+                "POST", "/infer/", f"--{boundary}--".encode(), multipart),
+            "/infer/ 4 GiB Content-Length": request(
+                "POST", "/infer/", headers={**multipart,
+                                           "Content-Length": str(4 << 30)},
+                send_body=False),
+        }
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    want = {"/ping": (200, b'{"message": "pong"}'),
+            "/health": (200, b'{"status": "ok"}'),
+            "/remux/": (200, flv_to_mp4(flv)),
+            "/infer/ without a file": (422, None),
+            "/infer/ 4 GiB Content-Length": (413, None)}
+    for route, (status, ctype, body) in got.items():
+        log(f"serving http {route}: {status} {ctype} ({len(body)} bytes)")
+        code, payload = want[route]
+        if status != code or (payload is not None and body != payload):
+            raise AssertionError(f"{route}: {status} {body[:200]!r}")
+    if got["/remux/"][1] != "video/mp4":
+        raise AssertionError("/remux/ did not answer video/mp4")
+    return got["/remux/"][2]
+
+
+def _ig_check(engine, records, dev) -> dict:
+    """IG of every explained window batch: finite attributions, and the
+    completeness residual sum(attr) - (logit_t(x) - logit_t(0)) of the
+    card's bf16 run against the same residual of an f32 run on the CPU
+    (same weights, inputs and targets), within IG_RESIDUAL_TOL."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from mmer_tpu_torch.interpret.ig import integrated_gradients
+    from mmer_tpu_torch.models.fusion import MultimodalEmotionModel
+
+    f32 = MultimodalEmotionModel(dc.replace(engine.model_cfg,
+                                            compute_dtype="float32"),
+                                 device="cpu")
+    f32.load_state_dict({k: v.cpu() for k, v in
+                         engine.fusion.state_dict().items()})
+
+    def residual(fn, v, a, m, t, av, aa):
+        with torch.no_grad():
+            lx, l0 = fn(v, a, m), fn(torch.zeros_like(v), torch.zeros_like(a), m)
+        gap = (lx - l0).float().gather(1, t[:, None].long())[:, 0]
+        total = av.sum(dim=(1, 2)) + aa.sum(dim=1)
+        return (total - gap).double().cpu().numpy(), gap.double().cpu().numpy()
+
+    worst, rows, rel = 0.0, 0, []
+    for (v, a, m, t), (av, aa) in records:
+        if not (torch.isfinite(av).all() and torch.isfinite(aa).all()):
+            raise AssertionError("IG attributions are not finite")
+        r_card, gap = residual(engine.fusion_logits_fn, v, a, m, t, av, aa)
+        cpu = [x.cpu() for x in (v, a, m, t)]
+
+        def fn32(v_, a_, m_):
+            return f32(v_, a_, m_)[1]
+
+        av32, aa32 = integrated_gradients(fn32, *cpu, 50, "gausslegendre")
+        r_f32, _ = residual(fn32, *cpu, av32, aa32)
+        worst = max(worst, float(np.abs(r_card - r_f32).max()))
+        rows += len(gap)
+        rel.append(_rel_l2(torch.cat([av.flatten(1), aa], 1).double().cpu().numpy(),
+                           torch.cat([av32.flatten(1), aa32], 1).double().numpy()))
+        log(f"  IG batch {tuple(v.shape)}: logit gaps {np.round(gap, 4).tolist()}, "
+            f"completeness residual card {np.round(r_card, 4).tolist()} vs f32 "
+            f"CPU {np.round(r_f32, 4).tolist()}")
+    log(f"serving IG: {rows} windows, largest |residual card - residual f32| "
+        f"{worst:.4f} (limit {IG_RESIDUAL_TOL}); attributions card vs f32 "
+        f"rel-L2 up to {max(rel):.4f}")
+    if not rows or worst > IG_RESIDUAL_TOL:
+        raise AssertionError("IG on the card departs from the f32 quadrature")
+    return {"windows": rows, "residual_gap": worst, "rel_l2": max(rel)}
+
+
+def run_serving_file_path(dev) -> dict:
+    """The /infer path at full width: face detection (native cascade),
+    on-device crops, streamed subchunks, ViViT, Wav2Vec2 on the audio of a
+    container built with the port's own remux and PCM mux, fusion and IG,
+    through ``InferenceEngine.infer_frames``; then the HTTP server.
+    Returns the launch counts of the warm requests, summed."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mmer_tpu_torch.interpret import ig
+    from mmer_tpu_torch.preprocess.audio import extract_audio_track
+    from mmer_tpu_torch.preprocess.faces import HaarFaceDetector
+    from mmer_tpu_torch.serve.engine import InferenceEngine
+    from mmer_tpu_torch.serve.pcm_mp4 import mux_pcm_track
+
+    detector = HaarFaceDetector()
+    t0 = time.perf_counter()
+    if detector.engine != "native":
+        raise AssertionError("the face detector runs its numpy fallback: the "
+                             "native cascade evaluator did not build")
+    log(f"serving file path: cascade engine {detector.engine} "
+        f"(built in {time.perf_counter() - t0:.2f} s)")
+    engine = InferenceEngine(dev, detector=detector)
+    _ = engine.video_extractor, engine.audio_embedder, engine.fusion
+
+    # Audio through the port's container code: FLV -> /remux/ -> MP4 -> PCM
+    # track muxed in -> written -> extract_audio_track.
+    flv = _make_flv()
+    mp4 = _serve_http(engine, flv)
+    rng = np.random.default_rng(7)
+    waves = {}
+    with tempfile.TemporaryDirectory(prefix="mmer_smoke_serve_") as tmp:
+        for name, seconds in (("A", 3.2), ("B", 160 / 30)):
+            wave = (rng.normal(size=int(seconds * 16000)) * 0.1
+                    ).astype(np.float32)
+            path = os.path.join(tmp, f"{name}.mp4")
+            with open(path, "wb") as f:
+                f.write(mux_pcm_track(mp4, wave, 16000))
+            waves[name] = extract_audio_track(path, 16000)
+            err = float(np.abs(waves[name] - wave).max())
+            log(f"serving audio {name}: {len(waves[name])} samples back from "
+                f"{os.path.getsize(path)} bytes of MP4, max |error| {err:.2e}")
+            if len(waves[name]) != len(wave) or err > 1.0 / 32768:
+                raise AssertionError("the PCM track did not come back")
+
+    requests = {
+        "A": dict(n=96, absent=(), explain=False, wave=waves["A"]),
+        "B": dict(n=160, absent=range(64, 80), explain=True, wave=waves["B"]),
+        "B_plain": dict(n=160, absent=range(64, 80), explain=False,
+                        wave=waves["B"]),
+        "C": dict(n=32, absent=range(32), explain=False, wave=waves["A"]),
+    }
+    fy, fx = FACE_AT
+    face_rect = (FACE_RECT[0] + fx, FACE_RECT[1] + fy,
+                 FACE_RECT[2] + fx, FACE_RECT[3] + fy)
+    records = []
+    real_ig = ig.integrated_gradients
+
+    def recording_ig(fn, v, a, m, t, *args):
+        out = real_ig(fn, v, a, m, t, *args)
+        records.append(((v, a, m, t), tuple(x.detach() for x in out)))
+        return out
+
+    vcfg, wcfg = engine.vivit_cfg, engine.wav_cfg
+    bs = engine.video_extractor.device_batch
+    results, total, summary = {}, {}, {}
+    ig.integrated_gradients = recording_ig
+    try:
+        for name, req in requests.items():
+            for label in ("first", "warm"):
+                frames = _face_frames(req["n"], set(req["absent"]),
+                                      np.random.default_rng(11))
+                records.clear()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                reset_launches()
+                t0 = time.perf_counter()
+                res = engine.infer_frames(frames, 30.0, req["wave"], 32, 5,
+                                          explain=req["explain"],
+                                          detect_every=1)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                launches = read_launches()
+            tm = engine.last_timings
+            peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+            log(f"serving request {name} [warm]: {ms:.2f} ms for {tm['frames']} "
+                f"frames: detection {tm['detect'] * 1e3 / tm['frames']:.3f} ms a "
+                f"frame ({tm['detect'] * 1e3:.2f} ms), crop + ViViT "
+                f"{tm['crop_vivit'] * 1e3:.2f} ms, audio {tm['audio'] * 1e3:.2f} "
+                f"ms, fusion {tm['fusion'] * 1e3:.2f} ms, IG "
+                f"{tm['ig'] * 1e3:.2f} ms; peak device memory {peak:.1f} MiB")
+            results[name] = (res, launches, records[:])
+            summary[name] = {"warm_ms": ms, "frames": tm["frames"],
+                             "detect_ms_a_frame": tm["detect"] * 1e3 / tm["frames"],
+                             **{f"{k}_ms": tm[k] * 1e3 for k in
+                                ("detect", "crop_vivit", "audio", "fusion", "ig")},
+                             "peak_mib": peak}
+            for k, n in launches.items():
+                total[k] = total.get(k, 0) + n
+    finally:
+        ig.integrated_gradients = real_ig
+    log(f"serving file path, warm, on {device_line()}: {json.dumps(summary)}")
+
+    for name, req in requests.items():
+        res, launches, recs = results[name]
+        absent = set(req["absent"])
+        face_frames = [i for i in range(req["n"]) if i not in absent]
+        boxed = {b["frame"] for b in res["bounding_box"]}
+        hit = len(boxed & set(face_frames)) / max(len(face_frames), 1)
+        best = {}
+        for b in res["bounding_box"]:
+            if b["frame"] not in best or b["confidence"] > best[b["frame"]]["confidence"]:
+                best[b["frame"]] = b
+        ious = [_iou((b["x1"], b["y1"], b["x2"], b["y2"]), face_rect)
+                for b in best.values()]
+        # Sequences: runs of face frames split by gaps of more than 10.
+        seqs, prev = [], None
+        for i in face_frames:
+            if prev is None or i - prev > 10:
+                seqs.append([])
+            seqs[-1].append(i)
+            prev = i
+        n_subs = [-(-len(s) // 32) for s in seqs]
+        frames_want = [s[j * 32] for s, k in zip(seqs, n_subs) for j in range(k)]
+        vivit_batches = sum(-(-k // bs) for k in n_subs)
+        expected = {**{k: 0 for k in launches},
+                    "flash_attention": vivit_batches * vcfg.depth,
+                    "fused_ffn": vivit_batches * vcfg.depth
+                    + len(seqs) * wcfg.num_layers,
+                    "fused_conv_encoder": len(seqs) * len(wcfg.conv_dims)}
+        probs = np.asarray(res["probabilities"], np.float64).reshape(-1, 6)
+        log(f"serving request {name}: boxes on {hit * 100:.1f} % of "
+            f"{len(face_frames)} face frames, on {len(boxed & absent)} of "
+            f"{len(absent)} others; best-box IoU with the face "
+            f"{min(ious) if ious else float('nan'):.3f}-"
+            f"{max(ious) if ious else float('nan'):.3f}; "
+            f"{len(seqs)} sequences, items at frames "
+            f"{[it['frame'] for it in res['inference']]} classes "
+            f"{[it['class'] for it in res['inference']]}")
+        shown = [k for k in launches if launches[k] or expected[k]]
+        log(f"serving request {name}: launch counts "
+            f"{ {k: launches[k] for k in shown} }, expected "
+            f"{ {k: expected[k] for k in shown} } (all others 0)")
+        if (face_frames and hit < 0.9) or boxed & absent or \
+                (ious and min(ious) < 0.5):
+            raise AssertionError(f"request {name}: the detector missed or "
+                                 "misplaced the face")
+        if [it["frame"] for it in res["inference"]] != frames_want:
+            raise AssertionError(f"request {name}: items at the wrong frames")
+        if not (np.isfinite(probs).all()
+                and np.allclose(probs.sum(-1), 1.0, atol=1e-4)):
+            raise AssertionError(f"request {name}: probabilities {probs}")
+        if launches != expected:
+            raise AssertionError(f"request {name}: kernel launches off")
+        if req["explain"] and not all("feature_importance" in it
+                                      for it in res["inference"]):
+            raise AssertionError(f"request {name}: importances missing")
+    if [len(results["B"][0]["inference"]), len(results["C"][0]["bounding_box"]),
+            len(results["C"][0]["inference"])] != [5, 0, 0]:
+        raise AssertionError("requests B and C did not give 2 + 3 and no items")
+    strip = [{k: v for k, v in it.items() if k != "feature_importance"}
+             for it in results["B"][0]["inference"]]
+    if strip != results["B_plain"][0]["inference"]:
+        raise AssertionError("explain=True changed request B's classes")
+    return {"launches": total, "ig": _ig_check(engine, results["B"][2], dev)}
 
 
 def _write_wav(path: str, wave, rate: int, channels: int = 1) -> None:

@@ -9,6 +9,9 @@ source never loads a stale library, and an unchanged one is built once.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`call` turns a non-zero code into an exception.
+
+Host code in C++ (``csrc/<name>.cpp``: the face detector's cascade
+evaluator) is built the same way by :func:`host_library`, with ``g++``.
 """
 
 from __future__ import annotations
@@ -29,7 +32,10 @@ KERNELS = ("ffn", "attention", "conv_encoder", "conv_layers", "ln_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_locks = {name: threading.Lock() for name in KERNELS}
+HOST_LIBRARIES = ("cascade_eval",)
+HOST_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC")
+
+_locks = {name: threading.Lock() for name in KERNELS + HOST_LIBRARIES}
 _libs: dict[str, ctypes.CDLL] = {}
 _entries: dict[str, Callable[..., int]] = {}
 
@@ -127,3 +133,50 @@ def stream_ptr(device) -> ctypes.c_void_p:
 
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def _host_cpu() -> bytes:
+    """The build host's CPU model and flags: ``-march=native`` code runs
+    only where they hold, so they key the library's name."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            return b"".join(line for line in f.read().splitlines(True)
+                            if line.startswith((b"model name", b"flags")))[:4096]
+    except OSError:
+        return b""
+
+
+def _host_library_path(name: str) -> Path:
+    digest = hashlib.sha256(" ".join(HOST_FLAGS).encode() + _host_cpu())
+    src = CSRC / f"{name}.cpp"
+    digest.update(src.name.encode() + src.read_bytes())
+    return build_dir() / f"lib{name}-host-{digest.hexdigest()[:16]}.so"
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """``csrc/<name>.cpp`` built with ``g++`` at first use and loaded.
+    Raises when no compiler is found or the build fails."""
+    with _locks[name]:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        out = _host_library_path(name)
+        if not out.exists():
+            cxx = shutil.which("g++")
+            if not cxx:
+                raise RuntimeError(f"no C++ compiler: csrc/{name}.cpp cannot "
+                                   "be built")
+            out.parent.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(
+                f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+            proc = subprocess.run(
+                [cxx, *HOST_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cpp")],
+                capture_output=True, text=True, check=False)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"{cxx} failed on csrc/{name}.cpp:\n"
+                                   f"{proc.stderr}")
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(str(out))
+        _libs[name] = lib
+        return lib

@@ -1,8 +1,8 @@
 """Host audio decode → 16 kHz mono waveforms + artifact naming, copied from
-the host side of ``mmer_tpu/preprocess/audio.py`` (the port imports nothing
-from the JAX package; a test holds this copy to the original).  The video
-container routes (``extract_audio_track`` and the converters built on it)
-come with the serving slice.
+``mmer_tpu/preprocess/audio.py`` (the port imports nothing from the JAX
+package; tests hold this copy to the original).  The audio track of a video
+container comes from the port's pure-Python PCM demux
+(``serve/pcm_mp4.py``) first, then from the ``ffmpeg`` binary when present.
 
 Decoder availability is gated: WAV decodes natively via the stdlib; other
 formats (mp3/aac/ogg/flac) go through the ``ffmpeg`` binary when present.
@@ -94,6 +94,77 @@ def load_waveform(path: str, sample_rate: int = 16000) -> Optional[np.ndarray]:
             data, sr = decoded
             return resample(data, sr, sample_rate)
     return _decode_via_ffmpeg(path, sample_rate)
+
+
+def extract_audio_track(video_path: str, sample_rate: int = 16000,
+                        start_s: Optional[float] = None,
+                        duration_s: Optional[float] = None
+                        ) -> Optional[np.ndarray]:
+    """Audio track of a video container (optionally a time window) → mono
+    float32 waveform at ``sample_rate``, decoded once.
+
+    Decode order: (1) the pure-Python demux of an MP4 PCM track
+    (``serve/pcm_mp4``, no external binaries), then (2) the ffmpeg CLI for
+    compressed tracks; None when neither applies."""
+    from mmer_tpu_torch.serve.pcm_mp4 import demux_pcm_track
+
+    pcm = demux_pcm_track(video_path)
+    if pcm is not None:
+        wav, src_rate = pcm
+        if start_s is not None:
+            wav = wav[int(round(start_s * src_rate)):]
+        if duration_s is not None:
+            wav = wav[:int(round(duration_s * src_rate))]
+        if not len(wav):
+            return None
+        return resample(wav, src_rate, sample_rate)
+    if not ffmpeg_available():
+        return None
+    cmd = ["ffmpeg", "-v", "error"]
+    if start_s is not None:
+        cmd += ["-ss", f"{start_s:.3f}"]
+    cmd += ["-i", video_path]
+    if duration_s is not None:
+        cmd += ["-t", f"{duration_s:.3f}"]
+    cmd += ["-vn", "-ac", "1", "-ar", str(sample_rate), "-f", "f32le", "-"]
+    try:
+        out = subprocess.run(cmd, capture_output=True, check=True).stdout
+    except (subprocess.CalledProcessError, OSError):
+        return None
+    if not out:
+        return None
+    return np.frombuffer(out, np.float32).copy()
+
+
+def extract_audio_to_wav(video_path: str, output_path: str,
+                         sample_rate: int = 16000) -> bool:
+    """Video → 16-bit mono WAV via any available decode route (PCM demux or
+    ffmpeg); False when there is no decodable track."""
+    wav = extract_audio_track(video_path, sample_rate)
+    if wav is None or not len(wav):
+        return False
+    with wave_mod.open(output_path, "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(sample_rate)
+        f.writeframes(np.clip(wav * 32768.0, -32768, 32767)
+                      .astype(np.int16).tobytes())
+    return True
+
+
+def convert_video_to_audio(video_path: str, output_path: str,
+                           bitrate: str = "320k") -> bool:
+    """Video → mp3 through the ffmpeg CLI (reference
+    cremad_video_to_audio_converter.py:22-28); False without ffmpeg."""
+    if not ffmpeg_available():
+        return False
+    cmd = ["ffmpeg", "-v", "error", "-y", "-i", video_path, "-vn",
+           "-acodec", "libmp3lame", "-b:a", bitrate, output_path]
+    try:
+        subprocess.run(cmd, capture_output=True, check=True)
+        return True
+    except (subprocess.CalledProcessError, OSError):
+        return False
 
 
 def iter_audio_files(folder: str) -> Iterator[str]:

@@ -13,9 +13,11 @@ CLI (runs on the GPU; ``--device cpu`` must be asked for):
     python -m mmer_tpu_torch.preprocess.extract video --input DIR --output DIR
     python -m mmer_tpu_torch.preprocess.extract audio --input DIR --output DIR
 
-Face detection, the crop graph and ``SubchunkStream`` come with the serving
-slice; ``extract_dataset_arrays`` with the trainer slice (it needs the data
-pipeline); sharding over several GPUs with the multi-GPU slice.
+The serving path's crop stage lives here too: :class:`SubchunkStream` crops
+raw frames on the device and embeds the uint8 subchunks without a trip back
+to the host (``VideoFeatureExtractor.embed_cropped_frames`` is its one-shot
+form).  ``extract_dataset_arrays`` waits for the trainer's raw-media route;
+sharding over several GPUs for the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -74,6 +76,8 @@ class VideoFeatureExtractor:
     def embed_chunks(self, chunks, pipeline: bool = False) -> np.ndarray:
         """(N, F, H, W, C) raw uint8 or float32 in [0, 1] → (N, dim) float32.
 
+        ``chunks`` is a host array or a tensor; a tensor already on the
+        device is used where it lies (the crops of :class:`SubchunkStream`).
         Chunks go to the device in blocks of ``device_batch`` (the last
         block padded by repeating its final chunk, whose rows are dropped);
         uint8 frames are scaled by 1/255 on the device.
@@ -91,7 +95,10 @@ class VideoFeatureExtractor:
         x_all = torch.as_tensor(chunks)
         n = x_all.shape[0]
         bs = self.device_batch
+        # Host blocks are staged through pinned buffers on the card; blocks
+        # that are on the device already need no staging.
         on_card = self.device.type == "cuda"
+        staged = on_card and x_all.device.type == "cpu"
         staging: List[torch.Tensor] = []
         out: List[np.ndarray] = []
         in_flight = None        # (host tensor, event or None) of block i-1
@@ -107,7 +114,7 @@ class VideoFeatureExtractor:
                 block = torch.cat(
                     [block, block[-1:].expand(bs - block.shape[0],
                                               *block.shape[1:])])
-            if pipeline and on_card:
+            if pipeline and staged:
                 if len(staging) < 2:
                     staging.append(torch.empty(block.shape, dtype=block.dtype,
                                                pin_memory=True))
@@ -137,6 +144,84 @@ class VideoFeatureExtractor:
         if in_flight is not None:
             out.append(fetch(*in_flight))
         return np.concatenate(out)[:n]
+
+    def embed_cropped_frames(self, frames_u8: np.ndarray, bboxes: np.ndarray,
+                             subchunk_size: int) -> np.ndarray:
+        """Serving's crop stage in one call: raw uint8 frames (N, H, W, C)
+        and per-frame bboxes (N, 4) → (ceil(N / subchunk_size), dim)
+        subchunk features.  Crop, resize, subchunk packing (the last
+        subchunk padded by repeating its final frame and bbox) and the ViViT
+        forward all run on the device; only the frames go up and only the
+        feature rows come back.  Implemented over :class:`SubchunkStream`,
+        the path the engine streams uploads through."""
+        stream = SubchunkStream(self, subchunk_size)
+        stream.add(frames_u8, bboxes)
+        return stream.finish()
+
+
+class SubchunkStream:
+    """Incremental frames → subchunk features with bounded buffers.
+
+    Holds at most ``subchunk_size`` raw frames on the host and up to
+    ``extractor.device_batch`` cropped uint8 subchunks on the device: each
+    full block of frames is cropped and resized on the device at once, and
+    each ``device_batch`` group of cropped subchunks goes through
+    ``embed_chunks`` as one device tensor.  The grouping is the one-shot
+    :meth:`VideoFeatureExtractor.embed_cropped_frames` grouping, so streamed
+    features equal it exactly.
+    """
+
+    def __init__(self, extractor: VideoFeatureExtractor, subchunk_size: int):
+        self._ex = extractor
+        self._sub = subchunk_size
+        self._frames: List[np.ndarray] = []     # < subchunk_size raw frames
+        self._bboxes: List[np.ndarray] = []
+        self._crops: List[torch.Tensor] = []    # device uint8 subchunks
+        self._feats: List[np.ndarray] = []
+        self._last: Optional[Tuple[np.ndarray, np.ndarray]] = None
+
+    def add(self, frames_u8: np.ndarray, bboxes: np.ndarray) -> None:
+        """Append (n, H, W, C) uint8 frames with (n, 4) float bboxes."""
+        for i in range(frames_u8.shape[0]):
+            self._frames.append(frames_u8[i])
+            self._bboxes.append(np.asarray(bboxes[i], np.float32))
+            if len(self._frames) == self._sub:
+                self._crop_block()
+        if frames_u8.shape[0]:
+            self._last = (frames_u8[-1], np.asarray(bboxes[-1], np.float32))
+
+    def _crop_block(self) -> None:
+        from mmer_tpu_torch.ops.image import crop_resize_batch
+
+        dev = self._ex.device
+        crops = crop_resize_batch(
+            torch.from_numpy(np.stack(self._frames)).to(dev),
+            torch.from_numpy(np.stack(self._bboxes)).to(dev),
+            out_hw=tuple(self._ex.cfg.image_size))
+        # Truncating uint8 quantisation, as the JAX stream's astype.
+        self._crops.append(torch.clamp(crops, 0, 255).to(torch.uint8))
+        self._frames.clear()
+        self._bboxes.clear()
+        if len(self._crops) == self._ex.device_batch:
+            self._flush_crops()
+
+    def _flush_crops(self) -> None:
+        if self._crops:
+            self._feats.append(self._ex.embed_chunks(torch.stack(self._crops)))
+            self._crops.clear()
+
+    def finish(self) -> np.ndarray:
+        """Pad and flush the remainder → (n_subchunks, dim) float32."""
+        if self._frames and self._last is not None:
+            frame, bbox = self._last
+            while len(self._frames) < self._sub:
+                self._frames.append(frame)
+                self._bboxes.append(bbox)
+            self._crop_block()
+        self._flush_crops()
+        if not self._feats:
+            return np.zeros((0, self._ex.cfg.dim), np.float32)
+        return np.concatenate(self._feats)
 
 
 def iter_video_features(input_dir: str, extractor: VideoFeatureExtractor,

@@ -49,6 +49,30 @@ def decode_frames(video_path: str, size: Tuple[int, int] = (224, 224),
     return np.stack(frames)
 
 
+def iter_video_frames(video_path: str) -> Tuple[float, Iterator[np.ndarray]]:
+    """(fps, iterator of (H, W, 3) uint8 RGB frames) of a container, decoded
+    one frame at a time (``cv2.VideoCapture``; BGR → RGB), as the JAX
+    engine's ``infer_video_file`` reads an upload.  The frame rate defaults
+    to 30 when the container does not say; an undecodable file gives no
+    frames.  The capture is released when the iterator ends or is closed."""
+    import cv2
+
+    cap = cv2.VideoCapture(video_path)
+    fps = float(cap.get(cv2.CAP_PROP_FPS) or 30.0)
+
+    def frames() -> Iterator[np.ndarray]:
+        try:
+            while True:
+                ok, frame = cap.read()
+                if not ok:
+                    break
+                yield cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
+        finally:
+            cap.release()
+
+    return fps, frames()
+
+
 def frames_to_chunks(frames: np.ndarray, chunk_size: int = 32,
                      dtype: str = "float32") -> np.ndarray:
     """(T, H, W, C) → (ceil(T/chunk), chunk, H, W, C), last chunk padded by

@@ -1,31 +1,76 @@
-"""Clip → emotion probabilities, the port of ``mmer_tpu/serve/engine.py``.
+"""Video → per-window emotion inference, the port of ``mmer_tpu/serve/engine.py``.
 
-Two array-level entry points, both starting from decoded data:
+The request path of ``infer_video_file`` (reference
+back-end/app/libs/inference.py:356-524): decode the upload frame by frame,
+detect a face per frame (or every ``detect_every``-th frame, carrying the
+boxes forward), group face frames into gap-tolerant sequences, crop each
+face frame on the device and embed its 32-frame subchunks with ViViT as the
+frames stream in (:class:`~mmer_tpu_torch.preprocess.extract.SubchunkStream`),
+slide a window of up to 5 subchunks, embed each window's audio slice with
+Wav2Vec2 in one batch, classify the windows with the fusion model grouped by
+token count, and answer ``{"bounding_box": [...], "inference": [...]}``,
+with Integrated-Gradients feature importances when ``explain`` is set.
 
-- :meth:`InferenceEngine.predict_chunks` — the body of the JAX engine's
-  ``predict_clip`` after decoding: all chunks of a clip → (T, 768), the
-  whole waveform → (1024,), the fusion model over up to ``max_seq_len − 1``
-  video slots;
-- :meth:`InferenceEngine.infer_sequence` — the window stage of
-  ``infer_video_file`` for one face sequence: per-subchunk ViViT features
-  computed once, one audio slice per sliding window embedded in one batch,
-  windows batched through the fusion model grouped by token count.
+Entry points:
+
+- :meth:`InferenceEngine.infer_video_file` / :meth:`infer_file_bytes`: a
+  container (``cv2`` decodes it: ``preprocess/video.iter_video_frames``);
+- :meth:`InferenceEngine.infer_frames`: the same from decoded RGB frames,
+  the frame rate and a waveform, with no ``cv2``;
+- :meth:`InferenceEngine.predict_clip` / :meth:`predict_chunks`: whole-clip
+  prediction (reference back-end/app/inference.py:27-163);
+- :meth:`InferenceEngine.infer_sequence`: the window stage for one face
+  sequence of already-cropped subchunks.
 
 On a CUDA device the extractors always run the hand-written kernels.
-Decoding, face detection, cropping and explanations come with the serving
-slice.
+Fusion checkpoints are ``.pth`` files: the port's own state dict (what
+``train.cli`` writes) or a reference v2 state dict (``models/port_fusion``);
+comma-separated paths are served as a mean-probability ensemble.  The JAX
+engine's ``warmup`` and its compile-cache opt-ins have no counterpart:
+PyTorch compiles nothing ahead of a request.
 """
 
 from __future__ import annotations
 
+import copy
 import os
-from typing import Dict, List, Optional, Sequence, Tuple
+import time
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from mmer_tpu_torch.config import LABELS, ModelConfig, ViViTConfig, Wav2Vec2Config
-from mmer_tpu_torch.core.buckets import batch_bucket
+from mmer_tpu_torch.core.buckets import batch_bucket, resolution_bucket
+
+# Gap-tolerant face sequences (faces.group_face_sequences semantics).
+MAX_DELAY, MAX_SEQ_FRAMES = 10, 10000
+# Integrated Gradients of a served window: Gauss-Legendre, 50 nodes.
+IG_STEPS, IG_METHOD = 50, "gausslegendre"
+STAGES = ("detect", "crop_vivit", "audio", "fusion", "ig")
+
+
+def canonicalize_frame(rgb: np.ndarray, bboxes: np.ndarray
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """Map an upload frame onto the bounded frame-size family
+    (``core/buckets.resolution_bucket``): edge-replication pad up to the
+    ladder rung (in-bounds crops keep their bits), downscaling first only
+    when the frame exceeds the top rung (bboxes scale along; ``cv2`` does
+    that resize, as in the JAX engine)."""
+    h, w = rgb.shape[:2]
+    (ch, cw), scale = resolution_bucket(h, w)
+    bboxes = np.asarray(bboxes, np.float32)
+    if scale < 1.0:
+        import cv2
+        nh = min(int(round(h * scale)), ch)
+        nw = min(int(round(w * scale)), cw)
+        rgb = cv2.resize(rgb, (nw, nh))
+        bboxes = bboxes * scale
+        h, w = nh, nw
+    if (h, w) != (ch, cw):
+        rgb = np.pad(rgb, ((0, ch - h), (0, cw - w), (0, 0)), mode="edge")
+    return rgb, bboxes
 
 
 def window_audio_slices(seq_frames_idx: Sequence[int],
@@ -51,13 +96,56 @@ def window_audio_slices(seq_frames_idx: Sequence[int],
     return slices
 
 
+def _topk_importance(video_imp: np.ndarray, audio_imp: np.ndarray,
+                     top_k: int = 10) -> Dict:
+    def top(arr):
+        idx = np.argsort(-np.abs(arr))[:top_k]
+        return [{"dimension": int(i), "importance": float(arr[i])}
+                for i in idx]
+
+    return {"video": top(video_imp), "audio": top(audio_imp)}
+
+
+class EnsembleFusion(nn.Module):
+    """Fusion models of one config served as one program: the members'
+    parameters stacked (``torch.func.stack_module_state``) and the forward
+    ``torch.vmap``-ed over them with ``functional_call``.  ``forward``
+    returns (mean probabilities, mean logits, None): the mean
+    probabilities pick the class (the ensemble's blend), the mean logits
+    are its IG target function."""
+
+    def __init__(self, members: Sequence[nn.Module]):
+        super().__init__()
+        from torch.func import stack_module_state
+
+        self.members = len(members)
+        params, buffers = stack_module_state(list(members))
+        self._params = {k: v.detach() for k, v in params.items()}
+        self._buffers_stacked = buffers
+        self._base = copy.deepcopy(members[0]).to("meta")
+
+    def forward(self, video, audio, pad_mask=None):
+        from torch.func import functional_call
+
+        def one(p, b):
+            probs, logits, _ = functional_call(self._base, (p, b),
+                                               (video, audio, pad_mask))
+            return probs, logits
+
+        probs, logits = torch.vmap(one)(self._params, self._buffers_stacked)
+        return probs.mean(0), logits.mean(0), None
+
+
 class InferenceEngine:
-    """Lazily built extractors and fusion model on one device.
+    """Lazily built detector, extractors and fusion model on one device.
 
     ``device`` is required: ``"cuda"`` raises when CUDA is unavailable.
-    ``fusion_params_path`` is a ``.pth`` state dict of the port's
-    :class:`~mmer_tpu_torch.models.fusion.MultimodalEmotionModel`; without
-    it the fusion weights are seeded from 0, as the JAX engine's are.
+    ``fusion_params_path``: a ``.pth`` checkpoint (the port's own state
+    dict or a reference v2 one; shape mismatches raise), or several joined
+    by commas for an ensemble; without it the fusion weights are seeded
+    from 0, as the JAX engine's are.  After each :meth:`infer_frames` call
+    :attr:`last_timings` holds the seconds spent in each of ``STAGES`` and
+    the frame counts.
     """
 
     def __init__(self, device: torch.device | str, *,
@@ -67,6 +155,7 @@ class InferenceEngine:
                  fusion_params_path: Optional[str] = None,
                  vivit_params_path: Optional[str] = None,
                  wav_params_path: Optional[str] = None,
+                 detector=None,
                  norm_stats: Optional[dict] = None,
                  norm_stats_path: Optional[str] = None):
         self.device = torch.device(device)
@@ -85,9 +174,19 @@ class InferenceEngine:
             with np.load(norm_stats_path) as z:
                 norm_stats = {k: z[k] for k in z.files}
         self.norm_stats = norm_stats or {}
+        self._detector = detector
         self._video_extractor = None
         self._audio_embedder = None
         self._fusion = None
+        self._fusion_logits_fn = None
+        self.last_timings: Dict[str, float] = {}
+
+    @property
+    def detector(self):
+        if self._detector is None:
+            from mmer_tpu_torch.preprocess.faces import default_detector
+            self._detector = default_detector()
+        return self._detector
 
     @property
     def video_extractor(self):
@@ -107,25 +206,63 @@ class InferenceEngine:
                 params_path=self.wav_params_path)
         return self._audio_embedder
 
+    def _load_one_fusion(self, path: str) -> nn.Module:
+        """One checkpoint → a fusion model in evaluation mode.  Loud on
+        every failure: a missing file, a format the port does not read, a
+        shape that disagrees with ``model_cfg``."""
+        from mmer_tpu_torch.models.fusion import MultimodalEmotionModel
+        from mmer_tpu_torch.models.port_fusion import (is_reference_state_dict,
+                                                       params_from_state_dict,
+                                                       read_state_dict)
+
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"fusion checkpoint not found: {path}")
+        if not path.endswith(".pth"):
+            raise ValueError(f"{path}: the port reads .pth fusion checkpoints "
+                             "only (flax .msgpack checkpoints are not read)")
+        model = MultimodalEmotionModel(self.model_cfg, device=self.device)
+        sd = read_state_dict(path)
+        if is_reference_state_dict(sd):
+            # Reference-trained checkpoint (train2.py:766-774): converted,
+            # its shapes validated against model_cfg.
+            sd, _ = params_from_state_dict(sd, self.model_cfg)
+        model.load_state_dict({k: torch.as_tensor(v) for k, v in sd.items()})
+        return model.eval()
+
     @property
-    def fusion(self):
-        """The fusion model: loaded from ``fusion_params_path`` (shape
-        mismatches raise) or seeded."""
+    def fusion(self) -> nn.Module:
+        """The fusion model, called as ``fusion(video, audio, pad_mask) ->
+        (probs, logits, attn)``: loaded from ``fusion_params_path``, an
+        :class:`EnsembleFusion` of several, or seeded."""
         if self._fusion is None:
             from mmer_tpu_torch.models.fusion import init_fusion
             from mmer_tpu_torch.models.layers import param_generator
 
-            model = init_fusion(self.model_cfg, device=self.device,
-                                generator=param_generator(0, self.device))
-            if self.fusion_params_path:
-                if not os.path.exists(self.fusion_params_path):
-                    raise FileNotFoundError(
-                        f"fusion checkpoint not found: {self.fusion_params_path}")
-                model.load_state_dict(torch.load(
-                    self.fusion_params_path, map_location=self.device,
-                    weights_only=True))
-            self._fusion = model
+            paths = [p.strip() for p in
+                     (self.fusion_params_path or "").split(",") if p.strip()]
+            if len(paths) > 1:
+                self._fusion = EnsembleFusion(
+                    [self._load_one_fusion(p) for p in paths])
+            elif paths:
+                self._fusion = self._load_one_fusion(paths[0])
+            else:
+                self._fusion = init_fusion(
+                    self.model_cfg, device=self.device,
+                    generator=param_generator(0, self.device))
         return self._fusion
+
+    @property
+    def fusion_logits_fn(self):
+        """One stable logits closure ``(video, audio, mask) -> logits`` for
+        IG: an ensemble's mean logits."""
+        if self._fusion_logits_fn is None:
+            fusion = self.fusion
+
+            def logits_fn(v, a, m):
+                return fusion(v, a, m)[1]
+
+            self._fusion_logits_fn = logits_fn
+        return self._fusion_logits_fn
 
     def _normalize(self, video_feats: np.ndarray, audio_feats: np.ndarray):
         """Apply training-time global z-score stats when available."""
@@ -137,22 +274,228 @@ class InferenceEngine:
             audio_feats = (audio_feats - am) / as_
         return video_feats, audio_feats
 
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
     @torch.inference_mode()
     def _fusion_probs(self, video: np.ndarray, audio: np.ndarray,
                       mask: np.ndarray) -> np.ndarray:
-        def dev(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
-        probs, _, _ = self.fusion(dev(video.astype(np.float32)),
-                                  dev(audio.astype(np.float32)), dev(mask))
+        probs, _, _ = self.fusion(self._dev(video.astype(np.float32)),
+                                  self._dev(audio.astype(np.float32)),
+                                  self._dev(mask))
         return probs.cpu().numpy()
+
+    def _importances(self, video: np.ndarray, audio: np.ndarray,
+                     mask: np.ndarray, targets: np.ndarray
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """IG feature importances of a window batch at class ``targets``:
+        (video (B, Dv), audio (B, Da))."""
+        from mmer_tpu_torch.interpret.ig import (aggregate_importances,
+                                                 integrated_gradients)
+
+        av, aa = integrated_gradients(
+            self.fusion_logits_fn, self._dev(video.astype(np.float32)),
+            self._dev(audio.astype(np.float32)), self._dev(mask),
+            self._dev(targets.astype(np.int64)), IG_STEPS, IG_METHOD)
+        vi, ai = aggregate_importances(av, aa)
+        return vi.detach().cpu().numpy(), ai.detach().cpu().numpy()
+
+    def _clamp_window(self, window_size: int) -> int:
+        max_tokens = self.model_cfg.max_seq_len - 1
+        if window_size > max_tokens:
+            print(f"window_size {window_size} exceeds the fusion model's "
+                  f"{max_tokens} video slots; clamping", flush=True)
+            window_size = max_tokens
+        return window_size
+
+    def _windows(self, sub_feats: np.ndarray, seq_frames_idx: Sequence[int],
+                 waveform: Optional[np.ndarray], fps: float,
+                 subchunk_size: int, window_size: int, explain: bool,
+                 timings: Dict[str, float]) -> Tuple[List[Dict], np.ndarray]:
+        """The window stage of one face sequence → (inference items,
+        (n_sub, classes) probabilities)."""
+        n_sub = sub_feats.shape[0]
+        win_lens = [min(window_size, n_sub - s) for s in range(n_sub)]
+
+        # Per-window audio slices, embedded in one batch.
+        t0 = time.perf_counter()
+        if waveform is not None:
+            waves = []
+            for lo, hi in window_audio_slices(seq_frames_idx, win_lens,
+                                              subchunk_size, fps,
+                                              self.wav_cfg.sample_rate):
+                piece = waveform[lo:hi]
+                waves.append(piece if len(piece) else np.zeros(1, np.float32))
+            audio_embs = self.audio_embedder.embed_batch(waves)
+        else:
+            audio_embs = np.zeros((n_sub, self.model_cfg.audio_dim), np.float32)
+        timings["audio"] += time.perf_counter() - t0
+
+        # Windows batched by token count, batch sizes bucketed; padding rows
+        # repeat the last window and are dropped.
+        by_len: Dict[int, List[int]] = {}
+        for s, wl in enumerate(win_lens):
+            by_len.setdefault(wl, []).append(s)
+        probs_all = np.zeros((n_sub, len(self.labels)), np.float32)
+        importances: Dict[int, Dict] = {}
+        for wl, starts in by_len.items():
+            t0 = time.perf_counter()
+            nb = len(starts)
+            video_w = np.stack([sub_feats[s:s + wl] for s in starts])
+            audio_w = audio_embs[starts]
+            video_w, audio_w = self._normalize(video_w, audio_w)
+            bp = batch_bucket(nb)
+            if bp > nb:
+                video_w = np.concatenate(
+                    [video_w, np.repeat(video_w[-1:], bp - nb, axis=0)])
+                audio_w = np.concatenate(
+                    [audio_w, np.repeat(audio_w[-1:], bp - nb, axis=0)])
+            mask = np.zeros((bp, wl), bool)
+            probs = self._fusion_probs(video_w, audio_w, mask)
+            probs_all[starts] = probs[:nb]
+            timings["fusion"] += time.perf_counter() - t0
+            if explain:
+                # IG target: the window's predicted class.
+                t0 = time.perf_counter()
+                vi, ai = self._importances(video_w, audio_w, mask,
+                                           np.argmax(probs, axis=-1))
+                for row, s in enumerate(starts):
+                    importances[s] = _topk_importance(vi[row], ai[row])
+                timings["ig"] += time.perf_counter() - t0
+
+        items = []
+        for s in range(n_sub):
+            first = s * subchunk_size
+            frame = seq_frames_idx[first] if first < len(seq_frames_idx) else 0
+            item = {"class": self.labels[int(np.argmax(probs_all[s]))],
+                    "frame": int(frame)}
+            if explain and s in importances:
+                item["feature_importance"] = importances[s]
+            items.append(item)
+        return items, probs_all
+
+    def infer_frames(self, frames: Iterable[np.ndarray], fps: float,
+                     waveform: Optional[np.ndarray], subchunk_size: int = 32,
+                     window_size: int = 5, explain: bool = False,
+                     detect_every: int = 1) -> Dict:
+        """Decoded upload → ``{"bounding_box", "inference",
+        "probabilities"}``: the body of the JAX engine's
+        ``infer_video_file`` after its ``cv2.VideoCapture``.
+
+        ``frames`` yields (H, W, 3) uint8 RGB frames and is consumed once,
+        frame by frame: at most one subchunk of raw frames and one device
+        batch of crops are held.  ``waveform`` is the upload's 16 kHz audio
+        track (None: zero audio embeddings).  ``detect_every=N`` runs the
+        detector on every N-th frame and carries its boxes forward."""
+        from mmer_tpu_torch.preprocess.extract import SubchunkStream
+
+        window_size = self._clamp_window(window_size)
+        timings = {k: 0.0 for k in STAGES}
+        step = max(detect_every, 1)
+        bounding_box: List[Dict] = []
+        sequences: List[Tuple[List[int], np.ndarray]] = []   # (frames, feats)
+        open_frames: List[int] = []
+        open_stream: Optional[SubchunkStream] = None
+
+        def close_sequence():
+            nonlocal open_stream
+            if open_stream is not None and open_frames:
+                t0 = time.perf_counter()
+                sequences.append((list(open_frames), open_stream.finish()))
+                timings["crop_vivit"] += time.perf_counter() - t0
+            open_stream = None
+            open_frames.clear()
+
+        idx = 0
+        n_detected = 0
+        carried: Optional[list] = None
+        for rgb in frames:
+            if idx % step == 0:
+                t0 = time.perf_counter()
+                carried = self.detector.detect(rgb)
+                timings["detect"] += time.perf_counter() - t0
+                n_detected += 1
+            for (x1, y1, x2, y2, conf) in (carried or []):
+                bounding_box.append({
+                    "frame": idx, "x1": float(x1), "y1": float(y1),
+                    "x2": float(x2), "y2": float(y2),
+                    "confidence": float(conf)})
+            if carried:
+                best = max(carried, key=lambda r: r[4])
+                if open_frames and (idx - open_frames[-1] > MAX_DELAY
+                                    or len(open_frames) >= MAX_SEQ_FRAMES):
+                    close_sequence()
+                if open_stream is None:
+                    open_stream = SubchunkStream(self.video_extractor,
+                                                 subchunk_size)
+                open_frames.append(idx)
+                crgb, cbox = canonicalize_frame(
+                    rgb, np.asarray(best[:4], np.float32)[None])
+                t0 = time.perf_counter()
+                open_stream.add(crgb[None], cbox)
+                timings["crop_vivit"] += time.perf_counter() - t0
+            idx += 1
+        close_sequence()
+
+        inference: List[Dict] = []
+        probabilities: List[List[float]] = []
+        for seq_frames_idx, sub_feats in sequences:
+            items, probs = self._windows(sub_feats, seq_frames_idx, waveform,
+                                         fps, subchunk_size, window_size,
+                                         explain, timings)
+            inference.extend(items)
+            probabilities.extend(probs.tolist())
+        timings.update(frames=idx, detected_frames=n_detected,
+                       sequences=len(sequences))
+        self.last_timings = timings
+        return {"bounding_box": bounding_box, "inference": inference,
+                "probabilities": probabilities}
+
+    def infer_video_file(self, video_path: str, subchunk_size: int = 32,
+                         window_size: int = 5, explain: bool = False,
+                         detect_every: int = 1) -> Dict:
+        """Reference ``infer_video_file`` contract (inference.py:356-524):
+        ``{"bounding_box": [...], "inference": [...]}``.  The container is
+        decoded with ``cv2``; its audio track comes from the PCM demux or
+        ffmpeg (None → zero audio embeddings)."""
+        from mmer_tpu_torch.preprocess.audio import extract_audio_track
+        from mmer_tpu_torch.preprocess.video import iter_video_frames
+
+        fps, frames = iter_video_frames(video_path)
+        first = next(frames, None)
+        if first is None:
+            return {"bounding_box": [], "inference": []}
+
+        def all_frames():
+            yield first
+            yield from frames
+
+        # The audio track is decoded once, before the frames stream.
+        waveform = extract_audio_track(video_path, self.wav_cfg.sample_rate)
+        res = self.infer_frames(all_frames(), fps, waveform, subchunk_size,
+                                window_size, explain, detect_every)
+        return {"bounding_box": res["bounding_box"],
+                "inference": res["inference"]}
+
+    def infer_file_bytes(self, data: bytes, filename: str = "upload.mp4",
+                         subchunk_size: int = 32, window_size: int = 5,
+                         explain: bool = False, detect_every: int = 1) -> Dict:
+        """Upload wrapper (reference infer_upload_file, inference.py:528-535)."""
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmpdir:
+            path = os.path.join(tmpdir, os.path.basename(filename) or "u.mp4")
+            with open(path, "wb") as f:
+                f.write(data)
+            return self.infer_video_file(path, subchunk_size, window_size,
+                                         explain, detect_every=detect_every)
 
     def predict_chunks(self, chunks_u8: np.ndarray,
                        waveform: Optional[np.ndarray],
                        top_k: int = 3) -> Dict:
-        """One clip: chunks (T, F, H, W, 3) uint8 + 16 kHz waveform (or
-        None) → ``{"predicted_label", "predicted_index", "scores": top-k,
-        "probabilities": all classes}``."""
+        """One clip: chunks (T, F, H, W, 3) uint8 (or float32 in [0, 1]) +
+        16 kHz waveform (or None) → ``{"predicted_label",
+        "predicted_index", "scores": top-k, "probabilities": all classes}``."""
         video_feats = self.video_extractor.embed_chunks(chunks_u8)   # (T, 768)
         if waveform is not None and len(waveform):
             audio_emb = self.audio_embedder.embed_batch([waveform])[0]
@@ -180,6 +523,24 @@ class InferenceEngine:
             "probabilities": [float(p) for p in probs],
         }
 
+    def predict_clip(self, video_path: str, subchunk_size: int = 32,
+                     top_k: int = 3) -> Optional[Dict]:
+        """Whole-clip (non-windowed) prediction, the reference's legacy
+        ``predict_from_file`` contract (back-end/app/inference.py:27-163):
+        ``{"predicted_label", "predicted_index", "scores": top-k}``, or None
+        when the container does not decode."""
+        from mmer_tpu_torch.preprocess.audio import extract_audio_track
+        from mmer_tpu_torch.preprocess.video import load_video_chunks
+
+        chunks = load_video_chunks(video_path, subchunk_size,
+                                   tuple(self.vivit_cfg.image_size))
+        if chunks is None:
+            return None
+        waveform = extract_audio_track(video_path, self.wav_cfg.sample_rate)
+        res = self.predict_chunks(chunks, waveform, top_k)
+        del res["probabilities"]
+        return res
+
     def infer_sequence(self, sub_chunks_u8: np.ndarray,
                        seq_frames_idx: Sequence[int],
                        waveform: Optional[np.ndarray], fps: float,
@@ -189,53 +550,10 @@ class InferenceEngine:
         16 kHz waveform (or None) and its frame rate → one item per sliding
         window, ``{"inference": [{"class", "frame"}, ...],
         "probabilities": (n_sub, classes) list}``."""
-        subchunk_size = sub_chunks_u8.shape[1]
-        max_tokens = self.model_cfg.max_seq_len - 1
-        if window_size > max_tokens:
-            print(f"window_size {window_size} exceeds the fusion model's "
-                  f"{max_tokens} video slots; clamping", flush=True)
-            window_size = max_tokens
-
+        window_size = self._clamp_window(window_size)
         sub_feats = self.video_extractor.embed_chunks(sub_chunks_u8)
-        n_sub = sub_feats.shape[0]
-        win_lens = [min(window_size, n_sub - s) for s in range(n_sub)]
-
-        # Per-window audio slices, embedded in one batch.
-        if waveform is not None:
-            waves = []
-            for lo, hi in window_audio_slices(seq_frames_idx, win_lens,
-                                              subchunk_size, fps,
-                                              self.wav_cfg.sample_rate):
-                piece = waveform[lo:hi]
-                waves.append(piece if len(piece) else np.zeros(1, np.float32))
-            audio_embs = self.audio_embedder.embed_batch(waves)
-        else:
-            audio_embs = np.zeros((n_sub, self.model_cfg.audio_dim), np.float32)
-
-        # Windows batched by token count, batch sizes bucketed; padding rows
-        # repeat the last window and are dropped.
-        by_len: Dict[int, List[int]] = {}
-        for s, wl in enumerate(win_lens):
-            by_len.setdefault(wl, []).append(s)
-        probs_all = np.zeros((n_sub, len(self.labels)), np.float32)
-        for wl, starts in by_len.items():
-            nb = len(starts)
-            video_w = np.stack([sub_feats[s:s + wl] for s in starts])
-            audio_w = audio_embs[starts]
-            video_w, audio_w = self._normalize(video_w, audio_w)
-            bp = batch_bucket(nb)
-            if bp > nb:
-                video_w = np.concatenate(
-                    [video_w, np.repeat(video_w[-1:], bp - nb, axis=0)])
-                audio_w = np.concatenate(
-                    [audio_w, np.repeat(audio_w[-1:], bp - nb, axis=0)])
-            mask = np.zeros((bp, wl), bool)
-            probs_all[starts] = self._fusion_probs(video_w, audio_w, mask)[:nb]
-
-        inference = []
-        for s in range(n_sub):
-            first = s * subchunk_size
-            frame = seq_frames_idx[first] if first < len(seq_frames_idx) else 0
-            inference.append({"class": self.labels[int(np.argmax(probs_all[s]))],
-                              "frame": int(frame)})
-        return {"inference": inference, "probabilities": probs_all.tolist()}
+        timings = {k: 0.0 for k in STAGES}
+        items, probs = self._windows(sub_feats, seq_frames_idx, waveform, fps,
+                                     sub_chunks_u8.shape[1], window_size,
+                                     False, timings)
+        return {"inference": items, "probabilities": probs.tolist()}

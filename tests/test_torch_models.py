@@ -77,11 +77,17 @@ def _rel_l2(a, b):
 # -- package boundary --------------------------------------------------------
 
 def test_import_loads_no_jax():
-    """The port must run where JAX is not installed: importing it (every
-    module of the slice) loads neither jax, flax nor mmer_tpu."""
-    code = ("import sys\n"
-            "import mmer_tpu_torch.serve.engine, mmer_tpu_torch.models.convert\n"
-            "import mmer_tpu_torch.preprocess.extract, mmer_tpu_torch.ops._build\n"
+    """The port must run where JAX is not installed: importing every module
+    of the package (serving, media, detection and IG included) loads
+    neither jax, flax nor mmer_tpu."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import mmer_tpu_torch\n"
+            "names = [m.name for m in pkgutil.walk_packages(\n"
+            "    mmer_tpu_torch.__path__, 'mmer_tpu_torch.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "assert 'mmer_tpu_torch.serve.app' in names, names\n"
+            "assert 'mmer_tpu_torch.preprocess.cascade' in names, names\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'flax', 'mmer_tpu'))\n"
             "print(bad)\n"
