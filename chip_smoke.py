@@ -79,6 +79,23 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    confusion matrix sum to the test split, the artifacts exist; then
    ``InferenceEngine`` loads the trained head and its normalisation
    statistics and answers one request.
+8. flagship chain: 8,496 seeded samples as in 7, at ``FLAGSHIP_CLASS_SIGNAL``
+   → ``mmer_tpu_torch.scripts.make_flagship.main`` at ``ModelConfig()``
+   width with ``--pool_seeds 2 --student_seeds 2 --epochs FLAGSHIP_EPOCHS``:
+   four seed-batched pool calls of S = 2 (``train/fused.train_many_seeds``),
+   the top-half teacher, one student call.  Gates: every member's train
+   loss finite and falling, the two seeds of a call different, pool seed 0
+   of the winning recipe rerun alone through ``train_model`` within
+   ``FLAGSHIP_LOSS_RTOL`` of its batched rows with the same best epoch,
+   teacher rows summing to 1, the student's
+   validation accuracy above twice chance, ``flagship.msgpack``,
+   ``norm_stats.npz`` and ``manifest.json`` with the JAX manifest's keys,
+   ``resolve_default_fusion`` finding the ``.msgpack``, the engine's weights
+   bit for bit the student's, and one request with finite probabilities
+   summing to 1 whose kernel launches equal the training phase's request.
+   Logged: seconds an epoch and samples/s per seed, solo (the rerun),
+   S = 2 (a warm pool call) and S = 4 (a 2-epoch call of four seeds), peak
+   device memory, the phase's wall time.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -156,6 +173,17 @@ CLASS_COUNTS = (1183, 1463, 1462, 1463, 1463, 1462)   # NEU HAP SAD ANG FEA DIS
 # strength: ~1.4 sigma per video row and per audio vector, so that the
 # classes overlap and the loss keeps falling over the epochs.
 CLASS_SIGNAL = 0.05
+FLAGSHIP_EPOCHS = 4
+# The flagship recipe trains at lr 1e-5, a tenth of the training phase's: on
+# CLASS_SIGNAL's data four epochs of it stay below the phase's twice-chance
+# gate, on twice that signal they pass it by far.
+FLAGSHIP_CLASS_SIGNAL = 0.1
+# Pool seed 0 batched (S = 2: each layer's GEMM a stacked one) against the
+# same seed alone, per-epoch train and validation losses.  The fusion GEMMs
+# round to bf16 and the two GEMMs sum in different orders: on an H100 the two
+# runs read 7.6e-4 to 1.0e-3 apart (in float32 the CPU tests hold them within
+# 1e-5).  The limit is a bf16 step, 2^-8 = 3.9e-3, with a margin.
+FLAGSHIP_LOSS_RTOL = 5e-3
 # The waveform batches of the extraction phase's two Wav2Vec2 forwards: 64
 # clips of up to 5 s, then 33 pieces (batch bucket 64) with a 10 s piece.
 # The kernel phase holds every Wav2Vec2 kernel at both; the extraction phase
@@ -973,14 +1001,20 @@ def run_profile_scripts() -> dict:
     return launches
 
 
-def _make_feature_folders(video_dir: str, audio_dir: str, rng) -> int:
+def _make_feature_folders(video_dir: str, audio_dir: str, rng,
+                          signal: float = CLASS_SIGNAL) -> int:
     """Feature artifacts of CLASS_COUNTS samples per class from a seed:
     ``*_faces_mp4_features.npy`` (T, 768) float32 with T in 1..5 and
     ``*_voice_mp4_features.npy`` (1024,) float16, unit norm, under CREMA-D
     names and (every fourth sample) RAVDESS names.  Each class has its own
-    mean direction, so there is something to learn.  Returns the count."""
+    mean direction, ``signal`` times a unit normal draw per dimension, so
+    there is something to learn.  The files are written by eight threads
+    (the arrays are drawn first, in one order).  Returns the count."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import numpy as np
 
+    writes = []
     emotions = ("NEU", "HAP", "SAD", "ANG", "FEA", "DIS")
     ravdess_code = (1, 3, 4, 5, 6, 7)
     mu_v = rng.normal(size=(len(emotions), 768)).astype(np.float32)
@@ -989,20 +1023,24 @@ def _make_feature_folders(video_dir: str, audio_dir: str, rng) -> int:
     for c, count in enumerate(CLASS_COUNTS):
         lengths = rng.integers(1, 6, size=count)
         video = rng.normal(size=(int(lengths.sum()), 768)).astype(np.float32) \
-            + CLASS_SIGNAL * mu_v[c]
-        audio = rng.normal(size=(count, 1024)).astype(np.float32) + CLASS_SIGNAL * mu_a[c]
+            + signal * mu_v[c]
+        audio = rng.normal(size=(count, 1024)).astype(np.float32) + signal * mu_a[c]
         audio /= np.linalg.norm(audio, axis=1, keepdims=True)
         row = 0
         for i, t in enumerate(lengths):
             key = (f"Actor_{i % 24 + 1:02d}_{i:05d}_02-01-{ravdess_code[c]:02d}"
                    f"-01-01-01-{i % 24 + 1:02d}" if i % 4 == 3 else
                    f"{1000 + i}_S{c}{i % 12:02d}_{emotions[c]}_XX")
-            np.save(os.path.join(video_dir, f"{key}_faces_mp4_features.npy"),
-                    video[row:row + t])
-            np.save(os.path.join(audio_dir, f"{key}_voice_mp4_features.npy"),
-                    audio[i].astype(np.float16))
+            writes.append((os.path.join(
+                video_dir, f"{key}_faces_mp4_features.npy"), video[row:row + t]))
+            writes.append((os.path.join(
+                audio_dir, f"{key}_voice_mp4_features.npy"),
+                audio[i].astype(np.float16)))
             row += t
         total += count
+    with ThreadPoolExecutor(8) as pool:
+        for done in pool.map(lambda job: np.save(*job), writes):
+            del done
     return total
 
 
@@ -1088,7 +1126,9 @@ def run_training(dev) -> None:
                 raise AssertionError(f"engine weight {key} is not the trained one")
         clip = rng.integers(0, 256, size=(2, 32, 224, 224, 3), dtype=np.uint8)
         wave = (rng.normal(size=(48000,)) * 0.1).astype(np.float32)
+        reset_launches()
         res = engine.predict_chunks(clip, wave)
+        request_launches = read_launches()
         probs = np.asarray(res["probabilities"], np.float64)
         log(f"training: InferenceEngine with the trained head answers "
             f"{res['predicted_label']}, probabilities {np.round(probs, 4).tolist()}")
@@ -1096,6 +1136,168 @@ def run_training(dev) -> None:
                 and set(engine.norm_stats) == {"video_mean", "video_std",
                                                "audio_mean", "audio_std"}):
             raise AssertionError("serving with the trained head failed")
+    return request_launches
+
+
+def _per_epoch(tag: str, wall: float, epochs: int, seeds: int,
+               n_train: int) -> dict:
+    """Seconds an epoch (its evaluations included) and training samples/s
+    per seed of one run of ``seeds`` seeds."""
+    out = {"s_per_epoch": wall / epochs,
+           "samples_per_s_per_seed": n_train * epochs / wall}
+    log(f"flagship: {tag}: {wall:.3f} s for {epochs} epochs x {seeds} "
+        f"seed(s): {out['s_per_epoch']:.4f} s an epoch, "
+        f"{out['samples_per_s_per_seed']:.1f} samples/s a seed, "
+        f"{seeds * out['samples_per_s_per_seed']:.1f} in all")
+    return out
+
+
+def run_flagship_chain(dev, request_launches: dict) -> dict:
+    """The flagship chain (make_flagship: pool -> teacher -> student) at full
+    width on the seeded samples, its gates, serving the flagship, and one
+    timing run of four seeds in one call."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mmer_tpu_torch.config import ModelConfig
+    from mmer_tpu_torch.scripts import make_flagship
+    from mmer_tpu_torch.serve.app import resolve_default_fusion
+    from mmer_tpu_torch.serve.engine import InferenceEngine
+    from mmer_tpu_torch.train.fused import train_many_seeds
+    from mmer_tpu_torch.train.loop import train_model
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(3)
+    with tempfile.TemporaryDirectory(prefix="mmer_smoke_flagship_") as tmp:
+        video_dir, audio_dir, out_dir = (os.path.join(tmp, d) for d in
+                                         ("video", "audio", "flagship"))
+        os.makedirs(video_dir)
+        os.makedirs(audio_dir)
+        n = _make_feature_folders(video_dir, audio_dir, rng,
+                                  FLAGSHIP_CLASS_SIGNAL)
+
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res = make_flagship.main([
+            "--pool_seeds", "2", "--student_seeds", "2", "--epochs",
+            str(FLAGSHIP_EPOCHS), "--seeds_per_call", "2", "--out_dir", out_dir,
+            "--video_feat_dir", video_dir, "--audio_feat_dir", audio_dir])
+        torch.cuda.synchronize()
+        chain_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+        if any(read_launches().values()):
+            raise AssertionError(f"training launched kernels: {read_launches()}")
+        data, splits = res["dataset"]
+        n_train = len(splits.train)
+        log(f"flagship: make_flagship on {n} samples ({n_train} training) in "
+            f"{chain_s:.2f} s; peak device memory {peak:.1f} MiB")
+
+        calls = res["pool"] + [("student", res["students"])]
+        for tag, outs in calls:
+            for o in outs:
+                losses = [r["train_loss"] for r in o["results"]]
+                log(f"flagship: {tag} seed {o['seed']}: train loss "
+                    + ", ".join(f"{x:.5f}" for x in losses)
+                    + f"; best epoch {o['best_epoch']}, val acc "
+                    f"{o['results'][o['best_epoch'] - 1]['val_acc']:.2f} %")
+                if (len(losses) != FLAGSHIP_EPOCHS
+                        or not np.isfinite(losses).all()
+                        or not losses[-1] < losses[0]):
+                    raise AssertionError(f"{tag} seed {o['seed']}: train loss "
+                                         f"not finite and falling: {losses}")
+            if outs[0]["results"] == outs[1]["results"]:
+                raise AssertionError(f"{tag}: the two seeds of a call agree")
+        winning = res["pool"][0][1]
+        # The wd3e-3 call: the winning recipe's model and dropout, after the
+        # first batched call has paid the process's warm-up.
+        times = {"batched_s2": _per_epoch("pool call, wd3e-3 recipe (S = 2)",
+                                          res["pool"][2][1][0]["wall_seconds"],
+                                          FLAGSHIP_EPOCHS, 2, n_train)}
+
+        # One pool seed alone through the one trainer.
+        model_cfg, train_cfg = res["configs"]["winning"]
+        solo = train_model(data, splits, model_cfg, train_cfg, batch_size=64,
+                           seed=0, verbose=False, device=dev)
+        times["solo"] = _per_epoch("train_model alone (winning, seed 0)",
+                                   solo.hyperparameters["train_wall_seconds"],
+                                   FLAGSHIP_EPOCHS, 1, n_train)
+        batched = winning[0]
+        worst = max(abs(b[k] - s_[k]) / abs(s_[k])
+                    for b, s_ in zip(batched["results"], solo.results)
+                    for k in ("train_loss", "val_loss"))
+        log(f"flagship: seed 0 batched against alone: losses at most "
+            f"{worst:.3e} relative apart (limit {FLAGSHIP_LOSS_RTOL}); best "
+            f"epoch {batched['best_epoch']} / {solo.best_epoch}")
+        if (len(solo.results) != len(batched["results"])
+                or worst > FLAGSHIP_LOSS_RTOL
+                or solo.best_epoch != batched["best_epoch"]):
+            raise AssertionError("the batched seed is not the solo run")
+
+        soft = res["soft_targets"]
+        if soft.shape != (n, 6) or np.abs(soft.sum(1) - 1.0).max() > 1e-5:
+            raise AssertionError("teacher soft targets are not distributions")
+        best = res["flagship"]
+        student_acc = best["results"][best["best_epoch"] - 1]["val_acc"]
+        manifest = res["manifest"]
+        log(f"flagship: teacher of {manifest['teacher_members']} members, "
+            f"test F1 {manifest['teacher_test_macro_f1']}; student seed "
+            f"{best['seed']} epoch {best['best_epoch']}, val acc "
+            f"{student_acc:.2f} %, {manifest['student_val_selected']}")
+        if not student_acc > 2 * 100.0 / len(CLASS_COUNTS):
+            raise AssertionError(f"student val accuracy {student_acc} is not "
+                                 "above twice chance")
+        with open(os.path.join(REPO, "artifacts", "flagship",
+                               "manifest.json")) as f:
+            reference = json.load(f)
+        with open(os.path.join(out_dir, "manifest.json")) as f:
+            written = json.load(f)
+        if (sorted(os.listdir(out_dir)) != ["flagship.msgpack", "manifest.json",
+                                            "norm_stats.npz"]
+                or written.keys() != reference.keys()):
+            raise AssertionError("flagship artifacts or manifest keys differ")
+
+        # Serve the flagship as a bare server start would find it.
+        ckpt, ns, cfg_dict = resolve_default_fusion(out_dir)
+        if ckpt != os.path.join(out_dir, "flagship.msgpack") or ns is None:
+            raise AssertionError(f"resolve_default_fusion found {ckpt}, {ns}")
+        engine = InferenceEngine(dev, model_cfg=ModelConfig(**cfg_dict),
+                                 fusion_params_path=ckpt, norm_stats_path=ns)
+        for key, value in engine.fusion.state_dict().items():
+            if not torch.equal(value, best["best_params"][key]):
+                raise AssertionError(f"served weight {key} is not the student's")
+        clip = rng.integers(0, 256, size=(2, 32, 224, 224, 3), dtype=np.uint8)
+        wave = (rng.normal(size=(48000,)) * 0.1).astype(np.float32)
+        reset_launches()
+        answer = engine.predict_chunks(clip, wave)
+        launches = read_launches()
+        probs = np.asarray(answer["probabilities"], np.float64)
+        log(f"flagship: the served flagship answers {answer['predicted_label']}, "
+            f"probabilities {np.round(probs, 4).tolist()}; launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        if not (np.isfinite(probs).all() and abs(probs.sum() - 1.0) < 1e-4):
+            raise AssertionError("the served flagship's probabilities")
+        rows_1_3 = ("fused_ffn", "flash_attention", "fused_conv_encoder")
+        if launches != request_launches or not all(launches[k] for k in rows_1_3):
+            raise AssertionError(f"request launches {launches} differ from the "
+                                 f"training phase's {request_launches}")
+
+        # Timing: four seeds in one short call.
+        t0 = time.perf_counter()
+        four = train_many_seeds(data, splits, model_cfg,
+                                dataclasses.replace(train_cfg, num_epochs=2),
+                                64, seeds=[0, 1, 2, 3], seeds_per_call=4,
+                                verbose=False, device=dev)
+        times["batched_s4"] = _per_epoch("train_many_seeds (S = 4)",
+                                         four[0]["wall_seconds"], 2, 4,
+                                         n_train)
+        log(f"flagship: S = 4 call {time.perf_counter() - t0:.2f} s with set-up")
+    phase_s = time.perf_counter() - t_phase
+    log(f"flagship: phase {phase_s:.2f} s wall")
+    return {"times": times, "peak_mib": peak, "phase_s": phase_s,
+            "batched_vs_solo_rel": worst}
 
 
 def main() -> int:
@@ -1127,7 +1329,8 @@ def main() -> int:
     file_path = run_serving_file_path(dev)
     extraction = run_extraction(dev)
     profile = run_profile_scripts()
-    run_training(dev)
+    request_launches = run_training(dev)
+    run_flagship_chain(dev, request_launches)
     # launches: of the main path that runs the kernel.  The serving requests
     # for the three kernels on the clip path (which the serving file path and
     # the extraction CLI also run: launches_serving_file_path,

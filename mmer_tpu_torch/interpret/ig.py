@@ -10,12 +10,18 @@ scaled inputs only, not a loop of ``S`` passes.  Quadrature: Gauss-Legendre
 (Captum's default) or the right / middle Riemann rules.
 
 The model behind ``logits_fn`` must be in evaluation mode (no dropout).
-``interpret_test_set`` (the trainer's ``--interpret``) is not ported yet
-(ROADMAP A4).
+:func:`interpret_test_set` (the trainer's ``--interpret``) writes the
+reference's artifacts: per-sample ``video_importances_{ts}.csv`` /
+``audio_importances_{ts}.csv`` (``video_dim_i`` columns and ``label``) and
+``global_importances_{ts}.json`` (``global_video`` / ``global_audio`` maps of
+``dim_i``).
 """
 
 from __future__ import annotations
 
+import json
+import os
+from datetime import datetime
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -93,3 +99,65 @@ def aggregate_importances(attr_video: torch.Tensor, attr_audio: torch.Tensor,
     if abs_sum:
         attr_video, attr_audio = attr_video.abs(), attr_audio.abs()
     return attr_video.sum(dim=1), attr_audio
+
+
+def interpret_test_set(logits_fn: Callable, data: dict, test_idx,
+                       output_dir: str = "training_runs_2",
+                       batch_size: int = 256, n_steps: int = 50,
+                       top_k: int = 10, verbose: bool = True,
+                       timestamp: Optional[str] = None,
+                       device: torch.device | str = "cuda") -> dict:
+    """Test-set importances with the reference's artifact schema
+    (train2.py:866-935).  ``data`` holds host ``video`` / ``audio`` /
+    ``pad_mask`` / ``labels`` arrays, ``test_idx`` indexes them; batches go
+    to ``device``, where ``logits_fn``'s model lives."""
+    os.makedirs(output_dir, exist_ok=True)
+    ts = timestamp or datetime.now().strftime("%Y%m%d_%H%M%S")
+    test_idx = np.asarray(test_idx)
+    all_video, all_audio, all_mask, all_labels = (
+        np.asarray(data[k]) for k in ("video", "audio", "pad_mask", "labels"))
+    v_imp_all, a_imp_all, labels_all = [], [], []
+    for start in range(0, len(test_idx), batch_size):
+        idx = test_idx[start:start + batch_size]
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a[idx])).to(device)
+
+        av, aa = compute_attributions(logits_fn, dev(all_video), dev(all_audio),
+                                      dev(all_mask), n_steps=n_steps)
+        vi, ai = aggregate_importances(av, aa)
+        v_imp_all.append(vi.detach().cpu().numpy())
+        a_imp_all.append(ai.detach().cpu().numpy())
+        labels_all.append(all_labels[idx])
+    video_imp = np.concatenate(v_imp_all)
+    audio_imp = np.concatenate(a_imp_all)
+    labels = np.concatenate(labels_all)
+
+    def write_csv(path, arr, prefix):
+        cols = [f"{prefix}_dim_{i}" for i in range(arr.shape[1])] + ["label"]
+        with open(path, "w") as f:
+            f.write(",".join(cols) + "\n")
+            for row, lab in zip(arr, labels):
+                f.write(",".join(f"{v:.6g}" for v in row) + f",{int(lab)}\n")
+
+    write_csv(os.path.join(output_dir, f"video_importances_{ts}.csv"),
+              video_imp, "video")
+    write_csv(os.path.join(output_dir, f"audio_importances_{ts}.csv"),
+              audio_imp, "audio")
+    gv = video_imp.mean(axis=0)
+    ga = audio_imp.mean(axis=0)
+    if verbose:
+        for name, g in (("Video", gv), ("Audio", ga)):
+            print(f"Global Top-{top_k} {name} Feature Importances:")
+            for i in np.argsort(-g)[:top_k]:
+                print(f"  Dim {i}: {g[i]:.4f}")
+    global_results = {
+        "global_video": {f"dim_{i}": float(gv[i]) for i in range(len(gv))},
+        "global_audio": {f"dim_{i}": float(ga[i]) for i in range(len(ga))},
+    }
+    json_path = os.path.join(output_dir, f"global_importances_{ts}.json")
+    with open(json_path, "w") as f:
+        json.dump(global_results, f, indent=4)
+    if verbose:
+        print(f"Global importances saved to {json_path}")
+    return global_results

@@ -1,4 +1,5 @@
-"""JAX parameter trees → the port's state dicts.
+"""JAX parameter trees → the port's state dicts, and the fusion model's back
+(:func:`fusion_to_flax`, for writing flax checkpoints).
 
 Each function takes the flax params of one model as a nested dict of numpy
 arrays (with or without the outer ``{"params": ...}``) and returns a state
@@ -171,3 +172,77 @@ def fusion_from_flax(tree: Mapping, batch_stats: Mapping | None = None
                     bs.get("classifier", {}).get(f"norm_{i}"))
     _put(sd, "classifier.out", _dense(c["out"]))
     return sd
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return np.ascontiguousarray(t.detach().cpu().numpy().astype(np.float32))
+
+
+def _sorted_tree(tree):
+    """Keys sorted at every level: the order ``jax.device_get`` gives a
+    params tree, and so the order the JAX package's checkpoints are written
+    in."""
+    if isinstance(tree, dict):
+        return {k: _sorted_tree(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def fusion_to_flax(sd: Mapping[str, torch.Tensor], num_heads: int) -> dict:
+    """The inverse of :func:`fusion_from_flax`: a fusion state dict → the
+    ``mmer_tpu`` model's params tree of numpy float32 arrays, keys sorted
+    (``num_heads`` shapes the attention kernels).  A batchnorm model's
+    running statistics make it ``{"params", "batch_stats"}``, as the JAX
+    trainer writes such a model."""
+    def dense(prefix):
+        out = {"kernel": _np(sd[f"{prefix}.weight"].t())}
+        if f"{prefix}.bias" in sd:
+            out["bias"] = _np(sd[f"{prefix}.bias"])
+        return out
+
+    def heads(prefix, out_proj):
+        w, b = sd[f"{prefix}.weight"].t(), sd[f"{prefix}.bias"]
+        if out_proj:              # (h·hd, d) → (h, hd, d); bias (d,)
+            return {"kernel": _np(w.reshape(num_heads, -1, w.shape[1])),
+                    "bias": _np(b)}
+        return {"kernel": _np(w.reshape(w.shape[0], num_heads, -1)),
+                "bias": _np(b.reshape(num_heads, -1))}
+
+    def norm(prefix):
+        return {"scale": _np(sd[f"{prefix}.weight"]),
+                "bias": _np(sd[f"{prefix}.bias"])}
+
+    stats: dict = {}
+
+    def token_norm(part, name):
+        prefix = f"{part}.{name}"
+        if f"{prefix}.ln.weight" in sd:
+            return {"LayerNorm_0": norm(f"{prefix}.ln")}
+        stats.setdefault(part, {})[name] = {"BatchNorm_0": {
+            "mean": _np(sd[f"{prefix}.bn.running_mean"]),
+            "var": _np(sd[f"{prefix}.bn.running_var"])}}
+        return {"BatchNorm_0": norm(f"{prefix}.bn")}
+
+    fusion = {name: dense(f"fusion.{name}") for name in ("video_proj", "audio_proj")}
+    for name in ("norm_video", "norm_audio", "out_norm"):
+        fusion[name] = token_norm("fusion", name)
+    fusion["pos_embed"] = _np(sd["fusion.pos_embed"])
+    i = 0
+    while f"fusion.layers.{i}.norm1.weight" in sd:
+        pre = f"fusion.layers.{i}"
+        layer = {"self_attn": {name: heads(f"{pre}.self_attn.{name}",
+                                           name == "out")
+                               for name in ("query", "key", "value", "out")}}
+        for name in ("norm1", "norm2"):
+            layer[name] = norm(f"{pre}.{name}")
+        for name in ("ffn_in", "ffn_out"):
+            layer[name] = dense(f"{pre}.{name}")
+        fusion[f"layer_{i}"] = layer
+        i += 1
+    classifier = {"out": dense("classifier.out")}
+    for i in range(2):
+        classifier[f"hidden_{i}"] = dense(f"classifier.hidden_{i}")
+        classifier[f"norm_{i}"] = token_norm("classifier", f"norm_{i}")
+    params = {"fusion": fusion, "classifier": classifier}
+    if stats:
+        return _sorted_tree({"params": params, "batch_stats": stats})
+    return _sorted_tree(params)

@@ -18,14 +18,22 @@ applies it: on the attention probabilities, after the attention and FFN
 sublayers, inside the FFN, after the positional embedding and after each
 classifier hidden layer; ``forward(..., generator=g)`` draws the masks from
 an explicit ``torch.Generator`` (on the inputs' device), else from the
-global one.  The JAX and PyTorch random streams differ, so only the rate and
-the scaling of the masks can be compared.
+global one; ``generator=DropoutMasks(masks)`` applies masks drawn
+beforehand (:func:`draw_dropout_masks`) in the order the forward would draw
+them, which is how a forward under ``torch.vmap`` (one lane a seed) gets
+each seed's own masks.  The JAX and PyTorch random streams differ, so only
+the rate and the scaling of the masks can be compared.
+
+Several models of one config run as one program through
+:func:`stack_members` and :func:`member_forward` under ``torch.vmap``: the
+serving ensemble, the ensemble evaluations and the seed-batched trainer.
 """
 
 from __future__ import annotations
 
+import copy
 import math
-from typing import Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,16 +45,56 @@ from mmer_tpu_torch.ops.masked_ops import (attention_bias_from_pad_mask,
                                            masked_mean_pool)
 
 
+class DropoutMasks:
+    """Masks drawn ahead of a forward (:func:`draw_dropout_masks`), handed
+    out in order to the dropout sites that ask for them."""
+
+    def __init__(self, masks: Sequence[torch.Tensor]):
+        self._masks = iter(masks)
+
+    def next(self) -> torch.Tensor:
+        return next(self._masks)
+
+
 def dropout(x: torch.Tensor, rate: float, training: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator=None) -> torch.Tensor:
     """flax ``Dropout``: in training, zero each element with probability
-    ``rate`` and scale the rest by ``1 / (1 - rate)``; else the identity."""
+    ``rate`` and scale the rest by ``1 / (1 - rate)``; else the identity.
+    ``generator``: a ``torch.Generator``, None (the global one) or a
+    :class:`DropoutMasks`."""
     if not training or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    mask.bernoulli_(keep, generator=generator)
+    if isinstance(generator, DropoutMasks):
+        mask = generator.next()
+    else:
+        mask = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+        mask.bernoulli_(keep, generator=generator)
     return x * (mask / keep).to(x.dtype)
+
+
+def dropout_shapes(cfg: ModelConfig, b: int, t: int) -> List[Tuple[tuple, float]]:
+    """(shape, rate) of every mask a training forward of a (b, t) batch
+    draws, in the order it draws them; sites at rate 0 draw nothing."""
+    s, f, h = t + 1, cfg.fused_dim, cfg.fusion_heads
+    hidden = cfg.classifier_hidden_dim or cfg.fused_dim // 2
+    layer = [(b, h, s, s), (b, s, f), (b, s, cfg.fusion_ffn_dim), (b, s, f)]
+    sites = ([((b, s, f), cfg.fusion_dropout)]
+             + [(shape, cfg.fusion_dropout)
+                for _ in range(cfg.fusion_layers) for shape in layer]
+             + [((b, hidden), cfg.classifier_dropout)] * 2)
+    return [(shape, rate) for shape, rate in sites if rate > 0.0]
+
+
+def draw_dropout_masks(cfg: ModelConfig, b: int, t: int,
+                       generator: Optional[torch.Generator],
+                       out: Sequence[torch.Tensor]) -> Sequence[torch.Tensor]:
+    """Draw into ``out`` (tensors shaped as :func:`dropout_shapes` says) the
+    masks a training forward of a (b, t) batch would draw from
+    ``generator``: the same order, the same bits."""
+    for buf, (_, rate) in zip(out, dropout_shapes(cfg, b, t)):
+        buf.bernoulli_(1.0 - rate, generator=generator)
+    return out
 
 
 class BatchNorm(nn.Module):
@@ -272,3 +320,28 @@ def init_fusion(cfg: ModelConfig, *, device: torch.device | str,
     with torch.no_grad():
         model.fusion.pos_embed.normal_(0.0, 0.02, generator=generator)
     return model.eval()
+
+
+def stack_members(members: Sequence[nn.Module]
+                  ) -> Tuple[nn.Module, Dict[str, torch.Tensor],
+                             Dict[str, torch.Tensor]]:
+    """Fusion models of one config → (a skeleton on the meta device, their
+    parameters and buffers stacked along a new leading member axis).  The
+    stacked parameters are new leaves that require grad."""
+    from torch.func import stack_module_state
+
+    params, buffers = stack_module_state(list(members))
+    return copy.deepcopy(members[0]).to("meta"), params, buffers
+
+
+def member_forward(base: nn.Module, params: Dict[str, torch.Tensor],
+                   buffers: Dict[str, torch.Tensor], video, audio,
+                   pad_mask=None, generator=None):
+    """``base``'s forward with one member's ``params`` and ``buffers``
+    (``torch.func.functional_call``): (probs, logits, attn).  Under
+    ``torch.vmap`` over the stacked tensors of :func:`stack_members`, one
+    lane a member."""
+    from torch.func import functional_call
+
+    return functional_call(base, (params, buffers), (video, audio, pad_mask),
+                           {"generator": generator})

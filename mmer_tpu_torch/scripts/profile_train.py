@@ -10,6 +10,14 @@ of a third run under the profiler.  Printed: ms per step, samples/s, the
 device's busy time per step and its idle share (against the unprofiled step
 time), the number of device kernels per step, and the kernels that take the most device time.
 ``--device cpu --tiny`` rehearses the control flow (no device numbers).
+
+``--seeds S`` profiles S seeds in one batched program instead
+(``train/fused.train_many_seeds``, dropout 0.2 as the flagship recipe):
+one warm-up call, then one call of an epoch over the whole training split
+timed (its ``wall_seconds``, set-up excluded) and one under the profiler; the
+device time and operations of a call that runs no epoch (the set-up: S
+seeded models, the dataset's upload) are taken off before they are divided
+by the steps.
 """
 
 from __future__ import annotations
@@ -39,6 +47,10 @@ def main(argv=None) -> dict:
     p.add_argument("--steps", type=int, default=20,
                    help="steps under the profiler")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--seeds", type=int, default=0,
+                   help="S > 0: S seeds in one batched program "
+                        "(train_many_seeds) in place of the one trainer's "
+                        "epoch")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
     n, n_train = (200, 160) if args.tiny else (N_SAMPLES, N_TRAIN)
@@ -48,15 +60,15 @@ def main(argv=None) -> dict:
     rng = np.random.default_rng(args.seed)
     lengths = rng.integers(1, MAX_CHUNKS + 1, size=n)
 
-    def dev(a):
-        return torch.from_numpy(a).to(device)
-
-    data = {
-        "video": dev(rng.normal(size=(n, MAX_CHUNKS, cfg.video_dim)).astype(np.float32)),
-        "audio": dev(rng.normal(size=(n, cfg.audio_dim)).astype(np.float32)),
-        "pad_mask": dev(np.arange(MAX_CHUNKS)[None, :] >= lengths[:, None]),
-        "labels": dev(rng.integers(0, cfg.num_classes, size=n)),
+    host = {
+        "video": rng.normal(size=(n, MAX_CHUNKS, cfg.video_dim)).astype(np.float32),
+        "audio": rng.normal(size=(n, cfg.audio_dim)).astype(np.float32),
+        "pad_mask": np.arange(MAX_CHUNKS)[None, :] >= lengths[:, None],
+        "labels": rng.integers(0, cfg.num_classes, size=n),
     }
+    if args.seeds:
+        return _profile_batched(args, device, cfg, host, lengths, n_train)
+    data = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
     class_weights = torch.ones(cfg.num_classes, device=device)
     model = init_fusion(cfg, device=device,
                         generator=param_generator(args.seed, device))
@@ -120,6 +132,75 @@ def main(argv=None) -> dict:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms  {e.count:6d} x  "
               f"{e.key[:90]}")
+    return out
+
+
+def _device_work(fn, device) -> tuple:
+    """(device busy ms, device operations) of one call of ``fn``, from a
+    torch.profiler trace: kernels and copies only, as in ``main``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(device)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    return (sum(e.self_device_time_total for e in kernels) / 1e3,
+            sum(e.count for e in kernels))
+
+
+def _profile_batched(args, device, cfg: ModelConfig, host: dict,
+                     lengths: np.ndarray, n_train: int) -> dict:
+    """``--seeds S``: one batched epoch's time, device busy time and
+    operations a step (see the module docstring)."""
+    import dataclasses
+
+    from mmer_tpu_torch.data.pipeline import DataSplits, DatasetArrays
+    from mmer_tpu_torch.train.fused import train_many_seeds
+
+    n = len(host["labels"])
+    data = DatasetArrays(video=host["video"], audio=host["audio"],
+                         pad_mask=host["pad_mask"],
+                         labels=host["labels"].astype(np.int32),
+                         lengths=lengths.astype(np.int32),
+                         keys=[str(i) for i in range(n)], max_chunks=MAX_CHUNKS)
+    held_out = np.arange(n_train, n)
+    splits = DataSplits(np.arange(n_train), held_out[:64], held_out[64:128],
+                        np.ones(cfg.num_classes, np.float32))
+    cfg = dataclasses.replace(cfg, fusion_dropout=0.2, classifier_dropout=0.2)
+    seeds = list(range(args.seed, args.seed + args.seeds))
+
+    def call(epochs):
+        return train_many_seeds(data, splits, cfg, TrainConfig(num_epochs=epochs),
+                                args.batch_size, seeds, len(seeds),
+                                verbose=False, device=device)
+
+    call(1)
+    epoch_s = call(1)[0]["wall_seconds"]
+    steps = -(-n_train // args.batch_size)
+    out = {"device": (torch.cuda.get_device_name(device)
+                      if device.type == "cuda" else "cpu"),
+           "seeds": len(seeds), "steps_per_epoch": steps, "epoch_s": epoch_s,
+           "step_ms": epoch_s * 1e3 / steps,
+           "samples_per_s_per_seed": n_train / epoch_s}
+    print(f"device={out['device']} {len(seeds)} seeds at batch "
+          f"{args.batch_size}: epoch of {steps} steps {epoch_s:.3f} s, "
+          f"{out['step_ms']:.3f} ms a step, "
+          f"{out['samples_per_s_per_seed']:.1f} samples/s a seed", flush=True)
+    if device.type != "cuda":
+        return out
+    busy, ops = _device_work(lambda: call(1), device)
+    busy0, ops0 = _device_work(lambda: call(0), device)
+    out.update(device_busy_ms_per_step=(busy - busy0) / steps,
+               device_ops_per_step=(ops - ops0) / steps)
+    out["idle_share"] = 1.0 - out["device_busy_ms_per_step"] / out["step_ms"]
+    print(f"device busy {out['device_busy_ms_per_step']:.3f} ms of the "
+          f"{out['step_ms']:.3f} ms step, idle share {out['idle_share']:.3f}, "
+          f"{out['device_ops_per_step']:.0f} device operations a step "
+          f"(set-up: {busy0:.2f} ms, {ops0} operations, taken off)")
     return out
 
 

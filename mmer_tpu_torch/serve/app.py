@@ -70,10 +70,10 @@ def resolve_default_fusion(flagship_dir: Optional[str] = None):
     ``(fusion_params_path, norm_stats_path, model_config_dict)``, Nones
     when no flagship artifact exists.
 
-    The port reads ``.pth`` checkpoints only.  When the manifest's
-    checkpoint exists but is another format (the JAX trainer's flax
-    ``.msgpack``), this raises, naming that gap, rather than letting the
-    server start on seeded weights."""
+    The checkpoint is the one the manifest names, resolved next to it: a
+    flax ``.msgpack`` (what ``make_flagship`` writes, in either package) or
+    a ``.pth``.  Another format raises rather than letting the server
+    start on seeded weights."""
     d = flagship_dir or os.environ.get("MMER_FLAGSHIP_DIR", FLAGSHIP_DIR)
     manifest_path = os.path.join(d, "manifest.json")
     if not os.path.exists(manifest_path):
@@ -90,11 +90,10 @@ def resolve_default_fusion(flagship_dir: Optional[str] = None):
     cand = os.path.join(d, os.path.basename(ckpt))
     if not os.path.exists(cand):
         return None, None, None
-    if not cand.endswith(".pth"):
+    if not cand.endswith((".msgpack", ".pth")):
         raise RuntimeError(
-            f"the flagship checkpoint {cand} is not a .pth file: the PyTorch "
-            "port cannot read flax .msgpack checkpoints yet; pass a .pth "
-            "with --fusion_params")
+            f"the flagship checkpoint {cand} is neither a flax .msgpack nor "
+            "a .pth file; pass one with --fusion_params")
     ns = os.path.join(d, "norm_stats.npz")
     return (cand, ns if os.path.exists(ns) else None,
             manifest.get("model_config"))
@@ -297,8 +296,9 @@ def main(argv=None) -> None:
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--fusion_params", default=None,
                         help="fusion checkpoint: .pth (the port's trainer or "
-                             "the reference's); a comma-separated list "
-                             "serves a mean-probability ensemble")
+                             "the reference's) or flax .msgpack (the JAX "
+                             "trainer's, the flagship's); a comma-separated "
+                             "list serves a mean-probability ensemble")
     parser.add_argument("--vivit_params", default=None,
                         help="ViViT params, .npz (created on first use)")
     parser.add_argument("--wav_params", default=None,
@@ -327,7 +327,7 @@ def main(argv=None) -> None:
         else:
             print("WARNING: no --fusion_params given and no flagship "
                   "artifact found — serving UNTRAINED (seeded) fusion "
-                  "weights. Pass a trained .pth checkpoint explicitly.")
+                  "weights. Pass a trained checkpoint explicitly.")
     engine = InferenceEngine(args.device, model_cfg=model_cfg,
                              fusion_params_path=args.fusion_params,
                              vivit_params_path=args.vivit_params,

@@ -23,16 +23,17 @@ Entry points:
   sequence of already-cropped subchunks.
 
 On a CUDA device the extractors always run the hand-written kernels.
-Fusion checkpoints are ``.pth`` files: the port's own state dict (what
-``train.cli`` writes) or a reference v2 state dict (``models/port_fusion``);
-comma-separated paths are served as a mean-probability ensemble.  The JAX
+Fusion checkpoints are ``.pth`` files (the port's own state dict, what
+``train.cli`` writes, or a reference v2 state dict, ``models/port_fusion``)
+or flax ``.msgpack`` params trees (the JAX trainer's and the flagship's);
+comma-separated paths, of either kind, are served as a mean-probability
+ensemble.  The JAX
 engine's ``warmup`` and its compile-cache opt-ins have no counterpart:
 PyTorch compiles nothing ahead of a request.
 """
 
 from __future__ import annotations
 
-import copy
 import os
 import time
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
@@ -108,28 +109,26 @@ def _topk_importance(video_imp: np.ndarray, audio_imp: np.ndarray,
 
 class EnsembleFusion(nn.Module):
     """Fusion models of one config served as one program: the members'
-    parameters stacked (``torch.func.stack_module_state``) and the forward
-    ``torch.vmap``-ed over them with ``functional_call``.  ``forward``
+    parameters stacked (``models/fusion.stack_members``) and the forward
+    ``torch.vmap``-ed over them (``member_forward``).  ``forward``
     returns (mean probabilities, mean logits, None): the mean
     probabilities pick the class (the ensemble's blend), the mean logits
     are its IG target function."""
 
     def __init__(self, members: Sequence[nn.Module]):
         super().__init__()
-        from torch.func import stack_module_state
+        from mmer_tpu_torch.models.fusion import stack_members
 
         self.members = len(members)
-        params, buffers = stack_module_state(list(members))
+        self._base, params, self._buffers_stacked = stack_members(members)
         self._params = {k: v.detach() for k, v in params.items()}
-        self._buffers_stacked = buffers
-        self._base = copy.deepcopy(members[0]).to("meta")
 
     def forward(self, video, audio, pad_mask=None):
-        from torch.func import functional_call
+        from mmer_tpu_torch.models.fusion import member_forward
 
         def one(p, b):
-            probs, logits, _ = functional_call(self._base, (p, b),
-                                               (video, audio, pad_mask))
+            probs, logits, _ = member_forward(self._base, p, b, video, audio,
+                                              pad_mask)
             return probs, logits
 
         probs, logits = torch.vmap(one)(self._params, self._buffers_stacked)
@@ -141,7 +140,8 @@ class InferenceEngine:
 
     ``device`` is required: ``"cuda"`` raises when CUDA is unavailable.
     ``fusion_params_path``: a ``.pth`` checkpoint (the port's own state
-    dict or a reference v2 one; shape mismatches raise), or several joined
+    dict or a reference v2 one) or a flax ``.msgpack`` one (shape
+    mismatches raise), or several joined
     by commas for an ensemble; without it the fusion weights are seeded
     from 0, as the JAX engine's are.  After each :meth:`infer_frames` call
     :attr:`last_timings` holds the seconds spent in each of ``STAGES`` and
@@ -206,29 +206,6 @@ class InferenceEngine:
                 params_path=self.wav_params_path)
         return self._audio_embedder
 
-    def _load_one_fusion(self, path: str) -> nn.Module:
-        """One checkpoint → a fusion model in evaluation mode.  Loud on
-        every failure: a missing file, a format the port does not read, a
-        shape that disagrees with ``model_cfg``."""
-        from mmer_tpu_torch.models.fusion import MultimodalEmotionModel
-        from mmer_tpu_torch.models.port_fusion import (is_reference_state_dict,
-                                                       params_from_state_dict,
-                                                       read_state_dict)
-
-        if not os.path.exists(path):
-            raise FileNotFoundError(f"fusion checkpoint not found: {path}")
-        if not path.endswith(".pth"):
-            raise ValueError(f"{path}: the port reads .pth fusion checkpoints "
-                             "only (flax .msgpack checkpoints are not read)")
-        model = MultimodalEmotionModel(self.model_cfg, device=self.device)
-        sd = read_state_dict(path)
-        if is_reference_state_dict(sd):
-            # Reference-trained checkpoint (train2.py:766-774): converted,
-            # its shapes validated against model_cfg.
-            sd, _ = params_from_state_dict(sd, self.model_cfg)
-        model.load_state_dict({k: torch.as_tensor(v) for k, v in sd.items()})
-        return model.eval()
-
     @property
     def fusion(self) -> nn.Module:
         """The fusion model, called as ``fusion(video, audio, pad_mask) ->
@@ -237,14 +214,18 @@ class InferenceEngine:
         if self._fusion is None:
             from mmer_tpu_torch.models.fusion import init_fusion
             from mmer_tpu_torch.models.layers import param_generator
+            # Loud on a missing file, another format, a shape that
+            # disagrees with model_cfg.
+            from mmer_tpu_torch.train.checkpoint import load_fusion_checkpoint
 
             paths = [p.strip() for p in
                      (self.fusion_params_path or "").split(",") if p.strip()]
-            if len(paths) > 1:
-                self._fusion = EnsembleFusion(
-                    [self._load_one_fusion(p) for p in paths])
-            elif paths:
-                self._fusion = self._load_one_fusion(paths[0])
+            members = [load_fusion_checkpoint(p, self.model_cfg, self.device)
+                       for p in paths]
+            if len(members) > 1:
+                self._fusion = EnsembleFusion(members)
+            elif members:
+                self._fusion = members[0]
             else:
                 self._fusion = init_fusion(
                     self.model_cfg, device=self.device,

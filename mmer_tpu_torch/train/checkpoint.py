@@ -1,6 +1,11 @@
 """Checkpointing: best/final model artifacts and full-state resume, the port
 of ``mmer_tpu/train/checkpoint.py``.
 
+- flax ``.msgpack`` params trees (the JAX package's checkpoints, and the
+  flagship's) are read and written by :func:`load_params_msgpack` /
+  :func:`save_params_msgpack` through the port's own msgpack codec
+  (``core/msgpack.py``); ``models/convert.py`` maps the fusion tree to a state
+  dict and back;
 - best/final weights are saved as ``.pth`` state dicts of
   :class:`~mmer_tpu_torch.models.fusion.MultimodalEmotionModel` (a batchnorm
   model's running statistics are buffers of the state dict) under the
@@ -23,6 +28,73 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from mmer_tpu_torch.core import msgpack
+
+
+def save_params_msgpack(path: str, params: Any) -> None:
+    """A params tree (nested dicts of numpy arrays or tensors) → the bytes
+    ``flax.serialization.to_bytes`` writes for it, keys in the tree's
+    order."""
+    def host(tree):
+        if isinstance(tree, dict):
+            return {str(k): host(v) for k, v in tree.items()}
+        if isinstance(tree, torch.Tensor):
+            return tree.detach().cpu().numpy()
+        return np.asarray(tree)
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(msgpack.packb(host(params)))
+
+
+def load_params_msgpack(path: str) -> Dict[str, Any]:
+    """A flax ``.msgpack`` checkpoint → its tree of numpy arrays (what
+    ``flax.serialization.msgpack_restore`` returns for it)."""
+    with open(path, "rb") as f:
+        tree = msgpack.unpackb(f.read())
+    if not isinstance(tree, dict):
+        raise ValueError(f"{path}: not a flax params tree")
+    return tree
+
+
+def load_fusion_checkpoint(path: str, model_cfg, device: torch.device | str):
+    """A fusion checkpoint → a ``MultimodalEmotionModel`` of ``model_cfg``
+    on ``device``, in evaluation mode.  Reads the port's ``.pth`` state
+    dicts, the reference's v2 ``.pth`` (``models/port_fusion``) and flax
+    ``.msgpack`` params trees (the JAX trainer's, the flagship's).  Loud on
+    every failure: a missing file, another format, a tree that is not a
+    fusion model's, a shape that disagrees with ``model_cfg``."""
+    from mmer_tpu_torch.models.convert import fusion_from_flax
+    from mmer_tpu_torch.models.fusion import MultimodalEmotionModel
+    from mmer_tpu_torch.models.port_fusion import (is_reference_state_dict,
+                                                   params_from_state_dict,
+                                                   read_state_dict)
+
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"fusion checkpoint not found: {path}")
+    if path.endswith(".msgpack"):
+        try:
+            sd = fusion_from_flax(load_params_msgpack(path))
+        except (KeyError, TypeError) as e:
+            raise ValueError(f"{path}: not a fusion params tree "
+                             f"(missing {e})") from e
+    elif path.endswith(".pth"):
+        sd = read_state_dict(path)
+        if is_reference_state_dict(sd):
+            # Reference-trained checkpoint (train2.py:766-774): converted,
+            # its shapes validated against model_cfg.
+            sd, _ = params_from_state_dict(sd, model_cfg)
+    else:
+        raise ValueError(f"{path}: the port reads .pth and flax .msgpack "
+                         "fusion checkpoints")
+    model = MultimodalEmotionModel(model_cfg, device=device)
+    try:
+        model.load_state_dict({k: torch.as_tensor(v) for k, v in sd.items()})
+    except RuntimeError as e:
+        raise ValueError(f"{path} does not fit the fusion config "
+                         f"{model_cfg}: {e}") from e
+    return model.eval()
 
 
 def save_state_dict(path: str, state: Dict[str, torch.Tensor]) -> None:

@@ -9,6 +9,12 @@ Feature folders (``*_faces_mp4_features.npy`` (T, 768) float32 and
 them) → ``results_*.json``, ``best_model_*.pth``, ``final_model_*.pth`` and
 ``norm_stats_*.npz`` under ``--output_dir``.  Trains on the GPU unless
 ``--device cpu`` is given; without CUDA the default raises.
+
+The JAX CLI's flags are here with its defaults, apart from ``--fused``: the
+port has one trainer, which takes the fused trainer's opt-ins
+(``--ema_decay``, ``--mixup_alpha``, ``--modality_dropout``,
+``--distill_from``), and ``--raw_videos`` / ``--raw_audio``, which need a
+video decoder.
 """
 
 from __future__ import annotations
@@ -52,6 +58,31 @@ def main(argv=None) -> TrainOutput:
                         "(written to <output_dir>/checkpoints)")
     p.add_argument("--checkpoint_every", type=int, default=0,
                    help="save full train state every N epochs (0 = off)")
+    p.add_argument("--interpret", action="store_true",
+                   help="IG feature importances on the test set "
+                        "(reference train2.py:990 epilogue — run on the "
+                        "BEST params, fixing its final-weights bug)")
+    p.add_argument("--profile_dir", default=None,
+                   help="capture a torch.profiler trace of the run")
+    p.add_argument("--ema_decay", type=float, default=0.0,
+                   help="evaluate/select on a per-step EMA of the params "
+                        "(0 = off, reference behavior)")
+    p.add_argument("--mixup_alpha", type=float, default=0.0,
+                   help="mixup over feature pairs, lambda~Beta(a,a) "
+                        "(0 = off, reference behavior)")
+    p.add_argument("--modality_dropout", type=float, default=0.0,
+                   help="per-sample probability of zeroing one modality "
+                        "(0 = off, reference behavior)")
+    p.add_argument("--distill_from", default=None, metavar="CKPT[,CKPT...]",
+                   help="comma-separated fusion checkpoints (.pth or flax "
+                        ".msgpack): mean-probability blend them as the "
+                        "teacher and train this run as its distilled student "
+                        "(see train/distill.py)")
+    p.add_argument("--distill_alpha", type=float, default=0.5,
+                   help="soft-loss weight when --distill_from is given: "
+                        "loss = (1-a)*hard + a*T^2*soft")
+    p.add_argument("--distill_temp", type=float, default=1.0,
+                   help="distillation temperature T")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a GPU) or cpu")
     args = p.parse_args(argv)
@@ -76,11 +107,50 @@ def main(argv=None) -> TrainOutput:
         checkpoint_every=args.checkpoint_every,
         weight_decay=args.weight_decay,
         label_smoothing=args.label_smoothing,
+        ema_decay=args.ema_decay,
+        mixup_alpha=args.mixup_alpha,
+        modality_dropout=args.modality_dropout,
+        distill_alpha=args.distill_alpha if args.distill_from else 0.0,
+        distill_temp=args.distill_temp,
         best_metric=args.best_metric)
 
-    out = train_model(data, splits, model_cfg, train_cfg,
-                      batch_size=args.batch_size, seed=args.seed,
-                      resume_dir=args.resume_dir, device=args.device)
+    soft_targets = None
+    if args.distill_from:
+        from mmer_tpu_torch.train.checkpoint import load_fusion_checkpoint
+        from mmer_tpu_torch.train.distill import teacher_soft_targets
+
+        teachers = [load_fusion_checkpoint(path.strip(), model_cfg,
+                                           args.device).state_dict()
+                    for path in args.distill_from.split(",") if path.strip()]
+        print(f"Distilling from {len(teachers)} teacher checkpoint(s), "
+              f"alpha={args.distill_alpha} T={args.distill_temp}")
+        soft_targets = teacher_soft_targets(model_cfg, teachers, data,
+                                            device=args.device)
+
+    from mmer_tpu_torch.utils.profiling import trace
+
+    with trace(args.profile_dir):
+        out = train_model(data, splits, model_cfg, train_cfg,
+                          batch_size=args.batch_size, seed=args.seed,
+                          resume_dir=args.resume_dir, device=args.device,
+                          soft_targets=soft_targets)
+
+    if args.interpret:
+        from mmer_tpu_torch.interpret.ig import interpret_test_set
+        from mmer_tpu_torch.models.fusion import MultimodalEmotionModel
+
+        model = MultimodalEmotionModel(model_cfg, device=args.device)
+        model.load_state_dict(out.best_params if out.best_params is not None
+                              else out.final_params)
+        model.eval()
+
+        def logits_fn(v, a, m):
+            return model(v, a, m)[1]
+
+        host = {"video": data.video, "audio": data.audio,
+                "pad_mask": data.pad_mask, "labels": data.labels}
+        interpret_test_set(logits_fn, host, splits.test,
+                           output_dir=args.output_dir, device=args.device)
 
     best = max((r for r in out.results if "test_macro_f1" in r),
                key=lambda r: r["test_macro_f1"], default=None)

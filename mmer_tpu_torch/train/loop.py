@@ -26,18 +26,42 @@ the host with device-resident data is enough:
 - ``ModelConfig.compute_dtype`` is the GEMMs' dtype only: parameters, Adam
   moments and the residual stream stay float32.
 
-The opt-ins of the JAX package's fused trainer (EMA, mixup, modality dropout,
-distillation) and multi-device training are not part of this trainer.
+The opt-ins of the JAX package's fused trainer are options of this one
+(``mmer_tpu/train/fused.py:111-193, 242-320``), each off at 0:
+
+- ``modality_dropout``: one uniform draw ``u`` a row; ``u < rate/2`` zeroes
+  the audio, ``rate/2 <= u < rate`` the video;
+- ``mixup_alpha``: one ``λ ~ Beta(α, α)`` a step and an in-batch partner
+  permutation ``j``; features and soft targets are mixed, the padding mask is
+  ``mask & mask[j]`` and the loss is ``λ·L(y) + (1−λ)·L(y[j])``.  Sentinel
+  rows of the tail batch can be partners, as in the JAX step;
+- ``distill_alpha`` (with ``soft_targets=``): the loss is
+  ``(1−α)·L + α·soft_cross_entropy(logits, soft, T)``;
+- ``ema_decay``: a per-step average of the parameters, from a copy of the
+  initial ones; evaluation, the scheduler's and early stopping's validation
+  loss and best-model selection all see it, ``best_params`` are its weights
+  and ``final_params`` the raw ones.
+
+They refuse a batchnorm model and ``checkpoint_every``, as the JAX package
+does.  Every random draw goes through one small function
+(:func:`epoch_permutation`, :func:`modality_uniforms`,
+:func:`partner_permutation`, :func:`mixup_lambdas`): per step ``u`` then ``j``
+then the dropout masks, from the dropout generator on the run's device; the
+epoch's ``λ`` from a host ``numpy`` generator seeded with the run's seed
+(torch has no Beta sampler that takes a generator, and a host scalar a step
+would sync).  With every opt-in at 0 nothing more is drawn.  Multi-device
+training is not part of this trainer.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
 import time
 from datetime import datetime
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -46,7 +70,8 @@ from mmer_tpu_torch.config import ModelConfig, TrainConfig
 from mmer_tpu_torch.data.pipeline import DataSplits, DatasetArrays
 from mmer_tpu_torch.models.fusion import MultimodalEmotionModel, init_fusion
 from mmer_tpu_torch.models.layers import param_generator
-from mmer_tpu_torch.ops.losses import focal_loss, weighted_cross_entropy
+from mmer_tpu_torch.ops.losses import (focal_loss, soft_cross_entropy,
+                                       weighted_cross_entropy)
 from mmer_tpu_torch.train import checkpoint as ckpt
 from mmer_tpu_torch.train.metrics import (accuracy_from_confusion,
                                           confusion_matrix, prf_from_confusion)
@@ -103,6 +128,58 @@ class PlateauScheduler:
         return lr
 
 
+class EpochControl:
+    """The host side of an epoch's end, shared by :func:`train_model` and
+    the seed-batched trainer: the plateau scheduler on the validation loss,
+    best-model tracking (val loss, train2.py:617-620, or val accuracy,
+    train.py:334-338) and early stopping after ``patience`` epochs whose
+    validation loss improved by less than ``min_delta`` (train2.py:622-633)."""
+
+    def __init__(self, cfg: TrainConfig):
+        self.cfg = cfg
+        self.scheduler = PlateauScheduler(cfg.scheduler_factor,
+                                          cfg.scheduler_patience)
+        self.lr = cfg.lr
+        self.best_score = float("inf")
+        self.best_epoch = 0
+        self.no_improve = 0
+        self.prev_val_loss = float("inf")
+        self.stopped = False
+
+    def end_epoch(self, epoch: int, val_loss: float, val_acc: float) -> bool:
+        """Epoch ``epoch`` (1-based) is over; True when it is the new best.
+        Updates ``lr`` and sets ``stopped`` when early stopping ends the
+        run."""
+        self.lr = self.scheduler.step(val_loss, self.lr)
+        score = val_loss if self.cfg.best_metric == "val_loss" else -val_acc
+        is_best = score < self.best_score
+        if is_best:
+            self.best_score, self.best_epoch = score, epoch
+        if self.prev_val_loss - val_loss < self.cfg.min_delta:
+            self.no_improve += 1
+            self.stopped = self.no_improve >= self.cfg.patience
+        else:
+            self.no_improve = 0
+        self.prev_val_loss = val_loss
+        return is_best
+
+    def state(self) -> dict:
+        return {"lr": self.lr, "sched_best": self.scheduler.best,
+                "sched_bad": self.scheduler.num_bad,
+                "best_score": self.best_score, "best_epoch": self.best_epoch,
+                "no_improve": self.no_improve,
+                "prev_val_loss": self.prev_val_loss}
+
+    def load(self, loop: dict) -> None:
+        self.lr = loop["lr"]
+        self.scheduler.best = loop["sched_best"]
+        self.scheduler.num_bad = loop["sched_bad"]
+        self.best_score = loop["best_score"]
+        self.best_epoch = loop["best_epoch"]
+        self.no_improve = loop["no_improve"]
+        self.prev_val_loss = loop["prev_val_loss"]
+
+
 def _loss_fn(cfg: TrainConfig) -> Callable:
     if cfg.loss == "weighted_ce":
         return lambda logits, labels, cw, sw: weighted_cross_entropy(
@@ -127,6 +204,39 @@ def epoch_permutation(n: int, generator: torch.Generator) -> torch.Tensor:
     return torch.randperm(n, generator=generator)
 
 
+def modality_uniforms(b: int, generator: Optional[torch.Generator],
+                      device: torch.device) -> torch.Tensor:
+    """A step's modality-dropout draws: ``b`` uniforms on the device."""
+    return torch.rand(b, generator=generator, device=device)
+
+
+def partner_permutation(b: int, generator: Optional[torch.Generator],
+                        device: torch.device) -> torch.Tensor:
+    """A step's mixup partners: a permutation of ``range(b)`` on the device."""
+    return torch.randperm(b, generator=generator, device=device)
+
+
+def mixup_lambdas(steps: int, alpha: float, rng: np.random.Generator
+                  ) -> np.ndarray:
+    """An epoch's mixup weights, one ``Beta(alpha, alpha)`` draw a step."""
+    return rng.beta(alpha, alpha, size=steps)
+
+
+OPT_INS = ("ema_decay", "mixup_alpha", "modality_dropout", "distill_alpha")
+
+
+def check_opt_ins(model_cfg: ModelConfig, train_cfg: TrainConfig) -> None:
+    """Refuse what the JAX package's fused trainer refuses
+    (``mmer_tpu/train/loop.py:343-349``)."""
+    on = [name for name in OPT_INS if getattr(train_cfg, name) > 0.0]
+    if on and model_cfg.norm == "batchnorm":
+        raise ValueError(f"{', '.join(on)} do not support batchnorm models "
+                         "(the fused trainer's rule)")
+    if on and train_cfg.checkpoint_every:
+        raise ValueError(f"{', '.join(on)} do not support checkpoint_every: "
+                         "the fused trainer takes no mid-run checkpoints")
+
+
 def device_data(data: DatasetArrays, device: torch.device) -> Dict[str, torch.Tensor]:
     """The dataset as device-resident tensors (labels as int64 for gathers)."""
     def dev(a, dtype=None):
@@ -136,34 +246,144 @@ def device_data(data: DatasetArrays, device: torch.device) -> Dict[str, torch.Te
             "pad_mask": dev(data.pad_mask), "labels": dev(data.labels, np.int64)}
 
 
+def attach_soft_targets(dev_data: Dict[str, torch.Tensor],
+                        train_cfg: TrainConfig, soft_targets) -> None:
+    """Validate and insert ensemble-distillation teacher probs (N, C),
+    row-aligned with the dataset, into a trainer's device-data dict as
+    float32: required exactly when ``train_cfg.distill_alpha > 0``
+    (``mmer_tpu/train/fused.py:333-350``; train/distill.py supplies them)."""
+    if (soft_targets is not None) != (train_cfg.distill_alpha > 0.0):
+        raise ValueError(
+            "soft_targets must be supplied exactly when distill_alpha > 0 "
+            f"(got soft_targets="
+            f"{'set' if soft_targets is not None else 'None'}, "
+            f"distill_alpha={train_cfg.distill_alpha})")
+    if soft_targets is not None:
+        n = dev_data["labels"].shape[0]
+        if soft_targets.shape[0] != n:
+            raise ValueError(f"soft_targets rows {soft_targets.shape[0]} "
+                             f"!= dataset rows {n}")
+        dev_data["soft_targets"] = torch.from_numpy(
+            np.array(soft_targets, np.float32)).to(dev_data["labels"].device)
+
+
+def gather_batch(data: Dict[str, torch.Tensor], idx: torch.Tensor) -> dict:
+    """A minibatch gathered on the device: −1 sentinels read sample 0 under
+    a sample weight of 0."""
+    safe = idx.clamp_min(0)
+    batch = {"video": data["video"][safe], "audio": data["audio"][safe],
+             "mask": data["pad_mask"][safe], "labels": data["labels"][safe],
+             "sw": (idx >= 0).float()}
+    if "soft_targets" in data:
+        batch["soft"] = data["soft_targets"][safe]
+    return batch
+
+
+class StepDraws(NamedTuple):
+    u: Optional[torch.Tensor] = None       # (B,) modality dropout
+    j: Optional[torch.Tensor] = None       # (B,) mixup partners
+    lam: Optional[torch.Tensor] = None     # () mixup weight
+
+
+def draw_step(train_cfg: TrainConfig, b: int,
+              generator: Optional[torch.Generator], device: torch.device,
+              lam: Optional[torch.Tensor] = None) -> StepDraws:
+    """A step's opt-in draws, ``u`` then ``j``; nothing when both are off."""
+    u = (modality_uniforms(b, generator, device)
+         if train_cfg.modality_dropout > 0.0 else None)
+    j = (partner_permutation(b, generator, device)
+         if train_cfg.mixup_alpha > 0.0 else None)
+    return StepDraws(u, j, lam)
+
+
+def augmented_loss(logits_of: Callable, batch: dict, draws: StepDraws,
+                   class_weights: torch.Tensor, train_cfg: TrainConfig,
+                   loss_fn: Callable) -> torch.Tensor:
+    """The training loss of one gathered batch with the opt-ins applied, as
+    ``mmer_tpu/train/fused.py:130-178`` computes it: modality dropout, then
+    mixup, then ``logits_of(video, audio, mask)``, the hard loss and the
+    distillation blend."""
+    video, audio, mask = batch["video"], batch["audio"], batch["mask"]
+    labels, sw, soft = batch["labels"], batch["sw"], batch.get("soft")
+    rate = train_cfg.modality_dropout
+    if rate > 0.0:
+        u = draws.u
+        audio = audio * (u >= rate / 2.0).to(audio.dtype)[:, None]
+        video = video * ((u < rate / 2.0) | (u >= rate)).to(
+            video.dtype)[:, None, None]
+    mixup = train_cfg.mixup_alpha > 0.0
+    if mixup:
+        lam, j = draws.lam, draws.j
+        video = lam * video + (1.0 - lam) * video[j]
+        audio = lam * audio + (1.0 - lam) * audio[j]
+        # True = padded: a mixed position is real if either parent's is.
+        mask = mask & mask[j]
+        labels_b = labels[j]
+        if soft is not None:
+            soft = lam * soft + (1.0 - lam) * soft[j]
+    logits = logits_of(video, audio, mask)
+    loss = loss_fn(logits, labels, class_weights, sw)
+    if mixup:
+        loss = lam * loss + (1.0 - lam) * loss_fn(logits, labels_b,
+                                                  class_weights, sw)
+    alpha = train_cfg.distill_alpha
+    if alpha > 0.0:
+        kd = soft_cross_entropy(logits, soft, train_cfg.distill_temp, sw)
+        loss = (1.0 - alpha) * loss + alpha * kd
+    return loss
+
+
+@torch.no_grad()
+def ema_update(ema: List[torch.Tensor], params: List[torch.Tensor],
+               decay: float) -> None:
+    """``ema = decay·ema + (1 − decay)·params``, in place."""
+    torch._foreach_mul_(ema, decay)
+    torch._foreach_add_(ema, params, alpha=1.0 - decay)
+
+
 def train_epoch(model: MultimodalEmotionModel, optimizer: torch.optim.Optimizer,
                 data: Dict[str, torch.Tensor], train_idx: torch.Tensor,
                 class_weights: torch.Tensor, train_cfg: TrainConfig,
                 batch_size: int, *, shuffle_generator: torch.Generator,
                 dropout_generator: Optional[torch.Generator] = None,
-                perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+                perm: Optional[torch.Tensor] = None,
+                mixup_rng: Optional[np.random.Generator] = None,
+                ema: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
     """One epoch over ``train_idx`` in minibatches gathered on the device;
     returns the mean of the per-step losses as a device scalar (no host sync
     inside).  ``perm`` (a permutation of ``range(len(train_idx))``) replaces
-    the shuffle drawn from ``shuffle_generator``."""
+    the shuffle drawn from ``shuffle_generator``.  ``mixup_rng`` draws the
+    epoch's mixup weights; ``ema`` (tensors shaped as the model's
+    parameters) is updated after every optimizer step."""
     loss_fn = _loss_fn(train_cfg)
     params = [p for p in model.parameters() if p.requires_grad]
+    device = train_idx.device
     if perm is None:
         perm = epoch_permutation(train_idx.shape[0], shuffle_generator)
-    perm = torch.as_tensor(perm, dtype=torch.long).to(train_idx.device)
+    perm = torch.as_tensor(perm, dtype=torch.long).to(device)
     batches = _pad_batches(train_idx[perm], batch_size)
+    lams = None
+    if train_cfg.mixup_alpha > 0.0:
+        lams = torch.as_tensor(mixup_lambdas(
+            len(batches), train_cfg.mixup_alpha, mixup_rng),
+            dtype=torch.float32).to(device)
+
+    def logits_of(video, audio, mask):
+        return model(video, audio, mask, generator=dropout_generator)[1]
+
     model.train()
     losses = []
-    for idx in batches:
-        sw = (idx >= 0).float()
-        safe = idx.clamp_min(0)
-        _, logits, _ = model(data["video"][safe], data["audio"][safe],
-                             data["pad_mask"][safe], generator=dropout_generator)
-        loss = loss_fn(logits, data["labels"][safe], class_weights, sw)
+    for step, idx in enumerate(batches):
+        draws = draw_step(train_cfg, batch_size, dropout_generator, device,
+                          None if lams is None else lams[step])
+        loss = augmented_loss(logits_of, gather_batch(data, idx), draws,
+                              class_weights, train_cfg, loss_fn)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
         clip_by_global_norm(params, train_cfg.clip_norm)
         optimizer.step()
+        if ema is not None:
+            ema_update(ema, params, train_cfg.ema_decay)
         losses.append(loss.detach())
     model.eval()
     return torch.stack(losses).mean()
@@ -191,6 +411,37 @@ def evaluate(model: MultimodalEmotionModel, data: Dict[str, torch.Tensor],
     return loss_sum / max(count, 1), cm
 
 
+def results_row(epoch: int, train_loss: float, val_loss: float,
+                val_cm: np.ndarray, test_cm: Optional[np.ndarray]) -> dict:
+    """One epoch's row of the reference's results schema
+    (train2.py:679-714): P/R/F1 from the confusion matrices on the host."""
+    val_prf = prf_from_confusion(val_cm)
+    row = {
+        "epoch": epoch,
+        "train_loss": train_loss,
+        "val_loss": val_loss,
+        "val_acc": 100.0 * accuracy_from_confusion(val_cm),
+        "val_macro_precision": val_prf["macro_precision"],
+        "val_macro_recall": val_prf["macro_recall"],
+        "val_macro_f1": val_prf["macro_f1"],
+        "val_micro_precision": val_prf["micro_precision"],
+        "val_micro_recall": val_prf["micro_recall"],
+        "val_micro_f1": val_prf["micro_f1"],
+    }
+    if test_cm is not None:
+        test_prf = prf_from_confusion(test_cm)
+        row.update({
+            "test_acc": 100.0 * accuracy_from_confusion(test_cm),
+            "test_macro_precision": test_prf["macro_precision"],
+            "test_macro_recall": test_prf["macro_recall"],
+            "test_macro_f1": test_prf["macro_f1"],
+            "test_micro_precision": test_prf["micro_precision"],
+            "test_micro_recall": test_prf["micro_recall"],
+            "test_micro_f1": test_prf["micro_f1"],
+        })
+    return row
+
+
 def _build_hyperparameters(model_cfg: ModelConfig, train_cfg: TrainConfig,
                            batch_size: int, device: torch.device) -> dict:
     """Run-log hyperparameters with the reference's key set
@@ -211,6 +462,8 @@ def _build_hyperparameters(model_cfg: ModelConfig, train_cfg: TrainConfig,
         "scheduler_factor": train_cfg.scheduler_factor,
         "scheduler_patience": train_cfg.scheduler_patience,
         "focal_gamma": train_cfg.focal_gamma, "loss": train_cfg.loss,
+        **({"ema_decay": train_cfg.ema_decay} if train_cfg.ema_decay > 0.0
+           else {}),
     }
 
 
@@ -277,8 +530,8 @@ def train_model(data: DatasetArrays, splits: DataSplits,
                 batch_size: int = 64, seed: int = 0, verbose: bool = True,
                 resume_dir: Optional[str] = None,
                 device: torch.device | str = "cuda",
-                initial_state: Optional[Dict[str, torch.Tensor]] = None
-                ) -> TrainOutput:
+                initial_state: Optional[Dict[str, torch.Tensor]] = None,
+                soft_targets: Optional[np.ndarray] = None) -> TrainOutput:
     """Full training run with reference-equivalent control flow and the
     reference's JSON results schema (train2.py:748-764).
 
@@ -286,15 +539,15 @@ def train_model(data: DatasetArrays, splits: DataSplits,
     ``"cpu"`` to train there).  ``initial_state`` (a state dict of the model)
     replaces the seeded initial weights.  ``resume_dir`` continues from the
     newest checkpoint that ``train_cfg.checkpoint_every`` wrote there.
+    ``soft_targets`` (N, C), row-aligned with ``data``, are the teacher's
+    probabilities: given exactly when ``train_cfg.distill_alpha > 0`` and
+    read at training rows only.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train_model: CUDA device requested but "
                            "torch.cuda.is_available() is False")
-    for name in ("ema_decay", "mixup_alpha", "modality_dropout", "distill_alpha"):
-        if getattr(train_cfg, name) > 0.0:
-            raise ValueError(f"train_model: {name} is not implemented in this "
-                             "trainer")
+    check_opt_ins(model_cfg, train_cfg)
 
     model = init_fusion(model_cfg, device=device,
                         generator=param_generator(seed, device))
@@ -303,23 +556,19 @@ def train_model(data: DatasetArrays, splits: DataSplits,
     optimizer = make_optimizer(model, train_cfg)
     shuffle_gen = torch.Generator().manual_seed(seed)
     dropout_gen = param_generator(seed + 1, device)
+    mixup_rng = np.random.default_rng(seed)
 
     dev_data = device_data(data, device)
+    attach_soft_targets(dev_data, train_cfg, soft_targets)
     class_weights = torch.from_numpy(
         np.array(splits.class_weights, np.float32)).to(device)
     train_idx, val_idx, test_idx = (
         torch.from_numpy(np.array(s, np.int64)).to(device)
         for s in (splits.train, splits.val, splits.test))
 
-    scheduler = PlateauScheduler(train_cfg.scheduler_factor,
-                                 train_cfg.scheduler_patience)
-    lr = train_cfg.lr
+    control = EpochControl(train_cfg)
     results: List[dict] = []
-    best_score = float("inf")
     best_state = None
-    best_epoch = 0
-    epochs_without_improvement = 0
-    previous_val_loss = float("inf")
 
     start_epoch = 0
     if resume_dir:
@@ -331,27 +580,24 @@ def train_model(data: DatasetArrays, splits: DataSplits,
             shuffle_gen.set_state(restored.payload["shuffle_rng"].cpu())
             dropout_gen.set_state(restored.payload["dropout_rng"].cpu())
             start_epoch = restored.step
-            loop = restored.loop
-            lr = loop["lr"]
-            scheduler.best = loop["sched_best"]
-            scheduler.num_bad = loop["sched_bad"]
-            best_score = loop["best_score"]
-            best_epoch = loop["best_epoch"]
-            epochs_without_improvement = loop["no_improve"]
-            previous_val_loss = loop["prev_val_loss"]
-            if loop["has_best"]:
+            control.load(restored.loop)
+            if restored.loop["has_best"]:
                 best_state = restored.payload["best"]
-            set_learning_rate(optimizer, lr)
+            set_learning_rate(optimizer, control.lr)
             if verbose:
                 print(f"Resumed from {latest} at epoch {start_epoch}")
 
+    # With EMA on, a second model holds the average (from the weights the
+    # run starts from) and is what is evaluated.
+    ema_model = copy.deepcopy(model) if train_cfg.ema_decay > 0.0 else None
+    eval_model = ema_model or model
     hyperparameters = _build_hyperparameters(model_cfg, train_cfg, batch_size,
                                              device)
     num_classes = model_cfg.num_classes
 
     def eval_split(idx):
-        loss_d, cm_d = evaluate(model, dev_data, idx, class_weights, train_cfg,
-                                num_classes)
+        loss_d, cm_d = evaluate(eval_model, dev_data, idx, class_weights,
+                                train_cfg, num_classes)
         return float(loss_d), cm_d.cpu().numpy()
 
     t_start = time.time()
@@ -362,49 +608,23 @@ def train_model(data: DatasetArrays, splits: DataSplits,
         train_loss = float(train_epoch(model, optimizer, dev_data, train_idx,
                                        class_weights, train_cfg, batch_size,
                                        shuffle_generator=shuffle_gen,
-                                       dropout_generator=dropout_gen))
+                                       dropout_generator=dropout_gen,
+                                       mixup_rng=mixup_rng,
+                                       ema=None if ema_model is None else
+                                       list(ema_model.parameters())))
         train_epoch_seconds.append(time.perf_counter() - t_epoch)
         val_loss, val_cm = eval_split(val_idx)
         val_acc = 100.0 * accuracy_from_confusion(val_cm)
-        val_prf = prf_from_confusion(val_cm)
 
-        lr = scheduler.step(val_loss, lr)
-        set_learning_rate(optimizer, lr)
-
-        # best-model selection: v2 tracks val loss (train2.py:617-620),
-        # v1 tracks val accuracy (train.py:334-338).
-        score = val_loss if train_cfg.best_metric == "val_loss" else -val_acc
-        if score < best_score:
-            best_score = score
+        if control.end_epoch(epoch + 1, val_loss, val_acc):
             # A real copy, parameters and batchnorm statistics together: the
             # live tensors are updated in place by the next epoch.
-            best_state = _clone_state(model)
-            best_epoch = epoch + 1
+            best_state = _clone_state(eval_model)
+        set_learning_rate(optimizer, control.lr)
 
-        row = {
-            "epoch": epoch + 1,
-            "train_loss": train_loss,
-            "val_loss": val_loss,
-            "val_acc": val_acc,
-            "val_macro_precision": val_prf["macro_precision"],
-            "val_macro_recall": val_prf["macro_recall"],
-            "val_macro_f1": val_prf["macro_f1"],
-            "val_micro_precision": val_prf["micro_precision"],
-            "val_micro_recall": val_prf["micro_recall"],
-            "val_micro_f1": val_prf["micro_f1"],
-        }
-        if train_cfg.eval_test_every_epoch:
-            _, test_cm = eval_split(test_idx)
-            test_prf = prf_from_confusion(test_cm)
-            row.update({
-                "test_acc": 100.0 * accuracy_from_confusion(test_cm),
-                "test_macro_precision": test_prf["macro_precision"],
-                "test_macro_recall": test_prf["macro_recall"],
-                "test_macro_f1": test_prf["macro_f1"],
-                "test_micro_precision": test_prf["micro_precision"],
-                "test_micro_recall": test_prf["micro_recall"],
-                "test_micro_f1": test_prf["micro_f1"],
-            })
+        test_cm = (eval_split(test_idx)[1] if train_cfg.eval_test_every_epoch
+                   else None)
+        row = results_row(epoch + 1, train_loss, val_loss, val_cm, test_cm)
         results.append(row)
 
         if verbose and (epoch % train_cfg.log_every == 0):
@@ -416,16 +636,10 @@ def train_model(data: DatasetArrays, splits: DataSplits,
                         f"Test Macro F1: {row['test_macro_f1']:.4f}")
             print(msg, flush=True)
 
-        # Early stopping on per-epoch improvement (train2.py:622-633).
-        if previous_val_loss - val_loss < train_cfg.min_delta:
-            epochs_without_improvement += 1
-            if epochs_without_improvement >= train_cfg.patience:
-                if verbose:
-                    print(f"Early stopping at epoch {epoch + 1}")
-                break
-        else:
-            epochs_without_improvement = 0
-        previous_val_loss = val_loss
+        if control.stopped:
+            if verbose:
+                print(f"Early stopping at epoch {epoch + 1}")
+            break
 
         # Periodic full-state checkpoint, taken after this epoch's updates so
         # that a resumed run continues the interrupted one exactly.
@@ -439,12 +653,7 @@ def train_model(data: DatasetArrays, splits: DataSplits,
                  else model.state_dict(),
                  "shuffle_rng": shuffle_gen.get_state(),
                  "dropout_rng": dropout_gen.get_state()},
-                {"lr": lr, "sched_best": scheduler.best,
-                 "sched_bad": scheduler.num_bad, "best_score": best_score,
-                 "best_epoch": best_epoch,
-                 "no_improve": epochs_without_improvement,
-                 "prev_val_loss": previous_val_loss,
-                 "has_best": best_state is not None})
+                {**control.state(), "has_best": best_state is not None})
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -454,13 +663,15 @@ def train_model(data: DatasetArrays, splits: DataSplits,
     final_state = _clone_state(model)
     confusion = None
     if best_state is not None:
-        model.load_state_dict(best_state)
+        held = _clone_state(eval_model)
+        eval_model.load_state_dict(best_state)
         _, confusion = eval_split(test_idx)
-        model.load_state_dict(final_state)
+        eval_model.load_state_dict(held)
         if verbose:
             print("Confusion matrix (rows = true, cols = pred):")
             print(confusion.astype(int))
 
+    best_epoch, best_score = control.best_epoch, control.best_score
     results_path, best_path, final_path, stats_path = _save_run_artifacts(
         data, train_cfg, batch_size, results, best_epoch, hyperparameters,
         confusion, best_state, final_state, verbose)

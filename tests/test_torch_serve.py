@@ -522,7 +522,9 @@ def test_engine_loads_reference_and_port_checkpoints(engines, tmp_path):
     a = rng.normal(size=(3, 1024)).astype(np.float32)
     m = np.zeros((3, 2), bool)
     want = np.asarray(model.apply(params, v, a, m)[0])
-    for path in (ref, own):
+    msgpack = str(tmp_path / "best.msgpack")
+    save_params_msgpack(msgpack, params["params"])
+    for path in (ref, own, msgpack):
         peng = _port_engine(jeng, fusion_params_path=path)
         np.testing.assert_allclose(peng._fusion_probs(v, a, m), want,
                                    rtol=0, atol=1e-5)
@@ -530,10 +532,13 @@ def test_engine_loads_reference_and_port_checkpoints(engines, tmp_path):
         **dict(SERVE_FUSION_KW, max_seq_len=57)), fusion_params_path=ref)
     with pytest.raises(ValueError, match="mismatch"):
         _ = wrong.fusion
-    msgpack = str(tmp_path / "best.msgpack")
-    save_params_msgpack(msgpack, params["params"])
-    with pytest.raises(ValueError, match=r"\.pth"):
+    # A flax checkpoint of another width is refused, naming the config.
+    with pytest.raises(ValueError, match="does not fit the fusion config"):
         _ = InferenceEngine(CPU, fusion_params_path=msgpack).fusion
+    other = str(tmp_path / "best.safetensors")
+    open(other, "wb").close()
+    with pytest.raises(ValueError, match=r"\.pth and flax \.msgpack"):
+        _ = InferenceEngine(CPU, fusion_params_path=other).fusion
     with pytest.raises(FileNotFoundError):
         _ = InferenceEngine(CPU, model_cfg=port_config.ModelConfig(
             **SERVE_FUSION_KW), fusion_params_path=ref + ",nope.pth").fusion
@@ -593,8 +598,8 @@ def test_engine_cuda_and_server_refuse_without_cuda(monkeypatch, tmp_path):
 
 
 def test_resolve_default_fusion(tmp_path):
-    """Like the JAX resolver, except that an existing flagship checkpoint
-    the port cannot read (flax .msgpack) raises, naming the gap."""
+    """Like the JAX resolver: the flagship's flax .msgpack (or a .pth) next
+    to its manifest; a checkpoint of another format raises."""
     assert port_app.resolve_default_fusion(str(tmp_path / "nope")) == \
         (None, None, None)
     d = tmp_path / "flagship"
@@ -604,6 +609,10 @@ def test_resolve_default_fusion(tmp_path):
          "model_config": {"max_seq_len": 6}}))
     assert port_app.resolve_default_fusion(str(d)) == (None, None, None)
     (d / "flagship.msgpack").write_bytes(b"\x80")
+    assert port_app.resolve_default_fusion(str(d)) == (
+        str(d / "flagship.msgpack"), None, {"max_seq_len": 6})
+    (d / "manifest.json").write_text(json.dumps({"checkpoint": "flagship.bin"}))
+    (d / "flagship.bin").write_bytes(b"\x80")
     with pytest.raises(RuntimeError, match="msgpack"):
         port_app.resolve_default_fusion(str(d))
     (d / "manifest.json").write_text(json.dumps(

@@ -68,8 +68,14 @@ def test_training_modules_load_no_jax_and_no_sklearn():
             "import mmer_tpu_torch.train.cli, mmer_tpu_torch.data.check\n"
             "import mmer_tpu_torch.scripts.probe_attn\n"
             "import mmer_tpu_torch.scripts.profile_fused_blocks\n"
+            "import mmer_tpu_torch.train.fused, mmer_tpu_torch.train.distill\n"
+            "import mmer_tpu_torch.train.ensemble, mmer_tpu_torch.core.msgpack\n"
+            "import mmer_tpu_torch.interpret.ig, mmer_tpu_torch.utils.profiling\n"
+            "import mmer_tpu_torch.scripts.make_flagship\n"
+            "import mmer_tpu_torch.scripts.seed_sweep\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-            "             ('jax', 'flax', 'optax', 'sklearn', 'mmer_tpu'))\n"
+            "             ('jax', 'flax', 'optax', 'msgpack', 'sklearn',\n"
+            "              'mmer_tpu'))\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -634,8 +640,11 @@ def test_resume_equals_uninterrupted_run(tmp_path):
 def test_train_model_rejects_what_it_does_not_implement():
     data, splits = make_tiny_dataset(seed=0, n=96, t=3)
     cfg = port_config.ModelConfig(**TRAIN_KW)
+    # The opt-ins refuse a batchnorm model, as the JAX package's fused
+    # trainer does, naming the opt-in.
     with pytest.raises(ValueError, match="mixup_alpha"):
-        port_loop.train_model(data, splits, cfg,
+        port_loop.train_model(data, splits,
+                              port_config.ModelConfig(**TRAIN_KW, norm="batchnorm"),
                               port_config.TrainConfig(mixup_alpha=0.2),
                               device="cpu", verbose=False)
     with pytest.raises(ValueError, match="unknown loss"):
