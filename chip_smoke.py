@@ -30,8 +30,24 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    the Wav2Vec2 width; every mode of ``attention_variant`` at the probe shape
    (16, 12, 1569, 64) padded to 1664 keys, the two ``p = scores`` modes on
    the rows whose plain denominator is at least ``DEN_MIN`` in magnitude.
-4. main path: ``InferenceEngine`` at the full default configs with seeded
-   port-native weights serves three requests (``predict_chunks`` on a
+3b. JAX weights (after phase 3): the full default ViViT and Wav2Vec2
+   param trees regenerated on the card from the JAX package's seeds
+   (``models/jax_init.py``), timed, every leaf held at the committed
+   fixture's sampled indices (``mmer_tpu_torch/assets/jax_reference.npz``,
+   written by ``tests/test_torch_jax_weights.py --write``) within
+   ``JAX_MAX_ULP`` (the bit-equal share and the worst ulp logged); the
+   default extractors' weights equal to those trees; the fixture's seeded
+   inputs (two uint8 chunks, 3.2 / 12 / 0.5 s of audio) through
+   ``VideoFeatureExtractor`` and ``AudioEmbedder`` on the f32 plain path
+   (within ``JAX_F32_REL_L2`` of JAX's f32 features a row), the default
+   kernel route and the all-kernel audio route (audio within
+   ``EMBED_REL_L2`` a clip of JAX's bf16 features on its Pallas route, which
+   the kernels mirror; its XLA route's are logged; video, over both chunks,
+   within ``JAX_VIDEO_BF16_FACTOR`` times JAX's own bf16-to-f32 distance of
+   JAX's f32 features), with exact launch counts; the phase within
+   ``JAX_PHASE_LIMIT_S``.
+4. main path: ``InferenceEngine`` at the full default configs with the JAX
+   package's seeded weights serves three requests (``predict_chunks`` on a
    3-chunk clip with 3.2 s of audio and on a 1-chunk clip with 12 s of
    audio, ``infer_sequence`` on 5 subchunks at 30 fps).  Probabilities must
    be finite and sum to 1, and every kernel's launch count must rise by
@@ -202,6 +218,18 @@ CONV_F32_FACTOR = 1.25
 # that accumulates its hidden chunks in bf16 reads 1.07-1.11.
 EMBED_REL_L2 = 0.005
 VIDEO_F32_FACTOR = 1.05
+# Phase 3b, the JAX package's weights: the regenerated leaves may sit this
+# many float32 ulp from the fixture's (jax's own draws on the CPU); the f32
+# plain path this far (rel-L2 a row) from JAX's f32 features; the bf16 kernel
+# route's video this many times as far from JAX's f32 features as JAX's own
+# bf16 features are (C1: any two bf16 ViViTs sit ~0.8 % apart); audio within
+# EMBED_REL_L2 of JAX's bf16 features.  Both full trees regenerate within
+# REGEN_LIMIT_S and the phase within JAX_PHASE_LIMIT_S.
+JAX_MAX_ULP = 4
+JAX_F32_REL_L2 = 1e-4
+JAX_VIDEO_BF16_FACTOR = 1.25
+REGEN_LIMIT_S = 20.0
+JAX_PHASE_LIMIT_S = 60.0
 # The serving file path's frames: the packaged face pasted at (y, x) on a
 # 480x640 background; the face itself (ear to ear, brow to chin) lies at
 # (x1, y1, x2, y2) in the 300x256 asset, read off the image.
@@ -1325,6 +1353,7 @@ def main() -> int:
     build_kernels()
     kernels = check_kernels(dev)
     kernels.update(check_probe_kernels(dev))
+    run_jax_weights(dev)
     serving = run_main_path(dev)
     file_path = run_serving_file_path(dev)
     extraction = run_extraction(dev)
@@ -1357,6 +1386,186 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _ulps(a, b):
+    """float32 ulp distances of two arrays; opposite signs count as far."""
+    import numpy as np
+
+    ia = np.asarray(a, np.float32).ravel().view(np.int32).astype(np.int64)
+    ib = np.asarray(b, np.float32).ravel().view(np.int32).astype(np.int64)
+    ia = np.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = np.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return np.abs(ia - ib)
+
+
+def _row_rel_l2(a, b):
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.linalg.norm(a - b, axis=-1) / np.linalg.norm(b, axis=-1)
+
+
+def run_jax_weights(dev, fixture: str | None = None) -> None:
+    """Phase 3b: the JAX package's weights and features on the card."""
+    import numpy as np
+    import torch
+
+    from mmer_tpu_torch.config import ViViTConfig, Wav2Vec2Config
+    from mmer_tpu_torch.models import jax_init
+    from mmer_tpu_torch.models.convert import vivit_from_flax, wav2vec2_from_flax
+    from mmer_tpu_torch.models.wav2vec2 import AudioEmbedder
+    from mmer_tpu_torch.preprocess.extract import VideoFeatureExtractor
+
+    t_phase = time.perf_counter()
+    with np.load(fixture or jax_init.FIXTURE) as z:
+        fx = {k: z[k] for k in z.files}
+    meta = json.loads(str(fx["meta"]))
+    log(f"JAX weights: fixture of jax {meta['jax']} / flax {meta['flax']}, "
+        f"{meta['samples']} samples a leaf")
+    vcfg, wcfg = ViViTConfig(), Wav2Vec2Config()
+
+    # 1. Both full trees regenerated on the card, timed.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trees = {"vivit": jax_init.vivit_tree(vcfg, device=dev),
+             "wav2vec2": jax_init.wav2vec2_tree(wcfg, device=dev)}
+    torch.cuda.synchronize()
+    regen_s = time.perf_counter() - t0
+    n_params = sum(v.numel() for t in trees.values()
+                   for v in jax_init.flat_leaves(t).values())
+    log(f"JAX weights: ViViT {vcfg.dim}x{vcfg.depth} and Wav2Vec2 "
+        f"{wcfg.hidden_dim}x{wcfg.num_layers} regenerated on the card in "
+        f"{regen_s:.2f} s ({n_params} params; limit {REGEN_LIMIT_S} s)")
+    if regen_s > REGEN_LIMIT_S:
+        raise AssertionError("regenerating the extractors' weights took too long")
+
+    # 2. Every leaf at the fixture's sampled indices.
+    for name, tree in trees.items():
+        leaves = jax_init.flat_leaves(tree["params"])
+        if list(leaves) != [str(n) for n in fx[f"{name}_leaves"]]:
+            raise AssertionError(f"{name}: the regenerated tree's leaves differ "
+                                 "from the fixture's")
+        got = torch.cat([
+            v.reshape(-1)[torch.as_tensor(jax_init.sample_indices(
+                v.numel(), meta["samples"]), device=dev)]
+            for v in leaves.values()]).cpu().numpy()
+        d = _ulps(got, fx[f"{name}_samples"])
+        log(f"JAX weights: {name}: {len(leaves)} leaves, {d.size} sampled "
+            f"values, {float((d == 0).mean()) * 100:.4f} % bit-equal, worst "
+            f"{int(d.max())} ulp (limit {JAX_MAX_ULP})")
+        if d.max() > JAX_MAX_ULP:
+            raise AssertionError(f"{name}: regenerated weights differ from "
+                                 "JAX's")
+
+    # 3. The default extractors hold those weights; the inputs are the
+    # fixture's.
+    chunks, waves = jax_init.reference_inputs(meta["input_seed"])
+    if jax_init.inputs_digest(chunks, waves) != str(fx["inputs_sha1"]):
+        raise AssertionError("the seeded inputs differ from the fixture's")
+    t0 = time.perf_counter()
+    video = VideoFeatureExtractor(vcfg, device=dev)
+    audio = AudioEmbedder(wcfg, device=dev)
+    torch.cuda.synchronize()
+    log(f"JAX weights: default extractors built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for model, want in ((video.model, vivit_from_flax(trees["vivit"])),
+                        (audio.model, wav2vec2_from_flax(trees["wav2vec2"]))):
+        got = model.state_dict()
+        if set(got) != set(want) or not all(torch.equal(got[k], want[k])
+                                            for k in want):
+            raise AssertionError("a default extractor's weights are not the "
+                                 "regenerated tree's")
+    del trees, want, got
+    vstate, astate = video.model.state_dict(), audio.model.state_dict()
+    f32 = dataclasses.replace
+    n_k3 = sum(k == 3 for k in wcfg.conv_kernels[1:])
+    zero = {k: 0 for k in read_launches()}
+    routes = {
+        "video f32 plain": (VideoFeatureExtractor(
+            f32(vcfg, compute_dtype="float32"), device=dev, use_kernels=False,
+            params=vstate), zero),
+        "video kernel route": (video, {**zero, "flash_attention": vcfg.depth,
+                                       "fused_ffn": vcfg.depth}),
+        "audio f32 plain": (AudioEmbedder(
+            f32(wcfg, compute_dtype="float32"), device=dev, use_kernels=False,
+            params=astate), zero),
+        "audio default route": (audio, {
+            **zero, "fused_conv_encoder": len(wcfg.conv_dims),
+            "fused_ffn": wcfg.num_layers}),
+        "audio all-kernel route": (AudioEmbedder(
+            wcfg, device=dev, params=astate, use_flash_attn=True, mega=False), {
+            **zero, "flash_attention_varlen": wcfg.num_layers,
+            "fused_ffn": wcfg.num_layers,
+            "conv_gemm_ln_gelu": len(wcfg.conv_dims) - n_k3,
+            "conv_k3_ln_gelu": n_k3}),
+        "audio bf16 plain": (AudioEmbedder(
+            wcfg, device=dev, use_kernels=False, params=astate), zero),
+        "video bf16 plain": (VideoFeatureExtractor(
+            vcfg, device=dev, use_kernels=False, params=vstate), zero),
+    }
+    feats = {}
+    for label, (ext, want) in routes.items():
+        reset_launches()
+        t0 = time.perf_counter()
+        out = (ext.embed_chunks(chunks) if label.startswith("video")
+               else ext.embed_batch(waves))
+        torch.cuda.synchronize()
+        got = read_launches()
+        log(f"JAX weights: {label}: {(time.perf_counter() - t0) * 1e3:.1f} ms, "
+            f"launches {got}")
+        if got != want:
+            raise AssertionError(f"{label}: launch counts {got}, expected {want}")
+        if not np.isfinite(out).all() or out.shape != fx[
+                "video_float32" if label.startswith("video") else
+                "audio_float32"].shape:
+            raise AssertionError(f"{label}: features {out.shape} not finite or "
+                                 "of the fixture's shape")
+        feats[label] = out
+
+    # 4. The gates.
+    def rows(a, b) -> str:
+        return np.array2string(_row_rel_l2(a, b), precision=4)
+
+    # JAX's bf16 audio features come from its Pallas route (the one the
+    # port's kernels mirror) and, apart, from its XLA route.
+    log(f"JAX weights: JAX's own features, rel-L2 a row: video bf16 vs f32 "
+        f"{rows(fx['video_bfloat16'], fx['video_float32'])}; audio bf16 vs "
+        f"f32 {rows(fx['audio_bfloat16'], fx['audio_float32'])}, its XLA "
+        f"route's bf16 vs f32 {rows(fx['audio_bfloat16_xla'], fx['audio_float32'])}"
+        f", bf16 Pallas vs XLA route "
+        f"{rows(fx['audio_bfloat16'], fx['audio_bfloat16_xla'])}")
+    # Every distance is logged before any gate is applied.
+    for label, out in feats.items():
+        kind = label.split()[0]
+        xla = (f", bf16 XLA route {rows(out, fx['audio_bfloat16_xla'])}"
+               if kind == "audio" else "")
+        log(f"JAX weights: {label} vs JAX's features, rel-L2 a row: f32 "
+            f"{rows(out, fx[f'{kind}_float32'])}, bf16 "
+            f"{rows(out, fx[f'{kind}_bfloat16'])}{xla}")
+    failed = []
+    for label, ref, limit in (
+            ("video f32 plain", "video_float32", JAX_F32_REL_L2),
+            ("audio f32 plain", "audio_float32", JAX_F32_REL_L2),
+            ("audio default route", "audio_bfloat16", EMBED_REL_L2),
+            ("audio all-kernel route", "audio_bfloat16", EMBED_REL_L2)):
+        if not np.all(_row_rel_l2(feats[label], fx[ref]) <= limit):
+            failed.append(f"{label} vs JAX's {ref} (limit {limit} a row)")
+    # Video over both chunks: the bf16 floor varies from row to row.
+    rel = _rel_l2(feats["video kernel route"], fx["video_float32"])
+    floor = _rel_l2(fx["video_bfloat16"], fx["video_float32"])
+    log(f"JAX weights: video kernel route vs JAX's f32 features over both "
+        f"chunks {rel:.4e}; JAX's bf16 vs f32 {floor:.4e}; ratio "
+        f"{rel / floor:.3f} (limit {JAX_VIDEO_BF16_FACTOR})")
+    if rel > JAX_VIDEO_BF16_FACTOR * floor:
+        failed.append("video kernel route vs JAX's f32 features")
+    if failed:
+        raise AssertionError("features beyond their limits from the JAX "
+                             f"package's: {failed}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"JAX weights: phase {phase_s:.2f} s wall (limit {JAX_PHASE_LIMIT_S} s)")
+    if phase_s > JAX_PHASE_LIMIT_S:
+        raise AssertionError("the JAX-weights phase took too long")
 
 
 def _rel_l2(a, b) -> float:

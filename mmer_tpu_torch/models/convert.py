@@ -1,15 +1,17 @@
-"""JAX parameter trees → the port's state dicts, and the fusion model's back
-(:func:`fusion_to_flax`, for writing flax checkpoints).
+"""JAX parameter trees → the port's state dicts, and back
+(:func:`vivit_to_flax`, :func:`wav2vec2_to_flax`, :func:`fusion_to_flax`, for
+writing flax ``.msgpack`` files the JAX package reads).
 
-Each function takes the flax params of one model as a nested dict of numpy
-arrays (with or without the outer ``{"params": ...}``) and returns a state
-dict for the port's module.  Layouts: flax ``Dense`` kernels are (in, out)
-and ``nn.Linear`` weights (out, in); ``DenseGeneral`` q/k/v kernels are
-(d, heads, head_dim) and out kernels (heads, head_dim, d); flax conv
-kernels are (k, in/groups, out) and ``nn.Conv1d`` weights (out, in/groups, k).
+Each ``*_from_flax`` function takes the flax params of one model as a nested
+dict of numpy arrays or torch tensors (with or without the outer
+``{"params": ...}``) and returns a state dict for the port's module; torch
+tensors stay on their device (``models/jax_init.py`` draws them there).
+Layouts: flax ``Dense`` kernels are (in, out) and ``nn.Linear`` weights
+(out, in); ``DenseGeneral`` q/k/v kernels are (d, heads, head_dim) and out
+kernels (heads, head_dim, d); flax conv kernels are (k, in/groups, out) and
+``nn.Conv1d`` weights (out, in/groups, k).
 
-The converters need numpy only, not JAX: the tests run them on the JAX
-package's seeded params so both packages compute with the same weights.
+The converters need numpy and torch only, not JAX.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ StateDict = Dict[str, torch.Tensor]
 
 
 def _t(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.float()
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
@@ -39,12 +43,12 @@ def _dense(tree: Mapping) -> StateDict:
 
 def _dense_general(tree: Mapping) -> StateDict:
     """(d, h, hd) or (h, hd, d) kernel → a (d_out, d_in) Linear weight."""
-    k = np.asarray(tree["kernel"])
+    k = _t(tree["kernel"])
     if np.ndim(tree["bias"]) == 2:        # q/k/v: kernel (d, h, hd)
         w = k.reshape(k.shape[0], -1)
     else:                                 # out: kernel (h, hd, d)
         w = k.reshape(-1, k.shape[-1])
-    return {"weight": _t(w).t().contiguous(), "bias": _t(tree["bias"]).reshape(-1)}
+    return {"weight": w.t().contiguous(), "bias": _t(tree["bias"]).reshape(-1)}
 
 
 def _norm(tree: Mapping) -> StateDict:
@@ -187,60 +191,116 @@ def _sorted_tree(tree):
     return tree
 
 
+def _dense_to(sd, prefix: str) -> dict:
+    out = {"kernel": _np(sd[f"{prefix}.weight"].t())}
+    if f"{prefix}.bias" in sd:
+        out["bias"] = _np(sd[f"{prefix}.bias"])
+    return out
+
+
+def _heads_to(sd, prefix: str, num_heads: int, out_proj: bool) -> dict:
+    """A ``DenseGeneral`` over heads: q/k/v kernels (d, h, hd) with biases
+    (h, hd), or the out kernel (h, hd, d) with its bias (d,)."""
+    w, b = sd[f"{prefix}.weight"].t(), sd[f"{prefix}.bias"]
+    if out_proj:
+        return {"kernel": _np(w.reshape(num_heads, -1, w.shape[1])),
+                "bias": _np(b)}
+    return {"kernel": _np(w.reshape(w.shape[0], num_heads, -1)),
+            "bias": _np(b.reshape(num_heads, -1))}
+
+
+def _norm_to(sd, prefix: str) -> dict:
+    return {"scale": _np(sd[f"{prefix}.weight"]), "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def _conv_to(sd, prefix: str) -> dict:
+    return {"kernel": _np(sd[f"{prefix}.weight"].permute(2, 1, 0)),
+            "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def vivit_to_flax(sd: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of :func:`vivit_from_flax`: ``{"params": tree}`` of numpy
+    float32 arrays, keys sorted, as ``init_vivit_params`` gives it and the JAX
+    extractor writes it."""
+    p = {"embed": {"proj": _dense_to(sd, "embed.proj")},
+         "pos_embed": _np(sd["pos_embed"])}
+    if "cls_token" in sd:
+        p["cls_token"] = _np(sd["cls_token"])
+    i = 0
+    while f"blocks.{i}.norm1.weight" in sd:
+        pre = f"blocks.{i}"
+        p[f"block_{i}"] = {
+            **{n: _norm_to(sd, f"{pre}.{n}") for n in ("norm1", "norm2")},
+            **{n: _dense_to(sd, f"{pre}.{n}")
+               for n in ("to_qkv", "to_out", "ffn_in", "ffn_out")}}
+        i += 1
+    return _sorted_tree({"params": p})
+
+
+def wav2vec2_to_flax(sd: Mapping[str, torch.Tensor], num_heads: int) -> dict:
+    """The inverse of :func:`wav2vec2_from_flax`: ``{"params": tree}`` of
+    numpy float32 arrays, keys sorted (``num_heads`` shapes the attention
+    kernels), as ``AudioEmbedder._seeded_params`` gives it."""
+    enc = {}
+    i = 0
+    while f"feature_encoder.convs.{i}.weight" in sd:
+        enc[f"conv_{i}"] = _conv_to(sd, f"feature_encoder.convs.{i}")
+        if f"feature_encoder.norms.{i}.weight" in sd:
+            enc[f"conv_ln_{i}"] = _norm_to(sd, f"feature_encoder.norms.{i}")
+        i += 1
+    p = {"feature_encoder": enc, "proj_norm": _norm_to(sd, "proj_norm"),
+         "proj": _dense_to(sd, "proj"),
+         "pos_conv": {"conv": _conv_to(sd, "pos_conv.conv")},
+         "final_norm": _norm_to(sd, "final_norm")}
+    i = 0
+    while f"layers.{i}.norm_attn.weight" in sd:
+        pre = f"layers.{i}"
+        p[f"layer_{i}"] = {
+            **{n: _norm_to(sd, f"{pre}.{n}") for n in ("norm_attn", "norm_ffn")},
+            **{n: _heads_to(sd, f"{pre}.{n}", num_heads, n == "out")
+               for n in ("q", "k", "v", "out")},
+            **{n: _dense_to(sd, f"{pre}.{n}") for n in ("ffn_in", "ffn_out")}}
+        i += 1
+    return _sorted_tree({"params": p})
+
+
 def fusion_to_flax(sd: Mapping[str, torch.Tensor], num_heads: int) -> dict:
     """The inverse of :func:`fusion_from_flax`: a fusion state dict → the
     ``mmer_tpu`` model's params tree of numpy float32 arrays, keys sorted
     (``num_heads`` shapes the attention kernels).  A batchnorm model's
     running statistics make it ``{"params", "batch_stats"}``, as the JAX
     trainer writes such a model."""
-    def dense(prefix):
-        out = {"kernel": _np(sd[f"{prefix}.weight"].t())}
-        if f"{prefix}.bias" in sd:
-            out["bias"] = _np(sd[f"{prefix}.bias"])
-        return out
-
-    def heads(prefix, out_proj):
-        w, b = sd[f"{prefix}.weight"].t(), sd[f"{prefix}.bias"]
-        if out_proj:              # (h·hd, d) → (h, hd, d); bias (d,)
-            return {"kernel": _np(w.reshape(num_heads, -1, w.shape[1])),
-                    "bias": _np(b)}
-        return {"kernel": _np(w.reshape(w.shape[0], num_heads, -1)),
-                "bias": _np(b.reshape(num_heads, -1))}
-
-    def norm(prefix):
-        return {"scale": _np(sd[f"{prefix}.weight"]),
-                "bias": _np(sd[f"{prefix}.bias"])}
-
     stats: dict = {}
 
     def token_norm(part, name):
         prefix = f"{part}.{name}"
         if f"{prefix}.ln.weight" in sd:
-            return {"LayerNorm_0": norm(f"{prefix}.ln")}
+            return {"LayerNorm_0": _norm_to(sd, f"{prefix}.ln")}
         stats.setdefault(part, {})[name] = {"BatchNorm_0": {
             "mean": _np(sd[f"{prefix}.bn.running_mean"]),
             "var": _np(sd[f"{prefix}.bn.running_var"])}}
-        return {"BatchNorm_0": norm(f"{prefix}.bn")}
+        return {"BatchNorm_0": _norm_to(sd, f"{prefix}.bn")}
 
-    fusion = {name: dense(f"fusion.{name}") for name in ("video_proj", "audio_proj")}
+    fusion = {name: _dense_to(sd, f"fusion.{name}")
+              for name in ("video_proj", "audio_proj")}
     for name in ("norm_video", "norm_audio", "out_norm"):
         fusion[name] = token_norm("fusion", name)
     fusion["pos_embed"] = _np(sd["fusion.pos_embed"])
     i = 0
     while f"fusion.layers.{i}.norm1.weight" in sd:
         pre = f"fusion.layers.{i}"
-        layer = {"self_attn": {name: heads(f"{pre}.self_attn.{name}",
-                                           name == "out")
+        layer = {"self_attn": {name: _heads_to(sd, f"{pre}.self_attn.{name}",
+                                               num_heads, name == "out")
                                for name in ("query", "key", "value", "out")}}
         for name in ("norm1", "norm2"):
-            layer[name] = norm(f"{pre}.{name}")
+            layer[name] = _norm_to(sd, f"{pre}.{name}")
         for name in ("ffn_in", "ffn_out"):
-            layer[name] = dense(f"{pre}.{name}")
+            layer[name] = _dense_to(sd, f"{pre}.{name}")
         fusion[f"layer_{i}"] = layer
         i += 1
-    classifier = {"out": dense("classifier.out")}
+    classifier = {"out": _dense_to(sd, "classifier.out")}
     for i in range(2):
-        classifier[f"hidden_{i}"] = dense(f"classifier.hidden_{i}")
+        classifier[f"hidden_{i}"] = _dense_to(sd, f"classifier.hidden_{i}")
         classifier[f"norm_{i}"] = token_norm("classifier", f"norm_{i}")
     params = {"fusion": fusion, "classifier": classifier}
     if stats:

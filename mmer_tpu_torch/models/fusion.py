@@ -40,7 +40,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from mmer_tpu_torch.config import ModelConfig, torch_dtype
-from mmer_tpu_torch.models.layers import LayerNorm, dense, init_like_flax
+from mmer_tpu_torch.models import jax_init
+from mmer_tpu_torch.models.convert import fusion_from_flax
+from mmer_tpu_torch.models.layers import LayerNorm, dense
 from mmer_tpu_torch.ops.masked_ops import (attention_bias_from_pad_mask,
                                            masked_mean_pool)
 
@@ -310,15 +312,18 @@ class MultimodalEmotionModel(nn.Module):
         return torch.softmax(logits, dim=-1), logits, attn
 
 
-def init_fusion(cfg: ModelConfig, *, device: torch.device | str,
-                generator: torch.Generator) -> MultimodalEmotionModel:
-    """A seeded fusion model from flax's initializer families (Dense
-    ``lecun_normal`` with zero bias, norms (1, 0) with running statistics
-    (0, 1), ``pos_embed`` N(0, 0.02)), in evaluation mode."""
+def init_fusion(cfg: ModelConfig, *, device: torch.device | str, seed: int = 0,
+                key: Optional[jax_init.Key] = None,
+                jitted: bool = False) -> MultimodalEmotionModel:
+    """The JAX trainer's initial fusion model for ``seed`` (init key
+    ``split(PRNGKey(seed))[1]``; ``key`` replaces it, as the JAX engine's
+    seeded head uses ``PRNGKey(0)``), drawn on ``device`` without JAX
+    (:mod:`~mmer_tpu_torch.models.jax_init`), in evaluation mode.
+    ``jitted``: ``pos_embed`` as a jitted JAX ``init`` rounds it (the JAX
+    engine's and ``train_many_seeds``' inits; ``train_model``'s is eager)."""
     model = MultimodalEmotionModel(cfg, device=device)
-    init_like_flax(model, generator)
-    with torch.no_grad():
-        model.fusion.pos_embed.normal_(0.0, 0.02, generator=generator)
+    model.load_state_dict(fusion_from_flax(jax_init.fusion_tree(
+        cfg, seed, device=device, key=key, jitted=jitted)))
     return model.eval()
 
 

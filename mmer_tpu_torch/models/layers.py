@@ -1,23 +1,19 @@
 """Building blocks shared by the port's models: the flax-semantics
-LayerNorm module and the flax initializer families used for seeded,
-port-native weights."""
+LayerNorm module, flax's ``Dense`` rounding, and the extractors' params
+files."""
 
 from __future__ import annotations
 
-import math
 import os
-from typing import Optional
+from typing import Callable, Mapping, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mmer_tpu_torch.core import msgpack
 from mmer_tpu_torch.ops.fused_blocks import layer_norm
-
-# flax's truncated-normal variance scaling divides by the stddev of a unit
-# normal truncated to [-2, 2].
-_TRUNC_STD = 0.87962566103423978
 
 
 class LayerNorm(nn.Module):
@@ -49,49 +45,54 @@ def dense(x: torch.Tensor, lin: nn.Linear, dt: torch.dtype) -> torch.Tensor:
     return y if lin.bias is None else y + lin.bias.to(dt)
 
 
-@torch.no_grad()
-def lecun_normal_(w: torch.Tensor, fan_in: int,
-                  generator: torch.Generator) -> torch.Tensor:
-    """flax ``lecun_normal``: truncated normal, variance 1/fan_in."""
-    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-    return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
-                                 generator=generator)
-
-
-@torch.no_grad()
-def init_like_flax(module: nn.Module, generator: torch.Generator) -> None:
-    """Draw every Linear and Conv1d weight of ``module`` from flax's Dense /
-    Conv default (``lecun_normal``, zero bias); LayerNorms start at
-    (1, 0).  Parameters outside these layers are left to the caller."""
-    for mod in module.modules():
-        if isinstance(mod, nn.Linear):
-            lecun_normal_(mod.weight, mod.in_features, generator)
-        elif isinstance(mod, nn.Conv1d):
-            lecun_normal_(mod.weight, mod.weight[0].numel(), generator)
-        elif isinstance(mod, LayerNorm):
-            mod.weight.fill_(1.0)
-            mod.bias.zero_()
-            continue
-        else:
-            continue
-        if mod.bias is not None:
-            mod.bias.zero_()
-
-
 def param_generator(seed: int, device: torch.device | str) -> torch.Generator:
+    """A torch generator on ``device`` seeded with ``seed`` (the trainer's
+    per-step draws: dropout)."""
     return torch.Generator(device=torch.device(device)).manual_seed(seed)
 
 
-def load_or_save_params(model: nn.Module, params: Optional[dict],
-                        params_path: Optional[str]) -> None:
-    """Load ``params`` (a state dict) into ``model``; else load the ``.npz``
-    at ``params_path`` if it exists, or save the model's weights there."""
-    if params is None and params_path:
-        if os.path.exists(params_path):
-            with np.load(params_path) as z:
-                params = {k: torch.from_numpy(z[k]) for k in z.files}
-        else:
-            np.savez(params_path, **{k: v.detach().cpu().numpy()
-                                     for k, v in model.state_dict().items()})
-    if params is not None:
-        model.load_state_dict({k: torch.as_tensor(v) for k, v in params.items()})
+def read_params(path: str, from_flax: Callable[[Mapping], dict]) -> dict:
+    """A params file → a state dict: a flax ``.msgpack`` of the JAX model's
+    params (as ``mmer_tpu.train.checkpoint.save_params_msgpack`` writes it)
+    through ``from_flax``, or an ``.npz`` of the state dict."""
+    if path.endswith(".msgpack"):
+        with open(path, "rb") as f:
+            return from_flax(msgpack.unpackb(f.read()))
+    with np.load(path) as z:
+        return {k: torch.from_numpy(z[k]) for k in z.files}
+
+
+def write_params(path: str, state: Mapping[str, torch.Tensor],
+                 to_flax: Callable[[Mapping], dict]) -> None:
+    """A state dict → a params file: ``.msgpack`` in the JAX layout (the
+    tree ``to_flax`` gives, readable by ``load_params_msgpack``), else
+    ``.npz``."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    if path.endswith(".msgpack"):
+        with open(path, "wb") as f:
+            f.write(msgpack.packb(to_flax(state)))
+    else:
+        np.savez(path, **{k: v.detach().cpu().numpy() for k, v in state.items()})
+
+
+def load_or_save_params(make: Callable[[], nn.Module],
+                        init: Callable[[], nn.Module],
+                        params: Optional[Mapping], params_path: Optional[str], *,
+                        from_flax: Callable[[Mapping], dict],
+                        to_flax: Callable[[Mapping], dict]) -> nn.Module:
+    """An extractor in evaluation mode: ``make()`` with ``params`` (a state
+    dict) loaded; else with the params file at ``params_path`` if it exists
+    (:func:`read_params`); else ``init()``, the JAX package's seeded weights,
+    written to ``params_path`` when one is named (:func:`write_params`).  A
+    ``.npz`` written before the port drew JAX's weights holds torch-drawn
+    ones: delete it to return to the seeded default."""
+    if params is None and params_path and os.path.exists(params_path):
+        params = read_params(params_path, from_flax)
+    if params is None:
+        model = init()
+        if params_path:
+            write_params(params_path, model.state_dict(), to_flax)
+        return model.eval()
+    model = make()
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in params.items()})
+    return model.eval()

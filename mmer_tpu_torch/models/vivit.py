@@ -19,8 +19,9 @@ import torch
 from torch import nn
 
 from mmer_tpu_torch.config import ViViTConfig, compute_dtype_limit, torch_dtype
-from mmer_tpu_torch.models.layers import (LayerNorm, dense, init_like_flax,
-                                         param_generator, refuse_kernel_limit)
+from mmer_tpu_torch.models import jax_init
+from mmer_tpu_torch.models.convert import vivit_from_flax
+from mmer_tpu_torch.models.layers import LayerNorm, dense, refuse_kernel_limit
 from mmer_tpu_torch.ops.flash_attention import (attention_limits, flash_attention,
                                                 reference_attention)
 from mmer_tpu_torch.ops.fused_blocks import ffn_limits, ffn_reference, fused_ffn
@@ -139,18 +140,11 @@ class ViViTFeatureExtractor(nn.Module):
 
 
 def init_vivit(cfg: ViViTConfig, *, device: torch.device | str,
-               generator: torch.Generator | None = None,
                use_kernels: bool = True) -> ViViTFeatureExtractor:
-    """A seeded ViViT drawn from flax's initializer families (Dense
-    ``lecun_normal`` with zero bias, LayerNorm (1, 0), ``cls_token`` and
-    ``pos_embed`` N(0, 1)); the generator defaults to ``cfg.param_seed``
-    on ``device``.  Torch's RNG cannot reproduce the JAX draws: the values
-    differ from the JAX package's, the distributions do not."""
+    """The JAX package's seeded ViViT, ``init_vivit_params(cfg)`` for
+    ``cfg.param_seed``, drawn on ``device`` without JAX
+    (:mod:`~mmer_tpu_torch.models.jax_init`): the fixed random projection
+    both packages extract and serve with."""
     model = ViViTFeatureExtractor(cfg, device=device, use_kernels=use_kernels)
-    g = generator or param_generator(cfg.param_seed, device)
-    init_like_flax(model, g)
-    with torch.no_grad():
-        if model.cls_token is not None:
-            model.cls_token.normal_(0.0, 1.0, generator=g)
-        model.pos_embed.normal_(0.0, 1.0, generator=g)
+    model.load_state_dict(vivit_from_flax(jax_init.vivit_tree(cfg, device=device)))
     return model.eval()

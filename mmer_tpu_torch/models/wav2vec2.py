@@ -34,8 +34,9 @@ from torch import nn
 
 from mmer_tpu_torch.config import Wav2Vec2Config, compute_dtype_limit, torch_dtype
 from mmer_tpu_torch.core.buckets import batch_bucket
-from mmer_tpu_torch.models.layers import (LayerNorm, dense, init_like_flax,
-                                         load_or_save_params, param_generator,
+from mmer_tpu_torch.models import jax_init
+from mmer_tpu_torch.models.convert import wav2vec2_from_flax, wav2vec2_to_flax
+from mmer_tpu_torch.models.layers import (LayerNorm, dense, load_or_save_params,
                                          refuse_kernel_limit)
 from mmer_tpu_torch.ops import conv_pyramid
 from mmer_tpu_torch.ops.conv_pyramid import (conv_encoder_reference,
@@ -235,16 +236,16 @@ class Wav2Vec2Encoder(nn.Module):
 
 
 def init_wav2vec2(cfg: Wav2Vec2Config, *, device: torch.device | str,
-                  generator: torch.Generator | None = None,
                   use_kernels: bool = True,
                   use_flash_attn: Optional[bool] = None,
                   mega: bool = True) -> Wav2Vec2Encoder:
-    """A seeded Wav2Vec2 drawn from flax's initializer families (Dense and
-    Conv ``lecun_normal`` with zero bias, LayerNorm (1, 0)); the generator
-    defaults to ``cfg.param_seed`` on ``device``."""
+    """The JAX package's seeded Wav2Vec2, ``AudioEmbedder(cfg)``'s params for
+    ``cfg.param_seed``, drawn on ``device`` without JAX
+    (:mod:`~mmer_tpu_torch.models.jax_init`)."""
     model = Wav2Vec2Encoder(cfg, device=device, use_kernels=use_kernels,
                             use_flash_attn=use_flash_attn, mega=mega)
-    init_like_flax(model, generator or param_generator(cfg.param_seed, device))
+    model.load_state_dict(wav2vec2_from_flax(
+        jax_init.wav2vec2_tree(cfg, device=device)))
     return model.eval()
 
 
@@ -259,9 +260,11 @@ class AudioEmbedder:
     normalised again on the host.
 
     ``params``: a state dict for :class:`Wav2Vec2Encoder`; else
-    ``params_path`` (``.npz``) is loaded if it exists and written with the
-    seeded weights if not; else the weights are seeded from
-    ``cfg.param_seed``.
+    ``params_path`` (a flax ``.msgpack`` of the JAX encoder's params, as
+    ``port_wav2vec2`` writes a converted HF checkpoint, or an ``.npz`` state
+    dict) is loaded if it exists and written with the seeded weights if not;
+    else the weights are the JAX package's seeded init for ``cfg.param_seed``
+    (:func:`init_wav2vec2`).
 
     By default attention stays plain (``use_flash_attn=False``) and the conv
     encoder on its ``mega`` route, as in the JAX ``AudioEmbedder``; which
@@ -278,10 +281,13 @@ class AudioEmbedder:
                  use_flash_attn: bool = False, mega: bool = True):
         self.cfg = cfg or Wav2Vec2Config()
         self.device = torch.device(device)
-        self.model = init_wav2vec2(self.cfg, device=self.device,
-                                   use_kernels=use_kernels,
-                                   use_flash_attn=use_flash_attn, mega=mega)
-        load_or_save_params(self.model, params, params_path)
+        kw = dict(device=self.device, use_kernels=use_kernels,
+                  use_flash_attn=use_flash_attn, mega=mega)
+        self.model = load_or_save_params(
+            lambda: Wav2Vec2Encoder(self.cfg, **kw),
+            lambda: init_wav2vec2(self.cfg, **kw), params, params_path,
+            from_flax=wav2vec2_from_flax,
+            to_flax=lambda sd: wav2vec2_to_flax(sd, self.cfg.num_heads))
 
     def _bucket_len(self, n: int) -> int:
         step = self.cfg.sample_rate

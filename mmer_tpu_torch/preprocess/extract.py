@@ -4,9 +4,11 @@ videos → (T, 768) npy, audio → (1024,) npy.
 - Chunks from many videos are packed into fixed-size device batches and
   scattered back per video afterwards.
 - Host decode runs in a thread pool that prefetches ahead of the device.
-- ViViT params are the port's single seeded init, persisted next to the
-  features when ``--params`` names a file, so extract- and serve-time
-  embeddings agree by construction.
+- ViViT params are the JAX package's seeded init for ``param_seed``, drawn
+  without JAX (``models/jax_init.py``), so the port's features are the JAX
+  package's; ``--params`` names a file (flax ``.msgpack``, readable and
+  writable by both packages, or ``.npz``) that is read if it exists and
+  written on first use.
 
 CLI (runs on the GPU; ``--device cpu`` must be asked for):
 
@@ -35,8 +37,9 @@ import torch
 from mmer_tpu_torch.config import ViViTConfig, Wav2Vec2Config
 from mmer_tpu_torch.core.artifacts import (save_audio_features,
                                            save_video_features)
+from mmer_tpu_torch.models.convert import vivit_from_flax, vivit_to_flax
 from mmer_tpu_torch.models.layers import load_or_save_params
-from mmer_tpu_torch.models.vivit import init_vivit
+from mmer_tpu_torch.models.vivit import ViViTFeatureExtractor, init_vivit
 from mmer_tpu_torch.models.wav2vec2 import AudioEmbedder
 from mmer_tpu_torch.preprocess.audio import (audio_output_name, iter_audio_files,
                                              load_waveform)
@@ -56,9 +59,11 @@ def _require(device: torch.device | str) -> torch.device:
 class VideoFeatureExtractor:
     """Batched ViViT chunk embedder on one device.
 
-    ``params``: a state dict for the ViViT; else ``params_path`` (``.npz``)
-    is loaded if it exists and written with the seeded weights if not; else
-    the weights are seeded from ``cfg.param_seed``.
+    ``params``: a state dict for the ViViT; else ``params_path`` (a flax
+    ``.msgpack`` in the JAX layout, or an ``.npz`` state dict) is loaded if
+    it exists and written with the seeded weights if not; else the weights
+    are the JAX package's seeded init for ``cfg.param_seed``
+    (:func:`~mmer_tpu_torch.models.vivit.init_vivit`).
     """
 
     def __init__(self, cfg: Optional[ViViTConfig] = None, *,
@@ -68,9 +73,11 @@ class VideoFeatureExtractor:
         self.cfg = cfg or ViViTConfig()
         self.device = torch.device(device)
         self.device_batch = device_batch
-        self.model = init_vivit(self.cfg, device=self.device,
-                                use_kernels=use_kernels)
-        load_or_save_params(self.model, params, params_path)
+        kw = dict(device=self.device, use_kernels=use_kernels)
+        self.model = load_or_save_params(
+            lambda: ViViTFeatureExtractor(self.cfg, **kw),
+            lambda: init_vivit(self.cfg, **kw), params, params_path,
+            from_flax=vivit_from_flax, to_flax=vivit_to_flax)
 
     @torch.inference_mode()
     def embed_chunks(self, chunks, pipeline: bool = False) -> np.ndarray:
@@ -355,8 +362,7 @@ def extract_audio_folder(input_dir: str, output_dir: str,
     dataset-specific renaming of ``audio_output_name``; returns the count.
     Embeddings do not depend on the batch size (length-masked pooling).
     ``embedder`` replaces the default one built from ``cfg`` on ``device``
-    (the port cannot redraw the JAX package's seeded weights, so a caller
-    that wants them passes an embedder that holds them)."""
+    (the JAX package's seeded weights for ``cfg.param_seed``)."""
     embedder = embedder or AudioEmbedder(cfg or Wav2Vec2Config(),
                                          device=_require(device))
     count = 0
@@ -383,7 +389,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     pv.add_argument("--chunk_size", type=int, default=32)
     pv.add_argument("--device_batch", type=int, default=8)
     pv.add_argument("--params", default=None,
-                    help="persisted ViViT params, .npz (created on first use)")
+                    help="ViViT params file: a flax .msgpack in the JAX "
+                         "package's layout (its extractor's params file) or "
+                         "an .npz state dict; read if it exists, else written "
+                         "with the seeded weights")
 
     pa = sub.add_parser("audio", help="extract (1024,) audio embeddings")
     pa.add_argument("--input", required=True)

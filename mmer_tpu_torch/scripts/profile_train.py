@@ -70,8 +70,7 @@ def main(argv=None) -> dict:
         return _profile_batched(args, device, cfg, host, lengths, n_train)
     data = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
     class_weights = torch.ones(cfg.num_classes, device=device)
-    model = init_fusion(cfg, device=device,
-                        generator=param_generator(args.seed, device))
+    model = init_fusion(cfg, device=device, seed=args.seed)
     optimizer = make_optimizer(model, tcfg)
     shuffle = torch.Generator().manual_seed(args.seed)
     dropout = param_generator(args.seed + 1, device)

@@ -300,9 +300,15 @@ def main(argv=None) -> None:
                              "trainer's, the flagship's); a comma-separated "
                              "list serves a mean-probability ensemble")
     parser.add_argument("--vivit_params", default=None,
-                        help="ViViT params, .npz (created on first use)")
+                        help="ViViT params: a flax .msgpack in the JAX "
+                             "package's layout or an .npz state dict (written "
+                             "with the seeded weights if absent)")
     parser.add_argument("--wav_params", default=None,
-                        help="Wav2Vec2 params, .npz (created on first use)")
+                        help="Wav2Vec2 params: a flax .msgpack in the JAX "
+                             "package's layout (e.g. from "
+                             "mmer_tpu_torch.models.port_wav2vec2) or an .npz "
+                             "state dict (written with the seeded weights if "
+                             "absent)")
     parser.add_argument("--norm_stats", default=None,
                         help="norm_stats_*.npz from the training run")
     parser.add_argument("--max_upload_mb", type=int,

@@ -142,8 +142,8 @@ class InferenceEngine:
     ``fusion_params_path``: a ``.pth`` checkpoint (the port's own state
     dict or a reference v2 one) or a flax ``.msgpack`` one (shape
     mismatches raise), or several joined
-    by commas for an ensemble; without it the fusion weights are seeded
-    from 0, as the JAX engine's are.  After each :meth:`infer_frames` call
+    by commas for an ensemble; without it the fusion weights are the JAX
+    engine's seeded ones (init key ``PRNGKey(0)``), drawn without JAX.  After each :meth:`infer_frames` call
     :attr:`last_timings` holds the seconds spent in each of ``STAGES`` and
     the frame counts.
     """
@@ -213,7 +213,7 @@ class InferenceEngine:
         :class:`EnsembleFusion` of several, or seeded."""
         if self._fusion is None:
             from mmer_tpu_torch.models.fusion import init_fusion
-            from mmer_tpu_torch.models.layers import param_generator
+            from mmer_tpu_torch.models.jax_init import PRNGKey
             # Loud on a missing file, another format, a shape that
             # disagrees with model_cfg.
             from mmer_tpu_torch.train.checkpoint import load_fusion_checkpoint
@@ -227,9 +227,9 @@ class InferenceEngine:
             elif members:
                 self._fusion = members[0]
             else:
-                self._fusion = init_fusion(
-                    self.model_cfg, device=self.device,
-                    generator=param_generator(0, self.device))
+                # The JAX engine's seeded head: a jitted init under PRNGKey(0).
+                self._fusion = init_fusion(self.model_cfg, device=self.device,
+                                           key=PRNGKey(0), jitted=True)
         return self._fusion
 
     @property

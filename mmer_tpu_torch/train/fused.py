@@ -168,8 +168,8 @@ def _train_chunk(chunk: Sequence[int], dev_data, class_weights, splits_dev,
     train_idx, val_idx, test_idx = splits_dev
     s_count = len(chunk)
     loss_fn = _loss_fn(train_cfg)
-    models = [init_fusion(model_cfg, device=device,
-                          generator=param_generator(seed, device))
+    # JAX inits the seeds of a call under jit(vmap(...)) (train/fused.py).
+    models = [init_fusion(model_cfg, device=device, seed=seed, jitted=True)
               for seed in chunk]
     if initial_states is not None:
         for model, state in zip(models, initial_states):

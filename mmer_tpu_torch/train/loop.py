@@ -549,8 +549,7 @@ def train_model(data: DatasetArrays, splits: DataSplits,
                            "torch.cuda.is_available() is False")
     check_opt_ins(model_cfg, train_cfg)
 
-    model = init_fusion(model_cfg, device=device,
-                        generator=param_generator(seed, device))
+    model = init_fusion(model_cfg, device=device, seed=seed)
     if initial_state is not None:
         model.load_state_dict(initial_state)
     optimizer = make_optimizer(model, train_cfg)

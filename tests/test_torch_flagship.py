@@ -302,7 +302,7 @@ def test_masks_drawn_ahead_equal_the_forwards_own():
                                          fusion_dropout=0.2,
                                          classifier_dropout=0.3))
     data, _ = make_tiny_dataset(seed=4, n=150, t=3)
-    model = init_fusion(cfg, device=CPU, generator=param_generator(0, CPU))
+    model = init_fusion(cfg, device=CPU, seed=0)
     model.train()
     args = [torch.from_numpy(a[:8]) for a in (data.video, data.audio,
                                               data.pad_mask)]
@@ -617,7 +617,6 @@ def test_cli_new_flags(synthetic_feature_dirs, tmp_path, monkeypatch):
     artifacts and ``--profile_dir`` a Chrome trace."""
     from mmer_tpu_torch.data.pipeline import load_dataset
     from mmer_tpu_torch.models.fusion import init_fusion
-    from mmer_tpu_torch.models.layers import param_generator
     from mmer_tpu_torch.train import cli as port_cli
 
     vdir, adir = synthetic_feature_dirs
@@ -632,7 +631,7 @@ def test_cli_new_flags(synthetic_feature_dirs, tmp_path, monkeypatch):
                                  jnp.zeros((2, t), bool))["params"])
     b_path = str(tmp_path / "b.pth")
     port_ckpt.save_state_dict(b_path, init_fusion(
-        cfg, device=CPU, generator=param_generator(4, CPU)).state_dict())
+        cfg, device=CPU, seed=4).state_dict())
     seen = {}
     real = port_cli.train_model
 

@@ -73,6 +73,8 @@ def test_training_modules_load_no_jax_and_no_sklearn():
             "import mmer_tpu_torch.interpret.ig, mmer_tpu_torch.utils.profiling\n"
             "import mmer_tpu_torch.scripts.make_flagship\n"
             "import mmer_tpu_torch.scripts.seed_sweep\n"
+            "import mmer_tpu_torch.models.jax_init\n"
+            "import mmer_tpu_torch.models.port_wav2vec2\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
             "             ('jax', 'flax', 'optax', 'msgpack', 'sklearn',\n"
             "              'mmer_tpu'))\n"
@@ -388,8 +390,7 @@ def test_dropout_rate_scaling_and_generator():
 def test_fusion_dropout_is_on_only_in_training_mode():
     kw = dict(FUSION_KW, fusion_dropout=0.2, classifier_dropout=0.2)
     batch = _fusion_batch(8)
-    model = init_fusion(port_config.ModelConfig(**kw), device=CPU,
-                        generator=param_generator(0, CPU))
+    model = init_fusion(port_config.ModelConfig(**kw), device=CPU, seed=0)
     args = (torch.from_numpy(batch["video"]), torch.from_numpy(batch["audio"]),
             torch.from_numpy(batch["mask"]))
     assert not model.training                    # init_fusion returns .eval()
@@ -517,11 +518,17 @@ def test_train_model_matches_jax(monkeypatch, norm, loss, best_metric, lr,
     perm_iter = iter(perms)
     monkeypatch.setattr(port_loop, "epoch_permutation",
                         lambda n, generator: torch.from_numpy(next(perm_iter).copy()))
+    # The port's default initial weights for the seed are the JAX trainer's.
+    port_init = init_fusion(port_config.ModelConfig(**model_kw), device=CPU,
+                            seed=0).state_dict()
+    assert set(port_init) == set(state)
+    for name in state:
+        assert torch.equal(port_init[name], state[name]), name
     port_lrs = _record_lrs(monkeypatch, port_loop)
     got = port_loop.train_model(
         data, splits, port_config.ModelConfig(**model_kw),
         port_config.TrainConfig(**train_kw), batch_size=32, seed=0,
-        verbose=False, device="cpu", initial_state=state)
+        verbose=False, device="cpu")
 
     # The run exercises what it claims to: an early stop and an lr cut.
     assert 3 <= len(want.results) < train_kw["num_epochs"]
@@ -569,7 +576,7 @@ def test_tail_batch_padding_equals_ragged_batch():
     cw = torch.from_numpy(splits.class_weights)
 
     def fresh():
-        model = init_fusion(cfg, device=CPU, generator=param_generator(0, CPU))
+        model = init_fusion(cfg, device=CPU, seed=0)
         return model, port_loop.make_optimizer(model, tcfg)
 
     model, opt = fresh()
