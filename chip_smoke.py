@@ -113,8 +113,22 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    S = 2 (a warm pool call) and S = 4 (a 2-epoch call of four seeds), peak
    device memory, the phase's wall time.
 
-The second-to-last line is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.
+9. scale-out: a one-rank NCCL world on ``cuda:0`` (the card is one; no
+   multi-rank run takes place on it): ``VideoFeatureExtractor(mesh=)`` on
+   phase 5's 24 chunks (serial and pipelined) and ``AudioEmbedder(mesh=)``
+   on its 96 waves on both routes, bit-equal to the single-device paths with
+   the same launches; ``train_model(mesh_cfg=MeshConfig())`` for
+   ``SCALE_OUT_EPOCHS`` epochs on phase 7's 8,496 pairs (written anew from
+   its seed), rows and final weights bit-equal to the single-device run's,
+   the run log's ``"mesh"`` ``{"data": 1, "model": 1}``; the native load of
+   the pairs against numpy's (equal arrays, both timed); ``train_streaming``
+   over the same folders, every batch through the native loader, seconds an
+   epoch beside the in-memory trainer's; the scaling probe's JSON lines at
+   n = 1 and ``core.check``'s matmul rate; the phase within
+   ``SCALE_OUT_LIMIT_S``.
+
+The second-to-last line is ``{"kernels": [...]}`` (``launches_scale_out``:
+the mesh runs' launches); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -125,6 +139,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1072,9 +1087,10 @@ def _make_feature_folders(video_dir: str, audio_dir: str, rng,
     return total
 
 
-def run_training(dev) -> None:
+def run_training(dev, features: str) -> None:
     """The fusion training path at full width on a dataset of real size,
-    then serving with the trained head."""
+    then serving with the trained head.  The feature folders are written
+    under ``features``, where the scale-out phase reads them again."""
     import glob
     import tempfile
 
@@ -1086,8 +1102,8 @@ def run_training(dev) -> None:
 
     rng = np.random.default_rng(2)
     with tempfile.TemporaryDirectory(prefix="mmer_smoke_train_") as tmp:
-        video_dir, audio_dir, out_dir = (os.path.join(tmp, d) for d in
-                                         ("video", "audio", "runs"))
+        video_dir, audio_dir = (os.path.join(features, d) for d in ("video", "audio"))
+        out_dir = os.path.join(tmp, "runs")
         os.makedirs(video_dir)
         os.makedirs(audio_dir)
         t0 = time.perf_counter()
@@ -1358,8 +1374,15 @@ def main() -> int:
     file_path = run_serving_file_path(dev)
     extraction = run_extraction(dev)
     profile = run_profile_scripts()
-    request_launches = run_training(dev)
-    run_flagship_chain(dev, request_launches)
+    # The training phase's feature folders, read again by the scale-out phase.
+    features = tempfile.TemporaryDirectory(prefix="mmer_smoke_features_")
+    try:
+        request_launches = run_training(dev, features.name)
+        run_flagship_chain(dev, request_launches)
+        scale_out = run_scale_out(dev, extraction["chunks"], extraction["waves"],
+                                  features.name)
+    finally:
+        features.cleanup()
     # launches: of the main path that runs the kernel.  The serving requests
     # for the three kernels on the clip path (which the serving file path and
     # the extraction CLI also run: launches_serving_file_path,
@@ -1376,6 +1399,7 @@ def main() -> int:
          "launches_extraction_cli": extraction["cli"][name],
          "launches_extraction_all_kernel": extraction["all_kernel"][name],
          "launches_profile_scripts": profile[name],
+         "launches_scale_out": scale_out[name],
          **{k: v for k, v in r.items() if not k.startswith("shape")}}
         for name, r in kernels.items()]
     idle = [k["name"] for k in lines if k["launches"] < 1]
@@ -2157,7 +2181,8 @@ def run_extraction(dev) -> dict:
     from mmer_tpu_torch.config import ViViTConfig, Wav2Vec2Config
     from mmer_tpu_torch.models.wav2vec2 import AudioEmbedder
     from mmer_tpu_torch.preprocess import extract
-    from mmer_tpu_torch.preprocess.audio import audio_output_name
+    from mmer_tpu_torch.preprocess.audio import (audio_output_name,
+                                                 iter_audio_files, load_waveform)
 
     vcfg, wcfg = ViViTConfig(), Wav2Vec2Config()
     rng = np.random.default_rng(1)
@@ -2280,6 +2305,9 @@ def run_extraction(dev) -> dict:
                                      "iter_audio_embeddings")
         all_kernel_launches = counts[names[1]]
         del default, all_kernel, plain, state
+        # The folder's waves in the order the embedders read them (phase 9).
+        waves = [load_waveform(p, wcfg.sample_rate)
+                 for p in iter_audio_files(in_dir)]
 
     # 3. Video: 24 seeded chunks = three device batches, serial and pipelined.
     extractor = extract.VideoFeatureExtractor(vcfg, device=dev)
@@ -2312,7 +2340,232 @@ def run_extraction(dev) -> dict:
             + ", ".join(f"{s * 1e3:.1f} ms ({24 / s:.1f} chunks/s)"
                         for s in secs[pipeline])
             + "; 24 chunks, identical rows, attention and FFN launches 36 each")
-    return {"cli": cli_launches, "all_kernel": all_kernel_launches}
+    return {"cli": cli_launches, "all_kernel": all_kernel_launches,
+            "chunks": chunks, "waves": waves}
+
+
+# -- phase 9: the scale-out paths on a one-rank NCCL world ------------------------
+
+SCALE_OUT_LIMIT_S = 60.0
+SCALE_OUT_EPOCHS = 2
+# The global batch of the phase's training runs: a dp4 run's 4 x 64 rows.
+SCALE_OUT_BATCH = 256
+
+
+def _same_rows(tag: str, got, want) -> None:
+    if got != want:
+        raise AssertionError(f"{tag}: the mesh run's rows differ from the "
+                             f"single-device run's:\n{got}\n{want}")
+
+
+def run_scale_out(dev, chunks, waves, features: str) -> dict:
+    """Phase 9: the mesh paths (``core/mesh.py``) through a real NCCL process
+    group of one rank on the card, each held bit for bit to the single-device
+    path with exact kernel launches: ``VideoFeatureExtractor(mesh=)`` on the
+    extraction phase's 24 chunks, ``AudioEmbedder(mesh=)`` on its 96 waves
+    (both routes), the native load of the training phase's 8,496 pairs
+    (its folders under ``features``) against numpy's,
+    ``train_model(mesh_cfg=MeshConfig())`` on them, the streaming trainer
+    over the same folders (native loader), the scaling probe at n = 1 and
+    ``core.check``'s matmul rate.  Returns the mesh runs' launch counts."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mmer_tpu_torch.config import (DataConfig, MeshConfig, ModelConfig,
+                                       TrainConfig, ViViTConfig, Wav2Vec2Config)
+    from mmer_tpu_torch.core import check
+    from mmer_tpu_torch.core.mesh import create_mesh
+    from mmer_tpu_torch.data.catalog import build_catalog
+    from mmer_tpu_torch.data.pipeline import (dataset_from_features,
+                                              load_feature_arrays)
+    from mmer_tpu_torch.data.streaming import StreamingFeatureDataset
+    from mmer_tpu_torch.models.wav2vec2 import AudioEmbedder
+    from mmer_tpu_torch.parallel import scaling
+    from mmer_tpu_torch.parallel.launch import free_port
+    from mmer_tpu_torch.preprocess.extract import VideoFeatureExtractor
+    from mmer_tpu_torch.train.loop import train_model
+    from mmer_tpu_torch.train.streaming import train_streaming
+
+    t_phase = time.perf_counter()
+
+    def log(msg: str) -> None:
+        print(f"{msg} [{time.perf_counter() - t_phase:.2f} s into the phase]",
+              flush=True)
+
+    log(f"scale-out: {torch.cuda.device_count()} card(s); a one-rank NCCL world "
+        "on cuda:0 -- no multi-rank run takes place on this card")
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            rank=0, world_size=1)
+    mesh_launches = {k: 0 for k in read_launches()}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def mesh_run(fn):
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = read_launches()
+        for k, v in got.items():
+            mesh_launches[k] += v
+        return out, got
+
+    try:
+        mesh = create_mesh(MeshConfig())
+        if not mesh.active or mesh.backend != "nccl" or mesh.shape != {"data": 1, "model": 1}:
+            raise AssertionError(f"scale-out: mesh {mesh.shape} on {mesh.backend}")
+
+        # Video: the extraction phase's 24 chunks, serial and pipelined.
+        vcfg = ViViTConfig()
+        solo = VideoFeatureExtractor(vcfg, device=dev)
+        sharded = VideoFeatureExtractor(vcfg, device=dev, mesh=mesh,
+                                        params=solo.model.state_dict())
+        reset_launches()
+        want = solo.embed_chunks(chunks)
+        want_launches = read_launches()
+        for pipeline in (False, True):
+            got, launches = mesh_run(lambda: sharded.embed_chunks(chunks, pipeline=pipeline))
+            if not np.array_equal(got, want) or launches != want_launches:
+                raise AssertionError(f"scale-out video (pipeline={pipeline}): "
+                                     f"bits equal {np.array_equal(got, want)}, "
+                                     f"launches {launches} vs {want_launches}")
+        secs = [timed(lambda: e.embed_chunks(chunks))[1]
+                for e in (solo, sharded, sharded, solo)]
+        log(f"scale-out: VideoFeatureExtractor(mesh=) on {len(chunks)} chunks, "
+            f"serial and pipelined: bit-equal to the single-device rows; launches "
+            f"{ {k: v for k, v in want_launches.items() if v} } a call; single "
+            f"device {secs[0] * 1e3:.2f} / {secs[3] * 1e3:.2f} ms, mesh "
+            f"{secs[1] * 1e3:.2f} / {secs[2] * 1e3:.2f} ms a call")
+
+        # Audio: the 96 waves in the extraction phase's batches, both routes.
+        wcfg = Wav2Vec2Config()
+        default = AudioEmbedder(wcfg, device=dev)
+        state = default.model.state_dict()
+        routes = {"default": dict(), "all-kernel": dict(use_flash_attn=True, mega=False)}
+        for label, kw in routes.items():
+            solo_a = default if not kw else AudioEmbedder(wcfg, device=dev, params=state, **kw)
+            mesh_a = AudioEmbedder(wcfg, device=dev, params=state, mesh=mesh, **kw)
+
+            def embed(embedder):
+                return np.concatenate([embedder.embed_batch(waves[i:i + 64])
+                                       for i in range(0, len(waves), 64)])
+
+            reset_launches()
+            want = embed(solo_a)
+            want_launches = read_launches()
+            got, launches = mesh_run(lambda: embed(mesh_a))
+            if not np.array_equal(got, want) or launches != want_launches:
+                raise AssertionError(f"scale-out audio ({label}): bits equal "
+                                     f"{np.array_equal(got, want)}, launches "
+                                     f"{launches} vs {want_launches}")
+            secs = [timed(lambda: embed(e))[1] for e in (solo_a, mesh_a)]
+            log(f"scale-out: AudioEmbedder(mesh=) {label} route on {len(waves)} "
+                f"waves: bit-equal; launches "
+                f"{ {k: v for k, v in launches.items() if v} }; single device "
+                f"{secs[0] * 1e3:.1f} ms, mesh {secs[1] * 1e3:.1f} ms for the "
+                "two batches")
+            del solo_a, mesh_a
+        del default, state, solo, sharded
+
+        video_dir, audio_dir = (os.path.join(features, d) for d in ("video", "audio"))
+
+        # The native loader against numpy's (each route once: the numpy
+        # route takes 10-18 s).
+        catalog = build_catalog(video_dir, audio_dir, "key")
+        n = len(catalog)
+        if n != sum(CLASS_COUNTS):
+            raise AssertionError(f"scale-out: {n} pairs in the training phase's folders")
+        secs, arrays = {}, {}
+        for native in (True, False):
+            t0 = time.perf_counter()
+            arrays[native] = load_feature_arrays(catalog, use_native=native)
+            secs[native] = time.perf_counter() - t0
+        (v1, a1), (v2, a2) = arrays[True], arrays[False]
+        if not (np.array_equal(a1, a2) and len(v1) == len(v2) == n
+                and all(np.array_equal(x, y) for x, y in zip(v1, v2))):
+            raise AssertionError("scale-out: the native load differs from numpy's")
+        log(f"scale-out: {n} pairs loaded natively in {secs[True]:.3f} s, through "
+            f"numpy in {secs[False]:.3f} s; equal arrays")
+
+        # Training: single device, then the one-rank mesh, same seed, on
+        # load_dataset's arrays from the native load above.
+        data, splits = dataset_from_features(
+            v1, a1, np.asarray([e.label for e in catalog], np.int32),
+            [e.key for e in catalog], DataConfig(video_feat_dir=video_dir,
+                                                 audio_feat_dir=audio_dir))
+        model_cfg = ModelConfig(max_seq_len=data.max_chunks + 1)
+        train_cfg = TrainConfig(num_epochs=SCALE_OUT_EPOCHS, lr=1e-4,
+                                save_checkpoints=False)
+        solo_out = train_model(data, splits, model_cfg, train_cfg,
+                               batch_size=SCALE_OUT_BATCH, verbose=False, device=dev)
+        mesh_out, launches = mesh_run(lambda: train_model(
+            data, splits, model_cfg, train_cfg, batch_size=SCALE_OUT_BATCH,
+            verbose=False, device=dev, mesh_cfg=MeshConfig()))
+        _same_rows("train_model", mesh_out.results, solo_out.results)
+        for k, v in solo_out.final_params.items():
+            if not torch.equal(mesh_out.final_params[k], v):
+                raise AssertionError(f"scale-out: final weight {k} differs")
+        if mesh_out.hyperparameters["mesh"] != {"data": 1, "model": 1} \
+                or any(launches.values()):
+            raise AssertionError(f"scale-out: run log mesh "
+                                 f"{mesh_out.hyperparameters['mesh']}, "
+                                 f"launches {launches}")
+        log(f"scale-out: train_model(mesh_cfg=MeshConfig()) {SCALE_OUT_EPOCHS} "
+            "epochs: rows and final weights bit-equal to the single-device "
+            f"run's, run log mesh {mesh_out.hyperparameters['mesh']}; training "
+            "pass " + ", ".join(f"{s:.3f}" for s in mesh_out.train_epoch_seconds)
+            + " s an epoch (single device " + ", ".join(
+                f"{s:.3f}" for s in solo_out.train_epoch_seconds) + ")")
+
+        # The streaming trainer over the same folders.
+        stats = {k: getattr(data, k) for k in ("video_mean", "video_std",
+                                               "audio_mean", "audio_std")}
+        train_ds = StreamingFeatureDataset([catalog[i] for i in splits.train],
+                                           SCALE_OUT_BATCH, data.max_chunks,
+                                           norm_stats=stats)
+        val_ds = StreamingFeatureDataset([catalog[i] for i in splits.val],
+                                         SCALE_OUT_BATCH, data.max_chunks,
+                                         norm_stats=stats)
+        t0 = time.perf_counter()
+        stream = train_streaming(train_ds, val_ds, model_cfg, train_cfg,
+                                 splits.class_weights, verbose=False, device=dev)
+        torch.cuda.synchronize()
+        stream_s = (time.perf_counter() - t0) / SCALE_OUT_EPOCHS
+        rows = stream["results"]
+        losses = [r[k] for r in rows for k in ("train_loss", "val_loss")]
+        if len(rows) != SCALE_OUT_EPOCHS or not np.isfinite(losses).all() \
+                or train_ds.native_batches != SCALE_OUT_EPOCHS * len(train_ds) \
+                or val_ds.native_batches != SCALE_OUT_EPOCHS * len(val_ds):
+            raise AssertionError(f"scale-out: streaming rows {rows}, native "
+                                 f"batches {train_ds.native_batches} / "
+                                 f"{val_ds.native_batches}")
+        wall = mesh_out.hyperparameters["train_wall_seconds"] / SCALE_OUT_EPOCHS
+        log(f"scale-out: train_streaming {SCALE_OUT_EPOCHS} epochs, every "
+            f"batch through the native loader: {stream_s:.3f} s an epoch "
+            f"with its evaluation, against {wall:.3f} s for train_model's "
+            "in-memory epochs; train loss "
+            + ", ".join(f"{r['train_loss']:.4f}" for r in rows))
+
+        # The scaling probe at n = 1, and the matmul rate.
+        for leg, fn in (("extract", lambda: scaling.measure_extract_scaling(1, device=dev)),
+                        ("train", lambda: scaling.measure_train_scaling(1, device=dev))):
+            print(json.dumps({"scaling": leg, **fn()}), flush=True)
+        rate = check.matmul_rate()
+        log(f"scale-out: core.check bf16 {rate['n']}^3 matmul {rate['ms']:.4f} ms, "
+            f"{rate['tflops']:.1f} TFLOP/s")
+    finally:
+        dist.destroy_process_group()
+    phase_s = time.perf_counter() - t_phase
+    log(f"scale-out: phase {phase_s:.2f} s wall (limit {SCALE_OUT_LIMIT_S} s)")
+    if phase_s > SCALE_OUT_LIMIT_S:
+        raise AssertionError("the scale-out phase took too long")
+    return mesh_launches
 
 
 if __name__ == "__main__":

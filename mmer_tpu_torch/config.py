@@ -121,6 +121,20 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout: a (data, model) mesh over the ranks of a
+    ``torch.distributed`` world (:func:`mmer_tpu_torch.core.mesh.create_mesh`).
+    data = batch sharding, model = tensor-parallel sharding of the fusion
+    model's attention heads and FFN columns."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    # -1 = all available devices on the data axis, model axis 1.
+    data_parallel: int = -1
+    model_parallel: int = 1
+
+
+@dataclass(frozen=True)
 class ViViTConfig:
     """ViViT feature-extractor hyperparameters (reference video_extractor.py:83)."""
 

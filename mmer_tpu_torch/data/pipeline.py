@@ -18,9 +18,8 @@ Semantics preserved from the reference:
 - v1 options: per-sample normalization (train.py:176-177) and NEU
   oversampling (train.py:199-211).
 
-Two things are not a copy: :func:`load_feature_arrays` has the threaded
-``np.load`` route only, and :func:`stratified_splits` draws sklearn's split in
-numpy (the port does not depend on sklearn).
+:func:`stratified_splits` is not a copy: it draws sklearn's split in numpy
+(the port does not depend on sklearn).
 """
 
 from __future__ import annotations
@@ -69,10 +68,25 @@ def _load_entry(entry: CatalogEntry) -> Tuple[np.ndarray, np.ndarray]:
     return load_video_features(entry.video_path), load_audio_features(entry.audio_path)
 
 
-def load_feature_arrays(catalog: List[CatalogEntry], num_workers: int = 16
+def load_feature_arrays(catalog: List[CatalogEntry], num_workers: int = 16,
+                        use_native: bool = True
                         ) -> Tuple[List[np.ndarray], np.ndarray]:
-    """Bulk host load of all feature files with threaded ``np.load``; a bad
-    artifact raises a per-file :class:`ArtifactError`."""
+    """Bulk host load of all feature files.
+
+    Native route (default): the C++ thread-pool loader
+    (``data/native_loader.py``), one call for all video artifacts and one
+    for all audio; it raises if the library cannot be built.  An artifact
+    that breaks the contract sends the load through the numpy route
+    (``use_native=False``: threaded ``np.load``), which raises a per-file
+    :class:`ArtifactError`."""
+    if use_native:
+        from mmer_tpu_torch.data import native_loader
+
+        result = native_loader.load_feature_arrays_native(
+            [e.video_path for e in catalog], [e.audio_path for e in catalog],
+            n_threads=num_workers)
+        if result is not None:
+            return result
     with cf.ThreadPoolExecutor(max_workers=num_workers) as pool:
         results = list(pool.map(_load_entry, catalog))
     videos = [v for v, _ in results]

@@ -45,6 +45,8 @@ from mmer_tpu_torch.models.convert import fusion_from_flax
 from mmer_tpu_torch.models.layers import LayerNorm, dense
 from mmer_tpu_torch.ops.masked_ops import (attention_bias_from_pad_mask,
                                            masked_mean_pool)
+from mmer_tpu_torch.parallel.sharding import (copy_to_model, reduce_from_model,
+                                              sum_over_data)
 
 
 class DropoutMasks:
@@ -75,17 +77,26 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     return x * (mask / keep).to(x.dtype)
 
 
+def _dropout_sites(cfg: ModelConfig, b: int, t: int) -> List[Tuple[str, tuple, float]]:
+    """(kind, shape, rate) of every mask a training forward of a (b, t)
+    batch draws, in the order it draws them; sites at rate 0 draw nothing.
+    Kinds: "attn" (b, h, s, s) probabilities, "ffn" (b, s, ffn_dim) inner
+    activations, "rows" the rest."""
+    s, f, h = t + 1, cfg.fused_dim, cfg.fusion_heads
+    hidden = cfg.classifier_hidden_dim or cfg.fused_dim // 2
+    layer = [("attn", (b, h, s, s)), ("rows", (b, s, f)),
+             ("ffn", (b, s, cfg.fusion_ffn_dim)), ("rows", (b, s, f))]
+    sites = ([("rows", (b, s, f), cfg.fusion_dropout)]
+             + [(kind, shape, cfg.fusion_dropout)
+                for _ in range(cfg.fusion_layers) for kind, shape in layer]
+             + [("rows", (b, hidden), cfg.classifier_dropout)] * 2)
+    return [site for site in sites if site[2] > 0.0]
+
+
 def dropout_shapes(cfg: ModelConfig, b: int, t: int) -> List[Tuple[tuple, float]]:
     """(shape, rate) of every mask a training forward of a (b, t) batch
     draws, in the order it draws them; sites at rate 0 draw nothing."""
-    s, f, h = t + 1, cfg.fused_dim, cfg.fusion_heads
-    hidden = cfg.classifier_hidden_dim or cfg.fused_dim // 2
-    layer = [(b, h, s, s), (b, s, f), (b, s, cfg.fusion_ffn_dim), (b, s, f)]
-    sites = ([((b, s, f), cfg.fusion_dropout)]
-             + [(shape, cfg.fusion_dropout)
-                for _ in range(cfg.fusion_layers) for shape in layer]
-             + [((b, hidden), cfg.classifier_dropout)] * 2)
-    return [(shape, rate) for shape, rate in sites if rate > 0.0]
+    return [(shape, rate) for _, shape, rate in _dropout_sites(cfg, b, t)]
 
 
 def draw_dropout_masks(cfg: ModelConfig, b: int, t: int,
@@ -99,15 +110,41 @@ def draw_dropout_masks(cfg: ModelConfig, b: int, t: int,
     return out
 
 
+def shard_dropout_masks(cfg: ModelConfig, masks: Sequence[torch.Tensor],
+                        rows: slice, mesh) -> List[torch.Tensor]:
+    """A mesh rank's part of masks drawn for the global batch at full width
+    (:func:`draw_dropout_masks`): its ``rows`` of every mask, and on a model
+    axis its heads of each (b, h, s, s) attention-probability mask and its
+    columns of each (b, s, ffn_dim) FFN mask.  So a sharded step applies the
+    single-device step's masks."""
+    out = []
+    split = mesh is not None and mesh.mp > 1
+    kinds = [kind for kind, _, _ in _dropout_sites(cfg, 1, 0)]
+    for kind, mask in zip(kinds, masks):
+        mask = mask[rows]
+        if split and kind == "attn":
+            mask = mask[:, mesh.model_cols(cfg.fusion_heads)]
+        elif split and kind == "ffn":
+            mask = mask[..., mesh.model_cols(cfg.fusion_ffn_dim)]
+        out.append(mask)
+    return out
+
+
 class BatchNorm(nn.Module):
     """``flax.linen.BatchNorm(dtype=float32)`` over (rows, features), which
     differs from ``torch.nn.BatchNorm1d``'s defaults: momentum 0.99 in flax's
     sense (running = 0.99 * running + 0.01 * batch), eps 1e-5, the batch
     variance ``max(0, E[x²] − E[x]²)`` (biased), and the running variance
-    updated with that **biased** variance.  Float32 math and output."""
+    updated with that **biased** variance.  Float32 math and output.
+
+    With ``mesh`` set (``parallel/sharding.py:shard_params``), training
+    statistics are the global batch's: the sums of ``x`` and ``x²`` are
+    summed over the mesh's data axis, forward and backward, as XLA computes
+    them for JAX's batch-sharded step."""
 
     momentum = 0.99
     eps = 1e-5
+    mesh = None
 
     def __init__(self, dim: int, *, device: torch.device | str):
         super().__init__()
@@ -118,9 +155,16 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
-        if self.training:
+        if self.training and self.mesh is not None:
+            n = x.shape[0] * self.mesh.dp
+            sums = sum_over_data(torch.stack([x.sum(dim=0), (x * x).sum(dim=0)]),
+                                 self.mesh)
+            mean = sums[0] / n
+            var = (sums[1] / n - mean * mean).clamp_min(0.0)
+        elif self.training:
             mean = x.mean(dim=0)
             var = ((x * x).mean(dim=0) - mean * mean).clamp_min(0.0)
+        if self.training:
             with torch.no_grad():
                 self.running_mean.mul_(self.momentum).add_(
                     mean, alpha=1.0 - self.momentum)
@@ -152,14 +196,29 @@ class TokenNorm(nn.Module):
         return self.bn(x.reshape(-1, x.shape[-1])).reshape(x.shape)
 
 
+def row_parallel(x: torch.Tensor, lin: nn.Linear, dt: torch.dtype,
+                 tp) -> torch.Tensor:
+    """:func:`dense` of a row-parallel linear: the partial products summed
+    over the model axis in float32, then the bias added once."""
+    if tp is None:
+        return dense(x, lin, dt)
+    y = reduce_from_model(F.linear(x.to(dt), lin.weight.to(dt)).float(), tp)
+    return y.to(dt) + lin.bias.to(dt)
+
+
 class MultiHeadSelfAttention(nn.Module):
     """Masked multi-head self-attention: f32 scores and softmax, GEMM
-    operands in the compute dtype."""
+    operands in the compute dtype.  On a model axis (``tp``, set by
+    ``shard_params``) it holds ``num_heads`` of the heads: q, k, v
+    column-parallel, the output projection row-parallel."""
+
+    tp = None
 
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype,
                  dropout_rate: float = 0.0, *, device: torch.device | str):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
         self.dtype = dtype
         self.dropout_rate = dropout_rate
         self.query = nn.Linear(dim, dim, device=device)
@@ -170,10 +229,11 @@ class MultiHeadSelfAttention(nn.Module):
     def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor] = None,
                 return_attn: bool = False,
                 generator: Optional[torch.Generator] = None):
-        b, s, d = x.shape
+        b, s, _ = x.shape
         h = self.num_heads
-        hd = d // h
+        hd = self.head_dim
         dt = self.dtype
+        x = copy_to_model(x, self.tp)
 
         def heads(lin):
             return dense(x, lin, dt).reshape(b, s, h, hd).transpose(1, 2).float()
@@ -185,12 +245,16 @@ class MultiHeadSelfAttention(nn.Module):
         probs = dropout(torch.softmax(scores, dim=-1), self.dropout_rate,
                         self.training, generator)
         out = torch.matmul(probs.to(dt).float(), v)           # (B, H, S, hd)
-        out = dense(out.transpose(1, 2).reshape(b, s, d), self.out, dt)
+        out = row_parallel(out.transpose(1, 2).reshape(b, s, h * hd), self.out,
+                           dt, self.tp)
         return out, (probs if return_attn else None)
 
 
 class PostNormEncoderLayer(nn.Module):
-    """``x = LN(x + Drop(SA(x))); x = LN(x + Drop(W2 Drop(relu(W1 x))))``."""
+    """``x = LN(x + Drop(SA(x))); x = LN(x + Drop(W2 Drop(relu(W1 x))))``.
+    On a model axis (``tp``) W1 is column-parallel and W2 row-parallel."""
+
+    tp = None
 
     def __init__(self, dim: int, num_heads: int, ffn_dim: int,
                  dtype: torch.dtype, dropout_rate: float = 0.0, *,
@@ -212,8 +276,9 @@ class PostNormEncoderLayer(nn.Module):
 
         attn_out, probs = self.self_attn(x, attn_bias, return_attn, generator)
         x = self.norm1(x + drop(attn_out.to(x.dtype)))
-        y = dense(drop(torch.relu(dense(x, self.ffn_in, self.dtype))),
-                  self.ffn_out, self.dtype)
+        y = row_parallel(drop(torch.relu(dense(copy_to_model(x, self.tp),
+                                               self.ffn_in, self.dtype))),
+                         self.ffn_out, self.dtype, self.tp)
         x = self.norm2(x + drop(y.to(x.dtype)))
         return x, probs
 

@@ -66,13 +66,17 @@ def write_params(path: str, state: Mapping[str, torch.Tensor],
                  to_flax: Callable[[Mapping], dict]) -> None:
     """A state dict → a params file: ``.msgpack`` in the JAX layout (the
     tree ``to_flax`` gives, readable by ``load_params_msgpack``), else
-    ``.npz``."""
+    ``.npz``.  Written to a temporary name and renamed, so that the ranks
+    of a world, which may all write the same seeded weights, never read a
+    part-written file."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    if path.endswith(".msgpack"):
-        with open(path, "wb") as f:
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        if path.endswith(".msgpack"):
             f.write(msgpack.packb(to_flax(state)))
-    else:
-        np.savez(path, **{k: v.detach().cpu().numpy() for k, v in state.items()})
+        else:
+            np.savez(f, **{k: v.detach().cpu().numpy() for k, v in state.items()})
+    os.replace(tmp, path)
 
 
 def load_or_save_params(make: Callable[[], nn.Module],

@@ -34,6 +34,7 @@ from torch import nn
 
 from mmer_tpu_torch.config import Wav2Vec2Config, compute_dtype_limit, torch_dtype
 from mmer_tpu_torch.core.buckets import batch_bucket
+from mmer_tpu_torch.core.mesh import Mesh, active_mesh, pad_to_multiple
 from mmer_tpu_torch.models import jax_init
 from mmer_tpu_torch.models.convert import wav2vec2_from_flax, wav2vec2_to_flax
 from mmer_tpu_torch.models.layers import (LayerNorm, dense, load_or_save_params,
@@ -271,6 +272,14 @@ class AudioEmbedder:
     attention route is faster on the card is recorded in PERF.md, not decided
     here.  ``use_flash_attn=True, mega=False`` builds the all-kernel encoder
     (varlen flash attention, per-layer conv route).
+
+    ``mesh`` (``core/mesh.py``, every rank constructing the embedder alike):
+    the padded batch is rounded up to a multiple of the data axis, each rank
+    embeds its rows (model, pool and norm) on ``device``, and one all-gather
+    over the data axis returns all rows to every rank (JAX
+    ``models/wav2vec2.py:500-551``).  The JAX embedder's split positional
+    conv (``_SplitGroupedConv``) works around XLA's partitioner and has no
+    counterpart here.
     """
 
     def __init__(self, cfg: Optional[Wav2Vec2Config] = None, *,
@@ -278,9 +287,11 @@ class AudioEmbedder:
                  params: Optional[dict] = None,
                  params_path: Optional[str] = None,
                  use_kernels: bool = True,
-                 use_flash_attn: bool = False, mega: bool = True):
+                 use_flash_attn: bool = False, mega: bool = True,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg or Wav2Vec2Config()
         self.device = torch.device(device)
+        self.mesh = active_mesh(mesh, self.device)
         kw = dict(device=self.device, use_kernels=use_kernels,
                   use_flash_attn=use_flash_attn, mega=mega)
         self.model = load_or_save_params(
@@ -302,16 +313,29 @@ class AudioEmbedder:
         mask = np.arange(t_out)[None, :] >= frame_lens[:, None]
         n = waves.shape[0]
         n_pad = batch_bucket(n)
+        rows = slice(None)
+        if self.mesh is not None:
+            n_pad = pad_to_multiple(n_pad, self.mesh.dp)
+            rows = self.mesh.batch_rows(n_pad)
         if n_pad > n:
             waves = np.concatenate([waves, np.repeat(waves[-1:], n_pad - n, 0)])
             mask = np.concatenate([mask, np.repeat(mask[-1:], n_pad - n, 0)])
-        w = torch.from_numpy(waves).to(self.device)
-        m = torch.from_numpy(mask).to(self.device)
-        hidden = self.model(w, m)
-        keep = (~m).unsqueeze(-1).to(hidden.dtype)
-        emb = (hidden * keep).sum(1) / keep.sum(1).clamp_min(1.0)
-        emb = emb / emb.norm(dim=1, keepdim=True).clamp_min(1e-12)
+        emb = self.embed_rows(torch.from_numpy(waves[rows]).to(self.device),
+                              torch.from_numpy(mask[rows]).to(self.device))
+        if self.mesh is not None:
+            emb = self.mesh.all_gather_rows(emb)
         return emb.float().cpu().numpy()[:n]
+
+    @torch.inference_mode()
+    def embed_rows(self, waves: torch.Tensor, frame_mask: torch.Tensor
+                   ) -> torch.Tensor:
+        """Padded waveforms and their frame pad mask, on the device → the
+        L2-normalised length-masked mean of the encoder's output, per row
+        (the JAX embedder's ``apply_pool``)."""
+        hidden = self.model(waves, frame_mask)
+        keep = (~frame_mask).unsqueeze(-1).to(hidden.dtype)
+        emb = (hidden * keep).sum(1) / keep.sum(1).clamp_min(1.0)
+        return emb / emb.norm(dim=1, keepdim=True).clamp_min(1e-12)
 
     def embed_batch(self, waveforms: Sequence[np.ndarray]) -> np.ndarray:
         """list of 1-D float waveforms (16 kHz) → (B, hidden_dim) float32."""

@@ -11,7 +11,8 @@ Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`call` turns a non-zero code into an exception.
 
 Host code in C++ (``csrc/<name>.cpp``: the face detector's cascade
-evaluator) is built the same way by :func:`host_library`, with ``g++``.
+evaluator, the bulk ``.npy`` loader) is built the same way by
+:func:`host_library`, with ``g++``.
 """
 
 from __future__ import annotations
@@ -32,8 +33,9 @@ KERNELS = ("ffn", "attention", "conv_encoder", "conv_layers", "ln_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-HOST_LIBRARIES = ("cascade_eval",)
-HOST_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC")
+HOST_LIBRARIES = ("cascade_eval", "npy_loader")
+HOST_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
+              "-pthread")
 
 _locks = {name: threading.Lock() for name in KERNELS + HOST_LIBRARIES}
 _libs: dict[str, ctypes.CDLL] = {}

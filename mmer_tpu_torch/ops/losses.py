@@ -11,7 +11,11 @@
   soft target distribution at a temperature).
 
 Each takes a 0/1 ``sample_weight`` so that sentinel-padded rows of a tail
-batch contribute nothing to the loss or its gradient.  All math in float32.
+batch contribute nothing to the loss or its gradient, and a ``denominator``
+that replaces the batch's own normaliser.  :func:`loss_denominator` is the
+one rule for that normaliser: each loss divides by it, and a data-parallel
+rank passes the global batch's, so that the ranks' losses sum to the global
+batch's loss.  All math in float32.
 """
 
 from __future__ import annotations
@@ -32,21 +36,61 @@ def _per_sample_ce(logits: torch.Tensor, labels: torch.Tensor,
     return nll
 
 
+def ce_weights(labels: torch.Tensor,
+               class_weights: Optional[torch.Tensor] = None,
+               sample_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The per-row weights of :func:`weighted_cross_entropy`, whose sum is
+    its denominator."""
+    w = torch.ones_like(labels, dtype=torch.float32) if class_weights is None \
+        else class_weights.float()[labels.long()]
+    return w if sample_weight is None else w * sample_weight
+
+
+def loss_denominator(kind: str, labels: torch.Tensor,
+                     class_weights: Optional[torch.Tensor] = None,
+                     sample_weight: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """What the loss ``kind`` divides a batch's summed per-row losses by:
+    the sum of its real rows' class weights (``"weighted_ce"``,
+    :func:`ce_weights`), the count of its real rows (``"focal"``, ``"soft"``;
+    these read only the row count of ``labels``).  A data-parallel rank
+    computes it from the global batch, whose labels every rank holds."""
+    if kind == "weighted_ce":
+        return ce_weights(labels, class_weights, sample_weight).sum()
+    if kind not in ("focal", "soft"):
+        raise ValueError(f"unknown loss {kind}")
+    if sample_weight is not None:
+        return sample_weight.sum()
+    return torch.tensor(float(labels.shape[0]), device=labels.device)
+
+
 def weighted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                            class_weights: Optional[torch.Tensor] = None,
                            sample_weight: Optional[torch.Tensor] = None,
-                           label_smoothing: float = 0.0) -> torch.Tensor:
+                           label_smoothing: float = 0.0,
+                           denominator: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     ce = _per_sample_ce(logits, labels, label_smoothing)
-    w = torch.ones_like(ce) if class_weights is None \
-        else class_weights.float()[labels.long()]
-    if sample_weight is not None:
-        w = w * sample_weight
-    return (w * ce).sum() / w.sum().clamp_min(1e-12)
+    w = ce_weights(labels, class_weights, sample_weight)
+    if denominator is None:
+        denominator = loss_denominator("weighted_ce", labels, class_weights,
+                                       sample_weight)
+    return (w * ce).sum() / denominator.clamp_min(1e-12)
+
+
+def _weighted_mean(kind: str, per: torch.Tensor,
+                   sample_weight: Optional[torch.Tensor],
+                   denominator: Optional[torch.Tensor]) -> torch.Tensor:
+    num = per.sum() if sample_weight is None else (per * sample_weight).sum()
+    if denominator is None:
+        denominator = loss_denominator(kind, per, None, sample_weight)
+    return num / denominator.clamp_min(1e-12)
 
 
 def soft_cross_entropy(logits: torch.Tensor, target_probs: torch.Tensor,
                        temperature: float = 1.0,
-                       sample_weight: Optional[torch.Tensor] = None
+                       sample_weight: Optional[torch.Tensor] = None,
+                       denominator: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
     """``-sum_c q_T[c] * log_softmax(logits / T)[c]``, scaled by ``T**2`` and
     averaged over the ``sample_weight``-real rows.  The teacher arrives as
@@ -58,19 +102,16 @@ def soft_cross_entropy(logits: torch.Tensor, target_probs: torch.Tensor,
         q = torch.softmax(torch.log(q.clamp_min(1e-12)) / t, dim=-1)
     logp = torch.log_softmax(logits.float() / t, dim=-1)
     per = -(q * logp).sum(dim=-1) * (t * t)
-    if sample_weight is None:
-        return per.mean()
-    return (per * sample_weight).sum() / sample_weight.sum().clamp_min(1e-12)
+    return _weighted_mean("soft", per, sample_weight, denominator)
 
 
 def focal_loss(logits: torch.Tensor, labels: torch.Tensor, gamma: float = 2.0,
                alpha: Optional[torch.Tensor] = None,
-               sample_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+               sample_weight: Optional[torch.Tensor] = None,
+               denominator: Optional[torch.Tensor] = None) -> torch.Tensor:
     ce = _per_sample_ce(logits, labels)
     pt = torch.exp(-ce)
     fl = (1.0 - pt) ** gamma * ce
     if alpha is not None:
         fl = alpha.float()[labels.long()] * fl
-    if sample_weight is not None:
-        return (fl * sample_weight).sum() / sample_weight.sum().clamp_min(1e-12)
-    return fl.mean()
+    return _weighted_mean("focal", fl, sample_weight, denominator)

@@ -18,8 +18,12 @@ CLI (runs on the GPU; ``--device cpu`` must be asked for):
 The serving path's crop stage lives here too: :class:`SubchunkStream` crops
 raw frames on the device and embeds the uint8 subchunks without a trip back
 to the host (``VideoFeatureExtractor.embed_cropped_frames`` is its one-shot
-form).  ``extract_dataset_arrays`` waits for the trainer's raw-media route;
-sharding over several GPUs for the multi-GPU slice.
+form).  ``extract_dataset_arrays`` waits for the trainer's raw-media route.
+
+Over a mesh (``VideoFeatureExtractor(mesh=)``, the ``video`` subcommand's
+``--mesh`` under ``torchrun``) every rank embeds its rows of each device
+batch on its own device and one all-gather a batch assembles the features;
+every rank decodes the folder, and rank 0 alone writes the artifacts.
 """
 
 from __future__ import annotations
@@ -34,9 +38,12 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from mmer_tpu_torch.config import ViViTConfig, Wav2Vec2Config
+from mmer_tpu_torch.config import MeshConfig, ViViTConfig, Wav2Vec2Config
 from mmer_tpu_torch.core.artifacts import (save_audio_features,
                                            save_video_features)
+from mmer_tpu_torch.core.mesh import (Mesh, active_mesh, create_mesh,
+                                      init_from_env, is_writer,
+                                      pad_to_multiple)
 from mmer_tpu_torch.models.convert import vivit_from_flax, vivit_to_flax
 from mmer_tpu_torch.models.layers import load_or_save_params
 from mmer_tpu_torch.models.vivit import ViViTFeatureExtractor, init_vivit
@@ -57,22 +64,32 @@ def _require(device: torch.device | str) -> torch.device:
 
 
 class VideoFeatureExtractor:
-    """Batched ViViT chunk embedder on one device.
+    """Batched ViViT chunk embedder on one device, or over a mesh's data
+    axis.
 
     ``params``: a state dict for the ViViT; else ``params_path`` (a flax
     ``.msgpack`` in the JAX layout, or an ``.npz`` state dict) is loaded if
     it exists and written with the seeded weights if not; else the weights
     are the JAX package's seeded init for ``cfg.param_seed``
     (:func:`~mmer_tpu_torch.models.vivit.init_vivit`).
+
+    ``mesh`` (``core/mesh.py``, every rank constructing the extractor
+    alike): ``device_batch`` is the global batch, rounded up to a multiple
+    of the data axis; each rank embeds its rows of a batch on ``device`` and
+    one all-gather over the data axis gives every rank the batch's features
+    (JAX ``preprocess/extract.py:81-95``).
     """
 
     def __init__(self, cfg: Optional[ViViTConfig] = None, *,
                  device: torch.device | str, device_batch: int = 8,
                  params: Optional[dict] = None,
-                 params_path: Optional[str] = None, use_kernels: bool = True):
+                 params_path: Optional[str] = None, use_kernels: bool = True,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg or ViViTConfig()
         self.device = torch.device(device)
-        self.device_batch = device_batch
+        self.mesh = active_mesh(mesh, self.device)
+        self.device_batch = (device_batch if self.mesh is None else
+                             pad_to_multiple(device_batch, self.mesh.dp))
         kw = dict(device=self.device, use_kernels=use_kernels)
         self.model = load_or_save_params(
             lambda: ViViTFeatureExtractor(self.cfg, **kw),
@@ -98,10 +115,14 @@ class VideoFeatureExtractor:
         i+1 overlaps the device's work on block i.  The output is
         bit-identical to ``pipeline=False``; the default stays off as in the
         JAX extractor.
+
+        Over a mesh each rank stages and embeds its rows of every block,
+        and one all-gather a block returns the block's rows to every rank.
         """
         x_all = torch.as_tensor(chunks)
         n = x_all.shape[0]
         bs = self.device_batch
+        rows = slice(None) if self.mesh is None else self.mesh.batch_rows(bs)
         # Host blocks are staged through pinned buffers on the card; blocks
         # that are on the device already need no staging.
         on_card = self.device.type == "cuda"
@@ -121,6 +142,7 @@ class VideoFeatureExtractor:
                 block = torch.cat(
                     [block, block[-1:].expand(bs - block.shape[0],
                                               *block.shape[1:])])
+            block = block[rows]
             if pipeline and staged:
                 if len(staging) < 2:
                     staging.append(torch.empty(block.shape, dtype=block.dtype,
@@ -134,6 +156,8 @@ class VideoFeatureExtractor:
             if x.dtype == torch.uint8:
                 x = x.float() / 255.0
             feats = self.model(x)
+            if self.mesh is not None:
+                feats = self.mesh.all_gather_rows(feats)
             if not pipeline:
                 out.append(feats.cpu().numpy())
                 continue
@@ -334,14 +358,17 @@ def extract_video_folder(input_dir: str, output_dir: str,
                          device: torch.device | str = "cuda") -> int:
     """Walk ``input_dir``, write one ``(num_chunks, 768)`` npy per video to
     ``output_dir`` with the reference's artifact naming; returns the count.
-    ``device`` is where a default extractor is built."""
+    ``device`` is where a default extractor is built.  Over a mesh only rank
+    0 writes and reports."""
     extractor = extractor or VideoFeatureExtractor(device=_require(device))
+    verbose = verbose and is_writer()
     count = 0
     t0 = time.time()
     for path, feats in iter_video_features(input_dir, extractor, chunk_size,
                                            decode_workers, verbose):
         out_name = feature_output_name(path, input_dir)
-        save_video_features(os.path.join(output_dir, out_name), feats)
+        if is_writer():
+            save_video_features(os.path.join(output_dir, out_name), feats)
         count += 1
         if verbose:
             print(f"[{count}] {out_name}", flush=True)
@@ -369,7 +396,8 @@ def extract_audio_folder(input_dir: str, output_dir: str,
     for path, emb in iter_audio_embeddings(input_dir, embedder, batch_size,
                                            verbose):
         name = audio_output_name(os.path.basename(path))
-        save_audio_features(os.path.join(output_dir, name), emb)
+        if is_writer():
+            save_audio_features(os.path.join(output_dir, name), emb)
         count += 1
         if verbose:
             print(f"[{count}] {name}", flush=True)
@@ -393,6 +421,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                          "package's layout (its extractor's params file) or "
                          "an .npz state dict; read if it exists, else written "
                          "with the seeded weights")
+    pv.add_argument("--mesh", action="store_true",
+                    help="shard chunk batches over the ranks of the world "
+                         "torchrun launched (dp mesh)")
 
     pa = sub.add_parser("audio", help="extract (1024,) audio embeddings")
     pa.add_argument("--input", required=True)
@@ -407,9 +438,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parser.parse_args(argv)
     device = _require(args.device)
     if args.modality == "video":
+        mesh = None
+        if args.mesh:
+            device = init_from_env(device)
+            mesh = create_mesh(MeshConfig())
         extractor = VideoFeatureExtractor(device=device,
                                           device_batch=args.device_batch,
-                                          params_path=args.params)
+                                          params_path=args.params, mesh=mesh)
         extract_video_folder(args.input, args.output, extractor,
                              chunk_size=args.chunk_size)
     else:
@@ -419,3 +454,5 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
 if __name__ == "__main__":
     main()
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()

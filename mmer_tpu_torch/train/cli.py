@@ -15,13 +15,22 @@ port has one trainer, which takes the fused trainer's opt-ins
 (``--ema_decay``, ``--mixup_alpha``, ``--modality_dropout``,
 ``--distill_from``), and ``--raw_videos`` / ``--raw_audio``, which need a
 video decoder.
+
+Launched by ``torchrun`` (``python3 -m torch.distributed.run
+--nproc_per_node N -m mmer_tpu_torch.train.cli ...``) the run is data
+parallel over the world's ranks, one card each (gloo ranks with
+``--device cpu``), with ``--batch_size`` the global batch: the JAX CLI's
+``MeshConfig()``.  Rank 0 writes the files.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from mmer_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
+import torch
+
+from mmer_tpu_torch.config import DataConfig, MeshConfig, ModelConfig, TrainConfig
+from mmer_tpu_torch.core.mesh import init_from_env, is_writer
 from mmer_tpu_torch.data.pipeline import load_dataset
 from mmer_tpu_torch.train.loop import TrainOutput, train_model
 
@@ -86,6 +95,8 @@ def main(argv=None) -> TrainOutput:
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a GPU) or cpu")
     args = p.parse_args(argv)
+    args.device = init_from_env(args.device)
+    say = print if is_writer() else (lambda *a, **k: None)
 
     data_cfg = DataConfig(
         video_feat_dir=args.video_feat_dir,
@@ -94,7 +105,7 @@ def main(argv=None) -> TrainOutput:
         normalization=args.normalization,
         oversample_neutral=args.oversample_neutral)
     data, splits = load_dataset(data_cfg)
-    print(f"Samples: {data.num_samples}  max_chunks: {data.max_chunks}  "
+    say(f"Samples: {data.num_samples}  max_chunks: {data.max_chunks}  "
           f"train/val/test: {len(splits.train)}/{len(splits.val)}/{len(splits.test)}")
 
     model_cfg = ModelConfig(max_seq_len=data.max_chunks + 1, norm=args.norm,
@@ -122,7 +133,7 @@ def main(argv=None) -> TrainOutput:
         teachers = [load_fusion_checkpoint(path.strip(), model_cfg,
                                            args.device).state_dict()
                     for path in args.distill_from.split(",") if path.strip()]
-        print(f"Distilling from {len(teachers)} teacher checkpoint(s), "
+        say(f"Distilling from {len(teachers)} teacher checkpoint(s), "
               f"alpha={args.distill_alpha} T={args.distill_temp}")
         soft_targets = teacher_soft_targets(model_cfg, teachers, data,
                                             device=args.device)
@@ -133,9 +144,9 @@ def main(argv=None) -> TrainOutput:
         out = train_model(data, splits, model_cfg, train_cfg,
                           batch_size=args.batch_size, seed=args.seed,
                           resume_dir=args.resume_dir, device=args.device,
-                          soft_targets=soft_targets)
+                          soft_targets=soft_targets, mesh_cfg=MeshConfig())
 
-    if args.interpret:
+    if args.interpret and is_writer():
         from mmer_tpu_torch.interpret.ig import interpret_test_set
         from mmer_tpu_torch.models.fusion import MultimodalEmotionModel
 
@@ -155,11 +166,13 @@ def main(argv=None) -> TrainOutput:
     best = max((r for r in out.results if "test_macro_f1" in r),
                key=lambda r: r["test_macro_f1"], default=None)
     if best:
-        print(f"Best epoch by test macro-F1: {best['epoch']} "
+        say(f"Best epoch by test macro-F1: {best['epoch']} "
               f"(acc {best['test_acc']:.2f}%, macro-F1 {best['test_macro_f1']:.4f})")
-    print(f"Best val-loss epoch: {out.best_epoch}")
+    say(f"Best val-loss epoch: {out.best_epoch}")
     return out
 
 
 if __name__ == "__main__":
     main()
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()

@@ -49,8 +49,21 @@ does.  Every random draw goes through one small function
 then the dropout masks, from the dropout generator on the run's device; the
 epoch's ``λ`` from a host ``numpy`` generator seeded with the run's seed
 (torch has no Beta sampler that takes a generator, and a host scalar a step
-would sync).  With every opt-in at 0 nothing more is drawn.  Multi-device
-training is not part of this trainer.
+would sync).  With every opt-in at 0 nothing more is drawn.
+
+``train_model(mesh_cfg=)`` runs data- and tensor-parallel over the ranks of a
+``torch.distributed`` world (``core/mesh.py``), with JAX's sharded semantics
+(``mmer_tpu/train/loop.py:457-566``, ``train/fused.py:63-110``): the dataset
+is replicated and each rank gathers its rows of the global minibatch; every
+draw is made for the global batch from the same seed on every rank and
+sliced (dropout masks at full width, ``models/fusion.py:shard_dropout_masks``;
+mixup partners gathered by global index); each rank divides its share of a
+loss by the global batch's denominator, so the gradient all-reduce is a plain
+sum; clipping follows the reduction, with sharded tensors' squared norms
+summed over the model axis; evaluation is batch-sharded with its sums
+all-reduced; rank 0 alone writes the run's files, in the single-device
+layout.  On one rank the sharded step reproduces the single-device one bit
+for bit.
 """
 
 from __future__ import annotations
@@ -66,12 +79,17 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from mmer_tpu_torch.config import ModelConfig, TrainConfig
+from mmer_tpu_torch.config import MeshConfig, ModelConfig, TrainConfig
+from mmer_tpu_torch.core.mesh import SINGLE, Mesh, create_mesh
 from mmer_tpu_torch.data.pipeline import DataSplits, DatasetArrays
-from mmer_tpu_torch.models.fusion import MultimodalEmotionModel, init_fusion
+from mmer_tpu_torch.models.fusion import (DropoutMasks, MultimodalEmotionModel,
+                                          draw_dropout_masks, dropout_shapes,
+                                          init_fusion, shard_dropout_masks)
 from mmer_tpu_torch.models.layers import param_generator
-from mmer_tpu_torch.ops.losses import (focal_loss, soft_cross_entropy,
+from mmer_tpu_torch.ops.losses import (focal_loss, loss_denominator,
+                                       soft_cross_entropy,
                                        weighted_cross_entropy)
+from mmer_tpu_torch.parallel.sharding import gather_params, shard_params
 from mmer_tpu_torch.train import checkpoint as ckpt
 from mmer_tpu_torch.train.metrics import (accuracy_from_confusion,
                                           confusion_matrix, prf_from_confusion)
@@ -84,13 +102,25 @@ def make_optimizer(model: torch.nn.Module, cfg: TrainConfig) -> torch.optim.Adam
                             eps=1e-8, weight_decay=cfg.weight_decay)
 
 
-def clip_by_global_norm(params, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(params, max_norm: float,
+                        mesh: Optional[Mesh] = None) -> torch.Tensor:
     """optax ``clip_by_global_norm``: scale every gradient by
     ``max_norm / max(norm, max_norm)`` (``torch.nn.utils.clip_grad_norm_``
     divides by ``norm + 1e-6`` instead).  In place, without a host sync;
-    returns the norm."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    returns the norm.  On a model axis the norm is the full model's: the
+    squared norms of sharded tensors (``tp_dim``) summed over the model
+    group, replicated ones counted once."""
+    params = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in params]
+    if mesh is None or mesh.mp == 1:
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    else:
+        def sq(split: bool) -> torch.Tensor:
+            gs = [p.grad for p in params
+                  if (getattr(p, "tp_dim", None) is not None) == split]
+            return (torch.stack(torch._foreach_norm(gs)) ** 2).sum()
+
+        norm = torch.sqrt(sq(False) + mesh.all_reduce(sq(True), "model"))
     torch._foreach_mul_(grads, max_norm / torch.clamp(norm, min=max_norm))
     return norm
 
@@ -181,12 +211,17 @@ class EpochControl:
 
 
 def _loss_fn(cfg: TrainConfig) -> Callable:
+    """``loss(logits, labels, class_weights, sample_weight, den=None)``;
+    ``den`` replaces the batch's own denominator
+    (:func:`~mmer_tpu_torch.ops.losses.loss_denominator`)."""
     if cfg.loss == "weighted_ce":
-        return lambda logits, labels, cw, sw: weighted_cross_entropy(
-            logits, labels, cw, sw, label_smoothing=cfg.label_smoothing)
+        return lambda logits, labels, cw, sw, den=None: weighted_cross_entropy(
+            logits, labels, cw, sw, label_smoothing=cfg.label_smoothing,
+            denominator=den)
     if cfg.loss == "focal":
-        return lambda logits, labels, cw, sw: focal_loss(
-            logits, labels, gamma=cfg.focal_gamma, alpha=None, sample_weight=sw)
+        return lambda logits, labels, cw, sw, den=None: focal_loss(
+            logits, labels, gamma=cfg.focal_gamma, alpha=None, sample_weight=sw,
+            denominator=den)
     raise ValueError(f"unknown loss {cfg.loss}")
 
 
@@ -298,39 +333,88 @@ def draw_step(train_cfg: TrainConfig, b: int,
 
 def augmented_loss(logits_of: Callable, batch: dict, draws: StepDraws,
                    class_weights: torch.Tensor, train_cfg: TrainConfig,
-                   loss_fn: Callable) -> torch.Tensor:
+                   loss_fn: Callable, partner: Optional[dict] = None,
+                   dens: Optional[dict] = None) -> torch.Tensor:
     """The training loss of one gathered batch with the opt-ins applied, as
     ``mmer_tpu/train/fused.py:130-178`` computes it: modality dropout, then
     mixup, then ``logits_of(video, audio, mask)``, the hard loss and the
-    distillation blend."""
-    video, audio, mask = batch["video"], batch["audio"], batch["mask"]
-    labels, sw, soft = batch["labels"], batch["sw"], batch.get("soft")
+    distillation blend.
+
+    The trainer's ``batch`` is a mesh rank's rows of the global batch
+    (:func:`sharded_batch`; all of it on one device): ``partner`` holds its
+    rows' mixup partners, gathered by global index, with their own
+    modality-dropout uniforms (``"u"``), and ``dens`` the global batch's
+    denominators of the hard, mixed and soft terms (``"hard"``, ``"mix"``,
+    ``"soft"``).  The seed-batched trainer passes neither: its partners are
+    ``batch`` rows ``draws.j`` and each term divides by its own batch's
+    sum."""
+    dens = dens or {}
     rate = train_cfg.modality_dropout
-    if rate > 0.0:
-        u = draws.u
-        audio = audio * (u >= rate / 2.0).to(audio.dtype)[:, None]
-        video = video * ((u < rate / 2.0) | (u >= rate)).to(
-            video.dtype)[:, None, None]
+
+    def drop(rows, u):
+        video, audio = rows["video"], rows["audio"]
+        if rate > 0.0:
+            audio = audio * (u >= rate / 2.0).to(audio.dtype)[:, None]
+            video = video * ((u < rate / 2.0) | (u >= rate)).to(
+                video.dtype)[:, None, None]
+        return video, audio
+
+    video, audio = drop(batch, draws.u)
+    mask, labels, sw, soft = (batch["mask"], batch["labels"], batch["sw"],
+                              batch.get("soft"))
     mixup = train_cfg.mixup_alpha > 0.0
     if mixup:
         lam, j = draws.lam, draws.j
-        video = lam * video + (1.0 - lam) * video[j]
-        audio = lam * audio + (1.0 - lam) * audio[j]
+        if partner is None:
+            p_video, p_audio, p_mask = video[j], audio[j], mask[j]
+            labels_b, p_soft = labels[j], None if soft is None else soft[j]
+        else:
+            p_video, p_audio = drop(partner, partner["u"])
+            p_mask, labels_b, p_soft = (partner["mask"], partner["labels"],
+                                        partner.get("soft"))
+        video = lam * video + (1.0 - lam) * p_video
+        audio = lam * audio + (1.0 - lam) * p_audio
         # True = padded: a mixed position is real if either parent's is.
-        mask = mask & mask[j]
-        labels_b = labels[j]
+        mask = mask & p_mask
         if soft is not None:
-            soft = lam * soft + (1.0 - lam) * soft[j]
+            soft = lam * soft + (1.0 - lam) * p_soft
     logits = logits_of(video, audio, mask)
-    loss = loss_fn(logits, labels, class_weights, sw)
+    loss = loss_fn(logits, labels, class_weights, sw, dens.get("hard"))
     if mixup:
         loss = lam * loss + (1.0 - lam) * loss_fn(logits, labels_b,
-                                                  class_weights, sw)
+                                                  class_weights, sw,
+                                                  dens.get("mix"))
     alpha = train_cfg.distill_alpha
     if alpha > 0.0:
-        kd = soft_cross_entropy(logits, soft, train_cfg.distill_temp, sw)
+        kd = soft_cross_entropy(logits, soft, train_cfg.distill_temp, sw,
+                                dens.get("soft"))
         loss = (1.0 - alpha) * loss + alpha * kd
     return loss
+
+
+def sharded_batch(data: Dict[str, torch.Tensor], idx: torch.Tensor,
+                  draws: StepDraws, rows: slice, class_weights: torch.Tensor,
+                  train_cfg: TrainConfig):
+    """A mesh rank's part of the global minibatch ``idx`` (``rows``; the
+    whole batch on one device): (its rows, its rows' draws, their mixup
+    partners or None, the global denominators), as :func:`augmented_loss`
+    takes them.  Labels and sample weights of the whole batch are gathered
+    for the denominators, features only for the rank's rows and their
+    partners."""
+    safe = idx.clamp_min(0)
+    labels, sw = data["labels"][safe], (idx >= 0).float()
+    dens = {"hard": loss_denominator(train_cfg.loss, labels, class_weights, sw),
+            "soft": loss_denominator("soft", labels, None, sw)}
+    local = gather_batch(data, idx[rows])
+    u = None if draws.u is None else draws.u[rows]
+    partner = None
+    if draws.j is not None:
+        j = draws.j[rows]
+        partner = gather_batch(data, idx[j])
+        partner["u"] = None if draws.u is None else draws.u[j]
+        dens["mix"] = loss_denominator(train_cfg.loss, labels[draws.j],
+                                       class_weights, sw)
+    return local, StepDraws(u, draws.j, draws.lam), partner, dens
 
 
 @torch.no_grad()
@@ -341,6 +425,46 @@ def ema_update(ema: List[torch.Tensor], params: List[torch.Tensor],
     torch._foreach_add_(ema, params, alpha=1.0 - decay)
 
 
+def train_step(model: MultimodalEmotionModel, optimizer: torch.optim.Optimizer,
+               data: Dict[str, torch.Tensor], idx: torch.Tensor,
+               draws: StepDraws, class_weights: torch.Tensor,
+               train_cfg: TrainConfig, *,
+               dropout_generator: Optional[torch.Generator] = None,
+               ema: Optional[List[torch.Tensor]] = None,
+               mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """One optimizer step on the minibatch ``idx`` (−1 sentinels pad it)
+    with the step's opt-in ``draws``: the loss, its gradient (all-reduced
+    over the ``mesh``'s data axis), clipping, the Adam step and the EMA
+    update.  Returns this rank's share of the loss, detached.  ``idx`` is
+    the global minibatch (``mesh=None``: one device holds all of it); the
+    dropout masks are drawn for it at full width from ``dropout_generator``
+    before this rank takes its part, so every rank applies the
+    single-device step's masks."""
+    mesh = mesh or SINGLE
+    loss_fn = _loss_fn(train_cfg)
+    params = [p for p in model.parameters() if p.requires_grad]
+    b, t = idx.shape[0], data["video"].shape[1]
+    rows = mesh.batch_rows(b)
+    masks = draw_dropout_masks(
+        model.cfg, b, t, dropout_generator,
+        [torch.empty(shape, device=idx.device)
+         for shape, _ in dropout_shapes(model.cfg, b, t)])
+    local = DropoutMasks(shard_dropout_masks(model.cfg, masks, rows, mesh))
+    batch, local_draws, partner, dens = sharded_batch(
+        data, idx, draws, rows, class_weights, train_cfg)
+    loss = augmented_loss(
+        lambda v, a, m: model(v, a, m, generator=local)[1],
+        batch, local_draws, class_weights, train_cfg, loss_fn, partner, dens)
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    mesh.all_reduce_tensors([p.grad for p in params if p.grad is not None])
+    clip_by_global_norm(params, train_cfg.clip_norm, mesh)
+    optimizer.step()
+    if ema is not None:
+        ema_update(ema, params, train_cfg.ema_decay)
+    return loss.detach()
+
+
 def train_epoch(model: MultimodalEmotionModel, optimizer: torch.optim.Optimizer,
                 data: Dict[str, torch.Tensor], train_idx: torch.Tensor,
                 class_weights: torch.Tensor, train_cfg: TrainConfig,
@@ -348,15 +472,16 @@ def train_epoch(model: MultimodalEmotionModel, optimizer: torch.optim.Optimizer,
                 dropout_generator: Optional[torch.Generator] = None,
                 perm: Optional[torch.Tensor] = None,
                 mixup_rng: Optional[np.random.Generator] = None,
-                ema: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+                ema: Optional[List[torch.Tensor]] = None,
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
     """One epoch over ``train_idx`` in minibatches gathered on the device;
     returns the mean of the per-step losses as a device scalar (no host sync
     inside).  ``perm`` (a permutation of ``range(len(train_idx))``) replaces
     the shuffle drawn from ``shuffle_generator``.  ``mixup_rng`` draws the
     epoch's mixup weights; ``ema`` (tensors shaped as the model's
-    parameters) is updated after every optimizer step."""
-    loss_fn = _loss_fn(train_cfg)
-    params = [p for p in model.parameters() if p.requires_grad]
+    parameters) is updated after every optimizer step.  ``batch_size`` is
+    the global batch and this rank trains on its rows of it
+    (:func:`train_step`); the returned loss is the global batch's."""
     device = train_idx.device
     if perm is None:
         perm = epoch_permutation(train_idx.shape[0], shuffle_generator)
@@ -368,46 +493,51 @@ def train_epoch(model: MultimodalEmotionModel, optimizer: torch.optim.Optimizer,
             len(batches), train_cfg.mixup_alpha, mixup_rng),
             dtype=torch.float32).to(device)
 
-    def logits_of(video, audio, mask):
-        return model(video, audio, mask, generator=dropout_generator)[1]
-
     model.train()
     losses = []
     for step, idx in enumerate(batches):
         draws = draw_step(train_cfg, batch_size, dropout_generator, device,
                           None if lams is None else lams[step])
-        loss = augmented_loss(logits_of, gather_batch(data, idx), draws,
-                              class_weights, train_cfg, loss_fn)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        clip_by_global_norm(params, train_cfg.clip_norm)
-        optimizer.step()
-        if ema is not None:
-            ema_update(ema, params, train_cfg.ema_decay)
-        losses.append(loss.detach())
+        losses.append(train_step(model, optimizer, data, idx, draws,
+                                 class_weights, train_cfg,
+                                 dropout_generator=dropout_generator, ema=ema,
+                                 mesh=mesh))
     model.eval()
-    return torch.stack(losses).mean()
+    return (mesh or SINGLE).all_reduce(torch.stack(losses)).mean()
 
 
 @torch.no_grad()
 def evaluate(model: MultimodalEmotionModel, data: Dict[str, torch.Tensor],
              idx: torch.Tensor, class_weights: torch.Tensor,
              train_cfg: TrainConfig, num_classes: int,
-             eval_batch: int = 1024):
+             eval_batch: int = 1024, mesh: Optional[Mesh] = None):
     """A whole split → (mean of the per-batch losses weighted by batch size,
-    (C, C) confusion matrix), both on the device."""
+    (C, C) confusion matrix), both on the device.  Each batch is split over
+    the ``mesh``'s data ranks (unevenly where it must be; one device takes
+    all of it), a rank's share of a batch loss is divided by the whole
+    batch's denominator, and the sums are all-reduced: every rank gets the
+    split's numbers."""
+    mesh = mesh or SINGLE
     loss_fn = _loss_fn(train_cfg)
     model.eval()
     loss_sum = torch.zeros((), device=idx.device)
     count = 0
     cm = torch.zeros(num_classes, num_classes, device=idx.device)
     for b in idx.split(eval_batch):
+        n = len(b)
+        den = loss_denominator(train_cfg.loss, data["labels"][b], class_weights)
+        d = mesh.data_index
+        b = b[d * n // mesh.dp:(d + 1) * n // mesh.dp]
+        count += n
+        if len(b) == 0:
+            continue
         labels = data["labels"][b]
         _, logits, _ = model(data["video"][b], data["audio"][b],
                              data["pad_mask"][b])
-        loss_sum = loss_sum + loss_fn(logits, labels, class_weights, None) * len(b)
-        count += len(b)
+        loss_sum = loss_sum + loss_fn(logits, labels, class_weights, None,
+                                      den) * n
         cm = cm + confusion_matrix(labels, logits.argmax(dim=-1), num_classes)
+    mesh.all_reduce_tensors([loss_sum, cm])
     return loss_sum / max(count, 1), cm
 
 
@@ -443,9 +573,11 @@ def results_row(epoch: int, train_loss: float, val_loss: float,
 
 
 def _build_hyperparameters(model_cfg: ModelConfig, train_cfg: TrainConfig,
-                           batch_size: int, device: torch.device) -> dict:
+                           batch_size: int, device: torch.device,
+                           mesh: dict) -> dict:
     """Run-log hyperparameters with the reference's key set
-    (train2.py:748-764)."""
+    (train2.py:748-764) and the JAX trainer's ``"mesh"``
+    (``mmer_tpu/train/loop.py:410, 566``)."""
     return {
         "num_epochs": train_cfg.num_epochs, "lr": train_cfg.lr,
         "weight_decay": train_cfg.weight_decay,
@@ -464,6 +596,7 @@ def _build_hyperparameters(model_cfg: ModelConfig, train_cfg: TrainConfig,
         "focal_gamma": train_cfg.focal_gamma, "loss": train_cfg.loss,
         **({"ema_decay": train_cfg.ema_decay} if train_cfg.ema_decay > 0.0
            else {}),
+        "mesh": mesh,
     }
 
 
@@ -531,7 +664,8 @@ def train_model(data: DatasetArrays, splits: DataSplits,
                 resume_dir: Optional[str] = None,
                 device: torch.device | str = "cuda",
                 initial_state: Optional[Dict[str, torch.Tensor]] = None,
-                soft_targets: Optional[np.ndarray] = None) -> TrainOutput:
+                soft_targets: Optional[np.ndarray] = None,
+                mesh_cfg: Optional[MeshConfig] = None) -> TrainOutput:
     """Full training run with reference-equivalent control flow and the
     reference's JSON results schema (train2.py:748-764).
 
@@ -542,16 +676,36 @@ def train_model(data: DatasetArrays, splits: DataSplits,
     ``soft_targets`` (N, C), row-aligned with ``data``, are the teacher's
     probabilities: given exactly when ``train_cfg.distill_alpha > 0`` and
     read at training rows only.
+
+    ``mesh_cfg`` trains over the (data, model) mesh it describes
+    (:func:`~mmer_tpu_torch.core.mesh.create_mesh`): every rank of the
+    process group calls ``train_model`` with the same arguments, its own
+    ``device`` and the global ``batch_size`` (a multiple of the data axis).
+    Every rank returns the same rows and the full (gathered) state dicts;
+    rank 0 alone writes the files.  Without a process group, or with
+    ``mesh_cfg=None``, the run is the single-device one.  Mid-run
+    checkpoints (``checkpoint_every``, ``resume_dir``) are single-device
+    only.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train_model: CUDA device requested but "
                            "torch.cuda.is_available() is False")
     check_opt_ins(model_cfg, train_cfg)
+    mesh = SINGLE if mesh_cfg is None else create_mesh(mesh_cfg)
+    mesh.check_device(device)
+    if batch_size % mesh.dp:
+        raise ValueError(f"batch_size {batch_size} does not split over "
+                         f"{mesh.dp} data ranks")
+    if mesh.active and (train_cfg.checkpoint_every or resume_dir):
+        raise ValueError("mid-run checkpoints and resume are single-device "
+                         "only: train without mesh_cfg")
+    verbose = verbose and mesh.rank == 0
 
     model = init_fusion(model_cfg, device=device, seed=seed)
     if initial_state is not None:
         model.load_state_dict(initial_state)
+    shard_params(model, mesh)
     optimizer = make_optimizer(model, train_cfg)
     shuffle_gen = torch.Generator().manual_seed(seed)
     dropout_gen = param_generator(seed + 1, device)
@@ -591,12 +745,12 @@ def train_model(data: DatasetArrays, splits: DataSplits,
     ema_model = copy.deepcopy(model) if train_cfg.ema_decay > 0.0 else None
     eval_model = ema_model or model
     hyperparameters = _build_hyperparameters(model_cfg, train_cfg, batch_size,
-                                             device)
+                                             device, mesh.shape)
     num_classes = model_cfg.num_classes
 
     def eval_split(idx):
         loss_d, cm_d = evaluate(eval_model, dev_data, idx, class_weights,
-                                train_cfg, num_classes)
+                                train_cfg, num_classes, mesh=mesh)
         return float(loss_d), cm_d.cpu().numpy()
 
     t_start = time.time()
@@ -610,7 +764,8 @@ def train_model(data: DatasetArrays, splits: DataSplits,
                                        dropout_generator=dropout_gen,
                                        mixup_rng=mixup_rng,
                                        ema=None if ema_model is None else
-                                       list(ema_model.parameters())))
+                                       list(ema_model.parameters()),
+                                       mesh=mesh))
         train_epoch_seconds.append(time.perf_counter() - t_epoch)
         val_loss, val_cm = eval_split(val_idx)
         val_acc = 100.0 * accuracy_from_confusion(val_cm)
@@ -671,9 +826,15 @@ def train_model(data: DatasetArrays, splits: DataSplits,
             print(confusion.astype(int))
 
     best_epoch, best_score = control.best_epoch, control.best_score
-    results_path, best_path, final_path, stats_path = _save_run_artifacts(
-        data, train_cfg, batch_size, results, best_epoch, hyperparameters,
-        confusion, best_state, final_state, verbose)
+    # A model axis's shards, gathered into the single-device layout.
+    final_state = gather_params(final_state, mesh)
+    if best_state is not None:
+        best_state = gather_params(best_state, mesh)
+    results_path = best_path = final_path = stats_path = None
+    if mesh.rank == 0:
+        results_path, best_path, final_path, stats_path = _save_run_artifacts(
+            data, train_cfg, batch_size, results, best_epoch, hyperparameters,
+            confusion, best_state, final_state, verbose)
 
     # On a resumed run the best epoch may predate the resume point; with
     # val-loss selection the tracked best_score is that epoch's val loss.

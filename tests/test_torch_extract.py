@@ -423,13 +423,18 @@ def test_main_writes_artifacts_on_the_cpu(audio_dir, tmp_path, monkeypatch):
 
 def test_main_fails_without_cuda_and_has_no_mesh_option(audio_dir, tmp_path):
     """The CLI runs on the GPU unless told otherwise: with no CUDA device it
-    raises, it never drops to the CPU by itself.  ``--mesh`` is absent."""
+    raises, it never drops to the CPU by itself, ``--mesh`` (the video
+    subcommand's, since the scale-out slice) included."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         port_extract.main(["audio", "--input", audio_dir, "--output",
                            str(tmp_path / "out")])
     assert not (tmp_path / "out").exists()
-    with pytest.raises(SystemExit):
+    with pytest.raises(RuntimeError, match="CUDA"):
         port_extract.main(["video", "--input", audio_dir, "--output",
+                           str(tmp_path / "out"), "--mesh"])
+    assert not (tmp_path / "out").exists()
+    with pytest.raises(SystemExit):
+        port_extract.main(["audio", "--input", audio_dir, "--output",
                            str(tmp_path / "out"), "--mesh", "--device", "cpu"])

@@ -89,6 +89,11 @@ def test_import_loads_no_jax():
             "assert 'mmer_tpu_torch.preprocess.cascade' in names, names\n"
             "assert 'mmer_tpu_torch.models.jax_init' in names, names\n"
             "assert 'mmer_tpu_torch.models.port_wav2vec2' in names, names\n"
+            "for new in ('core.mesh', 'core.check', 'parallel.sharding',\n"
+            "            'parallel.scaling', 'parallel.dryrun',\n"
+            "            'parallel.launch', 'data.native_loader',\n"
+            "            'data.streaming', 'train.streaming'):\n"
+            "    assert 'mmer_tpu_torch.' + new in names, (new, names)\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'flax', 'mmer_tpu'))\n"
             "print(bad)\n"
@@ -98,7 +103,8 @@ def test_import_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize("name", ["ModelConfig", "ViViTConfig", "Wav2Vec2Config"])
+@pytest.mark.parametrize("name", ["ModelConfig", "ViViTConfig", "Wav2Vec2Config",
+                                  "MeshConfig"])
 def test_config_copy_matches_jax(name):
     """The copied dataclasses must not drift from mmer_tpu.config."""
     ours, theirs = getattr(port_config, name), getattr(jax_config, name)

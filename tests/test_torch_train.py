@@ -548,8 +548,10 @@ def test_train_model_matches_jax(monkeypatch, norm, loss, best_metric, lr,
     np.testing.assert_allclose(got.best_val_loss, want.best_val_loss,
                                rtol=loss_rtol)
     np.testing.assert_allclose(got.best_score, want.best_score, rtol=loss_rtol)
-    jax_keys = set(want.hyperparameters) - {"mesh"}
-    assert set(got.hyperparameters) == jax_keys
+    assert set(got.hyperparameters) == set(want.hyperparameters)
+    # The JAX trainer's default mesh spans its 8 virtual devices; the port's
+    # default (no mesh_cfg) is one device.
+    assert got.hyperparameters["mesh"] == {"data": 1, "model": 1}
     assert got.hyperparameters["device"] == "cpu"
     # One training-pass time per epoch run, all inside the run's wall time.
     assert len(got.train_epoch_seconds) == len(got.results)
