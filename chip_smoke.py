@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's clip, extraction, probe and training paths on
-one NVIDIA GPU.
+"""Smoke run of the PyTorch port's clip, extraction, probe, training and data-prep
+paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -120,15 +120,36 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    the same launches; ``train_model(mesh_cfg=MeshConfig())`` for
    ``SCALE_OUT_EPOCHS`` epochs on phase 7's 8,496 pairs (written anew from
    its seed), rows and final weights bit-equal to the single-device run's,
-   the run log's ``"mesh"`` ``{"data": 1, "model": 1}``; the native load of
-   the pairs against numpy's (equal arrays, both timed); ``train_streaming``
+   the run log's ``"mesh"`` ``{"data": 1, "model": 1}``, and the same mesh
+   run cut after epoch 1 and resumed from its mid-run checkpoint, bit-equal
+   to the uninterrupted one; the native load of the pairs against numpy's (equal arrays, both timed); ``train_streaming``
    over the same folders, every batch through the native loader, seconds an
    epoch beside the in-memory trainer's; the scaling probe's JSON lines at
    n = 1 and ``core.check``'s matmul rate; the phase within
    ``SCALE_OUT_LIMIT_S``.
 
+10. prep chain (``scripts/full_chain.py:run_chain`` on raw frames in memory:
+   the card has no container codec): 60 raw 360x480 clips (10 actors x 6
+   emotions, 40-72 frames, the packaged face translating over a textured
+   background, four clips in six tilted by +-30 degrees or 40 % covered on
+   frames 8-23) and six held-out ones → ``extract_frame_bboxes`` with the
+   native cascade (ms a frame; rows by source, relaxed and tracked > 0; the
+   ``.txt`` round trip) → face crops on the card, every batch within 1 grey
+   level of the CPU's → the default ViViT-B and Wav2Vec2-large (label tones
+   written as WAVs) → ``dataset_from_feature_maps`` equal to
+   ``load_dataset`` of the written ``.npy`` → ``train.cli`` at full_chain's
+   recipe (batch 16, lr 1e-4, 60 epochs): best test accuracy above 80 % →
+   each held-out clip through ``InferenceEngine.infer_frames`` (detection
+   every third frame) and the span-weighted vote: at least 5 of 6
+   recovered; rows 1-3 launched.  Every ViViT and Wav2Vec2 call of the
+   chain, extraction and serving, is then re-run on the plain route and
+   the f32 path: per group, the kernel route no further from f32 than the
+   plain route, within ``VIDEO_F32_FACTOR``; one 32-frame 720x1280
+   clip is tracked, timed; the phase's wall time.
+
 The second-to-last line is ``{"kernels": [...]}`` (``launches_scale_out``:
-the mesh runs' launches); the last line is ``{"ok": true, "device": {...}}``.
+the mesh runs' launches; ``launches_prep_chain``: phase 10's); the last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -173,6 +194,12 @@ TOLERANCES = {
     # mean bound is the same, the largest of twice as many flips read 0.0625
     # (two steps of 2^-5) where the smaller shapes read 0.0469.
     "fused_conv_encoder_10s": (0.08, 5e-3),
+    # The prep chain's batch, 64 clips of 3 s (4.9 M outputs): on an H100
+    # both conv routes read 0.0625 from the plain version (two steps of
+    # 2^-5) while agreeing with each other bit for bit, so the flips are the
+    # plain version's own bf16 roundings; the f32-path check below holds the
+    # routes' accuracy.  Extraction-size batches take the 10 s batch's bound.
+    "fused_conv_encoder_prep": (0.08, 5e-3),
     # one conv layer on unit-normal rows: a flipped bf16 rounding of the conv
     # sum moves an O(1) output by a few bf16 steps (tests/test_torch_cuda.py).
     "conv_layer": (0.0625, 1e-3),
@@ -220,6 +247,10 @@ FLAGSHIP_LOSS_RTOL = 5e-3
 # The kernel phase holds every Wav2Vec2 kernel at both; the extraction phase
 # fails if its forwards see other shapes.
 EXTRACT_WAVES = ((64, 80000), (64, 160000))
+# The prep chain's one extraction forward: its 60 clips of at most 2.4 s in
+# one 3 s bucket of 64 rows.  The kernel phase holds the Wav2Vec2 kernels
+# at it too; the prep chain fails if its extraction runs at another shape.
+PREP_WAVES = (64, 48000)
 # The conv kernel's mean error against the f32 path may exceed the plain
 # bf16 version's by at most this factor.
 CONV_F32_FACTOR = 1.25
@@ -649,9 +680,10 @@ def check_kernels(dev) -> dict:
     # the two extraction forwards (full grids), and the other grid plans a
     # serving request reaches: a 10 s and a 2 s piece in one batch (998
     # frames), 1,500 frames (five windows of up to 6 s) and 65 frames, one
-    # row past a 64-row tile.
+    # row past a 64-row tile; and the prep chain's extraction forward (64
+    # clips of up to 3 s).
     t3 = feat_extract_output_length(cfg, 48000)
-    # The last three draw from seeds outside the sequence, so that the cases
+    # The last four draw from seeds outside the sequence, so that the cases
     # after them keep the data they had before these were added.
     for tag, tol, shape, iters, seed in (
             ("_w2v2", "fused_ffn_w2v2", (1, t3), 50, None),
@@ -659,7 +691,8 @@ def check_kernels(dev) -> dict:
             ("_w2v2_extract_10s", "fused_ffn_w2v2_extract", (64, t10), 5, None),
             ("_w2v2_2x10s", "fused_ffn_w2v2", (2, t10), 50, 10 ** 6 + 1),
             ("_w2v2_1500", "fused_ffn_w2v2", (1, 1500), 50, 10 ** 6 + 2),
-            ("_w2v2_ragged", "fused_ffn_w2v2", (1, 65), 50, 10 ** 6 + 3)):
+            ("_w2v2_ragged", "fused_ffn_w2v2", (1, 65), 50, 10 ** 6 + 3),
+            ("_w2v2_prep", "fused_ffn_w2v2_extract", (64, t3), 10, 10 ** 6 + 4)):
         if seed is None:
             reseed()
         else:
@@ -680,14 +713,16 @@ def check_kernels(dev) -> dict:
     res["fused_ffn"] = r
     del args, got, want
 
-    # Conv feature encoder, both routes, on (4, 48000) f32 (serving) and on
-    # the two extraction forwards' waveform batches.
+    # Conv feature encoder, both routes, on (4, 48000) f32 (serving), on
+    # the two extraction forwards' waveform batches and on the prep chain's
+    # (64, 48000).
     reseed()
     conv_args = _conv_layer_args(cfg, randn)
     r, rl = {}, {}
     for tag, shape, iters in (("", (4, 48000), 20),
                               ("_extract", EXTRACT_WAVES[0], 5),
-                              ("_extract_10s", EXTRACT_WAVES[1], 3)):
+                              ("_extract_10s", EXTRACT_WAVES[1], 3),
+                              ("_prep", PREP_WAVES, 5)):
         wave = randn(*shape)
         t_out = feat_extract_output_length(cfg, shape[1])
         got = fused_conv_encoder(wave, *conv_args, cfg)
@@ -699,18 +734,22 @@ def check_kernels(dev) -> dict:
                 raise AssertionError(f"fused_conv_encoder shape {tuple(out.shape)}")
         log(f"conv encoder on {shape}: mega=True vs plain, mega=False vs plain, "
             "mega=False vs mega=True")
-        tol = "fused_conv_encoder" + ("_10s" if tag.endswith("_10s") else "")
+        # Each route's distance from the f32 path, logged before the
+        # comparisons so that a failing one still shows it.
+        exact = conv_encoder_reference(
+            wave, *conv_args, dataclasses.replace(cfg, compute_dtype="float32"))
+        (e_mega, m_mega), (e_layer, m_layer), (e_plain, m_plain) = (
+            (float(d.mean()), float(d.max())) for d in
+            ((out.float() - exact).abs() for out in (got, per_layer, want)))
+        log(f"conv encoder vs the f32 path, mean / max abs err: mega=True "
+            f"{e_mega:.3e} / {m_mega:.3e}, mega=False {e_layer:.3e} / "
+            f"{m_layer:.3e}, plain bf16 version {e_plain:.3e} / {m_plain:.3e}")
+        tol = {"_extract_10s": "fused_conv_encoder_10s",
+               "_prep": "fused_conv_encoder_prep"}.get(tag, "fused_conv_encoder")
         r2 = _compare("fused_conv_encoder", got, want, key=tol)
         r3 = _compare("fused_conv_encoder", per_layer, want, key=tol)
         r4 = _compare("fused_conv_encoder", per_layer, got, key=tol)
         _same_bits("fused_conv_encoder", got, fused_conv_encoder(wave, *conv_args, cfg))
-        exact = conv_encoder_reference(
-            wave, *conv_args, dataclasses.replace(cfg, compute_dtype="float32"))
-        e_mega = float((got.float() - exact).abs().mean())
-        e_layer = float((per_layer.float() - exact).abs().mean())
-        e_plain = float((want.float() - exact).abs().mean())
-        log(f"conv encoder vs the f32 path, mean abs err: mega=True {e_mega:.3e}, "
-            f"mega=False {e_layer:.3e}, plain bf16 version {e_plain:.3e}")
         if max(e_mega, e_layer) > CONV_F32_FACTOR * e_plain:
             raise AssertionError("a conv route is further from the f32 path "
                                  "than the plain version")
@@ -1383,6 +1422,7 @@ def main() -> int:
                                   features.name)
     finally:
         features.cleanup()
+    prep_chain = run_prep_chain(dev)
     # launches: of the main path that runs the kernel.  The serving requests
     # for the three kernels on the clip path (which the serving file path and
     # the extraction CLI also run: launches_serving_file_path,
@@ -1400,11 +1440,16 @@ def main() -> int:
          "launches_extraction_all_kernel": extraction["all_kernel"][name],
          "launches_profile_scripts": profile[name],
          "launches_scale_out": scale_out[name],
+         "launches_prep_chain": prep_chain[name],
          **{k: v for k, v in r.items() if not k.startswith("shape")}}
         for name, r in kernels.items()]
     idle = [k["name"] for k in lines if k["launches"] < 1]
     if idle or len(lines) != len(SOURCES):
         raise AssertionError(f"kernels never launched on a main path: {idle}")
+    idle = [k for k in ("flash_attention", "fused_ffn", "fused_conv_encoder")
+            if prep_chain[k] < 1]
+    if idle:
+        raise AssertionError(f"the prep chain never launched {idle}")
     log(json.dumps({"kernels": lines}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2523,6 +2568,28 @@ def run_scale_out(dev, chunks, waves, features: str) -> dict:
             + " s an epoch (single device " + ", ".join(
                 f"{s:.3f}" for s in solo_out.train_epoch_seconds) + ")")
 
+        # Mid-run checkpoints over the mesh: a run cut after epoch 1 (a
+        # checkpoint every epoch) and resumed repeats the uninterrupted mesh
+        # run's later epochs bit for bit.
+        with tempfile.TemporaryDirectory(prefix="mmer_smoke_resume_") as ckpt_root:
+            cut_cfg = dataclasses.replace(train_cfg, num_epochs=1,
+                                          checkpoint_every=1,
+                                          output_dir=ckpt_root)
+            mesh_run(lambda: train_model(
+                data, splits, model_cfg, cut_cfg, batch_size=SCALE_OUT_BATCH,
+                verbose=False, device=dev, mesh_cfg=MeshConfig()))
+            resumed, _ = mesh_run(lambda: train_model(
+                data, splits, model_cfg, train_cfg, batch_size=SCALE_OUT_BATCH,
+                verbose=False, device=dev, mesh_cfg=MeshConfig(),
+                resume_dir=os.path.join(ckpt_root, "checkpoints")))
+        _same_rows("resumed train_model", resumed.results, mesh_out.results[1:])
+        for k, v in mesh_out.final_params.items():
+            if not torch.equal(resumed.final_params[k], v):
+                raise AssertionError(f"scale-out: resumed final weight {k} differs")
+        log("scale-out: a mesh train_model cut after epoch 1 and resumed from "
+            "its checkpoint: its later epochs' rows and the final weights "
+            "bit-equal to the uninterrupted mesh run's")
+
         # The streaming trainer over the same folders.
         stats = {k: getattr(data, k) for k in ("video_mean", "video_std",
                                                "audio_mean", "audio_std")}
@@ -2566,6 +2633,171 @@ def run_scale_out(dev, chunks, waves, features: str) -> dict:
     if phase_s > SCALE_OUT_LIMIT_S:
         raise AssertionError("the scale-out phase took too long")
     return mesh_launches
+
+
+# Phase 10, the prep chain on raw frames: full_chain's chain and recipe.
+PREP_ACTORS = 10
+PREP_FRAMES = (40, 73)          # 40-72 frames: 2-3 subchunks of 32
+PREP_EPOCHS = 60
+# Clip i of an actor: 1 and 4 tilt the face by +30 / -30 degrees, 2 and 5
+# cover its bottom 40 % with a bar, on frames 8-23.
+PREP_EXTRAS = {1: {"tilt": (30.0, 8, 24)}, 4: {"tilt": (-30.0, 8, 24)},
+               2: {"occlusion": (0.4, 8, 24)}, 5: {"occlusion": (0.4, 8, 24)}}
+
+
+def _plain_twins(dev, records: dict) -> None:
+    """Every ViViT and Wav2Vec2 call a run recorded, re-run on the plain
+    route (same weights, bf16) and on the f32 path.  The first call of each
+    kind is the chain's extraction, the rest serve the probes; over each of
+    those groups' rows the kernel route must be no further from the f32
+    path than the plain route is, within VIDEO_F32_FACTOR.  Each call's
+    distances are logged.  A call of one or two rows is too few for the
+    ratio, and the per-clip 0.5 % audio gate cannot bind here: on 1 s
+    serving windows the plain route itself sits ~0.95 % from the f32 path
+    (PERF.md, Findings)."""
+    import numpy as np
+
+    from mmer_tpu_torch.models.wav2vec2 import AudioEmbedder
+    from mmer_tpu_torch.preprocess.extract import VideoFeatureExtractor
+
+    f32 = dataclasses.replace
+    for kind, cls, embed in (("video", VideoFeatureExtractor, "embed_chunks"),
+                             ("audio", AudioEmbedder, "embed_batch")):
+        twins, rows = {}, []
+        for i, (obj, x, got) in enumerate(records[kind]):
+            if id(obj) not in twins:
+                sd = obj.model.state_dict()
+                twins[id(obj)] = [
+                    cls(obj.cfg, device=dev, use_kernels=False, params=sd),
+                    cls(f32(obj.cfg, compute_dtype="float32"), device=dev,
+                        use_kernels=False, params=sd)]
+            plain, exact = (getattr(t, embed)(x) for t in twins[id(obj)])
+            rows.append((got, plain, exact))
+            log(f"prep chain: {kind} call {i} ({len(got)} rows): kernel vs "
+                f"plain rel-L2 {_rel_l2(got, plain):.3e}; vs the f32 path: "
+                f"kernel {_rel_l2(got, exact):.3e}, plain "
+                f"{_rel_l2(plain, exact):.3e}")
+        del twins
+        for group, calls in (("extraction", rows[:1]), ("serving", rows[1:])):
+            got, plain, exact = (np.concatenate(a) for a in zip(*calls))
+            r_k32, r_p32 = _rel_l2(got, exact), _rel_l2(plain, exact)
+            log(f"prep chain: {kind} {group}, {len(got)} rows: vs the f32 path "
+                f"kernel {r_k32:.3e}, plain {r_p32:.3e} (limit "
+                f"{VIDEO_F32_FACTOR} x plain)")
+            if r_k32 > VIDEO_F32_FACTOR * r_p32:
+                raise AssertionError(f"prep chain: the kernels move {kind} "
+                                     f"{group} embeddings further from f32 "
+                                     "than the plain bf16 route")
+
+
+def run_prep_chain(dev) -> dict:
+    """Phase 10: ``scripts/full_chain.py:run_chain`` on raw frames in memory
+    (the card has no container codec): 60 raw 360x480 clips (10 actors x 6
+    emotions, 40-72 frames, tilted and occluded runs) → the tracker with
+    the native cascade and its ``.txt`` files → face crops on the card,
+    each batch held to the CPU's → the default ViViT-B and Wav2Vec2-large →
+    ``dataset_from_feature_maps``, equal to the disk route's arrays →
+    ``train.cli`` at full_chain's recipe → six held-out clips through
+    ``InferenceEngine.infer_frames`` and the span-weighted vote.  Every
+    extractor call of the chain is then re-run on the plain route
+    (:func:`_plain_twins`), and one 720x1280 clip is tracked, timed.
+    Returns the chain's kernel launches."""
+    import numpy as np
+    import torch
+
+    from mmer_tpu_torch.models.wav2vec2 import AudioEmbedder
+    from mmer_tpu_torch.preprocess.extract import VideoFeatureExtractor
+    from mmer_tpu_torch.preprocess.faces import (HaarFaceDetector, TrackStats,
+                                                 extract_frame_bboxes)
+    from mmer_tpu_torch.scripts import full_chain as fc
+
+    t_phase = time.perf_counter()
+
+    def log(msg: str) -> None:
+        print(f"prep chain: {msg.strip()} [{time.perf_counter() - t_phase:.2f} "
+              "s into the phase]", flush=True)
+
+    detector = HaarFaceDetector()
+    if detector.engine != "native":
+        raise AssertionError(f"prep chain: the cascade runs on the "
+                             f"{detector.engine} engine, not the native one")
+    probes = list(fc.make_clips(1, np.random.default_rng(11), PREP_FRAMES,
+                                first_actor=1001 + PREP_ACTORS,
+                                extras=PREP_EXTRAS))
+    clips = fc.make_clips(PREP_ACTORS, np.random.default_rng(10), PREP_FRAMES,
+                          extras=PREP_EXTRAS)
+
+    # Every extractor call is recorded (inputs and result) for the plain
+    # route's re-run, and each Wav2Vec2 forward's waveform batch is logged.
+    records = {"video": [], "audio": []}
+    waves_seen = []
+    embed_chunks, embed_batch = (VideoFeatureExtractor.embed_chunks,
+                                 AudioEmbedder.embed_batch)
+
+    def record_video(self, chunks, pipeline=False):
+        out = embed_chunks(self, chunks, pipeline)
+        x = chunks.clone() if torch.is_tensor(chunks) else chunks
+        records["video"].append((self, x, out))
+        return out
+
+    def record_audio(self, waveforms):
+        if not any(obj is self for obj, _, _ in records["audio"]):
+            self.model.register_forward_pre_hook(
+                lambda _, args: waves_seen.append(tuple(args[0].shape)))
+        out = embed_batch(self, waveforms)
+        records["audio"].append((self, list(waveforms), out))
+        return out
+
+    VideoFeatureExtractor.embed_chunks = record_video
+    AudioEmbedder.embed_batch = record_audio
+    root = tempfile.TemporaryDirectory(prefix="mmer_smoke_prep_")
+    try:
+        reset_launches()
+        result = fc.run_chain(clips, probes, root.name, dev,
+                              epochs=PREP_EPOCHS, log=log)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        VideoFeatureExtractor.embed_chunks = embed_chunks
+        AudioEmbedder.embed_batch = embed_batch
+        root.cleanup()
+    track = result.track
+    log(f"tracker on {result.clips} clips of 360x480, {track.frames} frames: "
+        f"{result.track_s / track.frames * 1e3:.2f} ms a frame (host); rows "
+        f"full {track.full}, relaxed {track.relaxed}, tracked {track.tracked}, "
+        f"interpolated {track.interpolated}; crops on the card "
+        f"{result.crop_s / track.frames * 1e3:.3f} ms a frame with the copies, "
+        f"every batch within {result.crop_worst} grey level of the CPU's; "
+        f"Wav2Vec2 waveform batches {waves_seen}")
+    if track.relaxed < 1 or track.tracked < 1:
+        raise AssertionError("prep chain: the relaxed re-detection or the "
+                             "NCC tracker never fired")
+    if waves_seen[0] != PREP_WAVES:
+        raise AssertionError(f"prep chain: the extraction forward ran at "
+                             f"{waves_seen[0]}, not the kernel phase's "
+                             f"{PREP_WAVES}")
+    _plain_twins(dev, records)
+    del records
+
+    # RAVDESS's frame size: one 32-frame 720x1280 clip, a 360-px face.
+    big = fc.raw_clip_frames(fc.packaged_face(360), np.random.default_rng(12),
+                             32, hw=(720, 1280))
+    stats = TrackStats()
+    t0 = time.perf_counter()
+    extract_frame_bboxes(big, detector, stats=stats)
+    big_s = time.perf_counter() - t0
+    log(f"tracker on 32 frames of 720x1280: {big_s / 32 * 1e3:.2f} ms a frame "
+        f"(host); rows full {stats.full}, relaxed {stats.relaxed}, tracked "
+        f"{stats.tracked}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"best test acc {result.best_acc:.1f}% (needs > 80), serving recovery "
+        f"{result.hits}/{len(result.votes)} (needs >= 5); launches "
+        f"{ {k: v for k, v in launches.items() if v} }; embedding "
+        f"{result.embed_s:.2f} s, training {result.train_s:.2f} s, serving "
+        f"{result.serve_s:.2f} s; phase {phase_s:.2f} s wall")
+    if not result.ok:
+        raise AssertionError("prep chain: full_chain's thresholds missed")
+    return launches
 
 
 if __name__ == "__main__":

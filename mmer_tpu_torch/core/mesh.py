@@ -122,6 +122,11 @@ class Mesh:
             dist.all_reduce(x, group=group)
         return x
 
+    def barrier(self) -> None:
+        """Wait for every rank of the world (nothing without a group)."""
+        if self.active:
+            dist.barrier()
+
     def all_reduce_tensors(self, tensors: List[torch.Tensor]) -> None:
         """Sum a list of tensors over the data axis in place, as one flat
         all-reduce."""

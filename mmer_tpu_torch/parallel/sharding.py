@@ -13,6 +13,12 @@ The same Megatron pairing as the JAX rules, over the port's parameter names
 - ``ffn_out``: row-parallel;
 - everything else replicated.
 
+A sharded run's checkpoints hold the single-device layout:
+:func:`gather_params` and :func:`gather_optimizer_state` assemble the full
+tensors before a save, :func:`slice_params` and :func:`slice_optimizer_state`
+take a rank's share of them on a resume, so that a checkpoint resumes on any
+mesh, one device included.
+
 Each pair costs one all-reduce over the model group in the forward (after
 the row-parallel product, :func:`reduce_from_model`) and one in the backward
 (before the column-parallel product, :func:`copy_to_model`): two small
@@ -22,7 +28,7 @@ whole gradients on every model rank, sharded ones their shard's.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -104,6 +110,12 @@ def sum_over_data(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     return x if mesh is None else _SumOverData.apply(x, mesh)
 
 
+def _model_share(t: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+    """A copy of this model rank's share of ``t`` along ``dim``."""
+    cols = mesh.model_cols(t.shape[dim])
+    return t.narrow(dim, cols.start, cols.stop - cols.start).clone()
+
+
 def shard_params(model: nn.Module, mesh: Mesh) -> nn.Module:
     """Turn a full fusion model into this rank's shard, in place: the split
     parameters (:func:`fusion_param_spec`) keep this rank's slice, the
@@ -125,9 +137,7 @@ def shard_params(model: nn.Module, mesh: Mesh) -> nn.Module:
             if dim is None:
                 continue
             owner = model.get_submodule(name.rsplit(".", 1)[0])
-            keep = nn.Parameter(param.narrow(
-                dim, mesh.model_cols(param.shape[dim]).start,
-                param.shape[dim] // mesh.mp).clone())
+            keep = nn.Parameter(_model_share(param, dim, mesh))
             keep.tp_dim = dim       # clip_by_global_norm sums its norm over the axis
             setattr(owner, name.rsplit(".", 1)[1], keep)
     for module in model.modules():
@@ -160,3 +170,52 @@ def gather_params(state: Dict[str, torch.Tensor], mesh: Optional[Mesh]
         out[name] = torch.cat(parts, dim=dim)
     return out
 
+
+def slice_params(state: Dict[str, torch.Tensor], mesh: Optional[Mesh]
+                 ) -> Dict[str, torch.Tensor]:
+    """A full state dict → this rank's shard of it (the layout of a model
+    that :func:`shard_params` split): the inverse of :func:`gather_params`.
+    The identity off a model axis."""
+    if mesh is None or mesh.mp == 1:
+        return state
+    out = {}
+    for name, t in state.items():
+        dim = fusion_param_spec(name, t)
+        out[name] = t if dim is None else _model_share(t, dim, mesh)
+    return out
+
+
+_MOMENTS = ("exp_avg", "exp_avg_sq")
+
+
+def _map_moments(state: dict, names: List[str], fn) -> dict:
+    """An Adam state dict with each moment (a dict of parameter name →
+    tensor, in parameter order) passed through ``fn``."""
+    per_param = state["state"]
+    out = {idx: dict(s) for idx, s in per_param.items()}
+    for key in _MOMENTS:
+        mapped = fn({names[idx]: s[key] for idx, s in per_param.items()})
+        for idx in per_param:
+            out[idx][key] = mapped[names[idx]]
+    return {"state": out, "param_groups": state["param_groups"]}
+
+
+def gather_optimizer_state(state: dict, model: nn.Module, mesh: Optional[Mesh]
+                           ) -> dict:
+    """A sharded model's Adam state dict → the one a single device's
+    optimizer holds: each moment gathered along its parameter's spec (every
+    model rank gets it).  The identity off a model axis."""
+    if mesh is None or mesh.mp == 1:
+        return state
+    names = [n for n, _ in model.named_parameters()]
+    return _map_moments(state, names, lambda m: gather_params(m, mesh))
+
+
+def slice_optimizer_state(state: dict, model: nn.Module, mesh: Optional[Mesh]
+                          ) -> dict:
+    """A single device's Adam state dict → this rank's, for the optimizer
+    of ``model`` sharded by :func:`shard_params`."""
+    if mesh is None or mesh.mp == 1:
+        return state
+    names = [n for n, _ in model.named_parameters()]
+    return _map_moments(state, names, lambda m: slice_params(m, mesh))

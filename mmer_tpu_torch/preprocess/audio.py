@@ -143,13 +143,18 @@ def extract_audio_to_wav(video_path: str, output_path: str,
     wav = extract_audio_track(video_path, sample_rate)
     if wav is None or not len(wav):
         return False
-    with wave_mod.open(output_path, "wb") as f:
+    write_wav(output_path, wav, sample_rate)
+    return True
+
+
+def write_wav(path: str, wav: np.ndarray, sample_rate: int = 16000) -> None:
+    """A float waveform in [-1, 1) → a 16-bit mono WAV."""
+    with wave_mod.open(path, "wb") as f:
         f.setnchannels(1)
         f.setsampwidth(2)
         f.setframerate(sample_rate)
         f.writeframes(np.clip(wav * 32768.0, -32768, 32767)
                       .astype(np.int16).tobytes())
-    return True
 
 
 def convert_video_to_audio(video_path: str, output_path: str,

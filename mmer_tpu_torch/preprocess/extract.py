@@ -18,7 +18,11 @@ CLI (runs on the GPU; ``--device cpu`` must be asked for):
 The serving path's crop stage lives here too: :class:`SubchunkStream` crops
 raw frames on the device and embeds the uint8 subchunks without a trip back
 to the host (``VideoFeatureExtractor.embed_cropped_frames`` is its one-shot
-form).  ``extract_dataset_arrays`` waits for the trainer's raw-media route.
+form).  :func:`extract_dataset_arrays` is the trainer's raw-media route
+(``train/cli.py --raw_videos / --raw_audio``): face-crop videos and audio
+tracks → ``(DatasetArrays, DataSplits)`` with no ``.npy`` written, equal to
+the disk route's arrays; its pairing tail, :func:`dataset_from_feature_maps`,
+takes features already in memory.
 
 Over a mesh (``VideoFeatureExtractor(mesh=)``, the ``video`` subcommand's
 ``--mesh`` under ``torchrun``) every rank embeds its rows of each device
@@ -33,7 +37,7 @@ import concurrent.futures as cf
 import os
 import time
 from collections import deque
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -404,6 +408,82 @@ def extract_audio_folder(input_dir: str, output_dir: str,
     if verbose:
         print(f"Finished: {count} audio files.", flush=True)
     return count
+
+
+def dataset_from_feature_maps(video_feats: Dict[str, np.ndarray],
+                              audio_feats: Dict[str, np.ndarray],
+                              data_cfg=None, max_chunks: Optional[int] = None):
+    """Per-clip features keyed by ``data/catalog.py:sample_key`` →
+    ``(DatasetArrays, DataSplits)``: the keys both modalities have, in
+    sorted order, minus the dropped classes (calm / surprise); each audio
+    embedding rounded through float16 as the ``.npy`` contract stores it
+    (voice_extractor.py:95), so the arrays equal the disk route's
+    (extract → ``.npy`` → ``load_dataset``); then the shared tail
+    (``data/pipeline.py:dataset_from_features``: normalisation, padding,
+    split, class weights)."""
+    from mmer_tpu_torch.config import DataConfig
+    from mmer_tpu_torch.data.catalog import label_from_name
+    from mmer_tpu_torch.data.pipeline import dataset_from_features
+
+    videos, audios, labels, kept = [], [], [], []
+    for k in sorted(set(video_feats) & set(audio_feats)):
+        label = label_from_name(k)
+        if label is None:
+            continue
+        videos.append(np.asarray(video_feats[k], np.float32))
+        audios.append(np.asarray(audio_feats[k]).astype(np.float16)
+                      .astype(np.float32))
+        labels.append(label)
+        kept.append(k)
+    if not kept:
+        raise FileNotFoundError("no pairable clips among the features given")
+    return dataset_from_features(
+        videos, np.stack(audios).astype(np.float32),
+        np.asarray(labels, np.int32), kept, data_cfg or DataConfig(),
+        max_chunks)
+
+
+def extract_dataset_arrays(video_dir: str, audio_dir: str,
+                           video_extractor: Optional[VideoFeatureExtractor] = None,
+                           audio_cfg: Optional[Wav2Vec2Config] = None,
+                           data_cfg=None, chunk_size: Optional[int] = None,
+                           audio_batch: int = 64, decode_workers: int = 4,
+                           max_chunks: Optional[int] = None,
+                           verbose: bool = True, *,
+                           device: torch.device | str = "cuda",
+                           audio_embedder: Optional[AudioEmbedder] = None):
+    """Raw face-crop videos + audio tracks → ``(DatasetArrays,
+    DataSplits)`` with the features never written to disk: the folders go
+    through the extraction CLI's pipelines (:func:`iter_video_features`,
+    :func:`iter_audio_embeddings`) into :func:`dataset_from_feature_maps`,
+    so the arrays equal extract → ``.npy`` → ``load_dataset``'s.  The
+    default extractors are built on ``device`` (the JAX package's seeded
+    weights)."""
+    from mmer_tpu_torch.data.catalog import sample_key
+
+    device = _require(device)
+    extractor = video_extractor or VideoFeatureExtractor(device=device)
+    embedder = audio_embedder or AudioEmbedder(audio_cfg or Wav2Vec2Config(),
+                                               device=device)
+    t0 = time.time()
+    video_feats = {
+        sample_key(feature_output_name(path, video_dir)): feats
+        for path, feats in iter_video_features(
+            video_dir, extractor, chunk_size, decode_workers, verbose)}
+    audio_feats = {
+        sample_key(audio_output_name(os.path.basename(path))): emb
+        for path, emb in iter_audio_embeddings(audio_dir, embedder,
+                                               audio_batch, verbose)}
+    try:
+        out = dataset_from_feature_maps(video_feats, audio_feats, data_cfg,
+                                        max_chunks)
+    except FileNotFoundError:
+        raise FileNotFoundError(
+            f"no pairable clips under {video_dir} / {audio_dir}") from None
+    if verbose:
+        print(f"extract_dataset_arrays: {out[0].num_samples} paired clips in "
+              f"{time.time() - t0:.1f}s (no npy written)", flush=True)
+    return out
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:

@@ -1,1 +1,2 @@
-"""Kernel-level profile and probe scripts of the port (run with ``python3 -m``)."""
+"""The port's scripts: kernel profiles and probes, the training chains, the
+data-prep chain and the detector scorer (run with ``python3 -m``)."""

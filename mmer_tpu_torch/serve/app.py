@@ -19,7 +19,7 @@ Routes (reference back-end/app/main.py, routers/ping.py, routers/infer.py):
 A threaded ``http.server`` with a small multipart parser; one lock around
 the engine serialises device work, so concurrent uploads queue.  CORS
 headers for the dev frontend origins.  The FastAPI app of the JAX module
-is not ported (ROADMAP A2).
+is not ported: neither machine has FastAPI.
 
     python3 -m mmer_tpu_torch.serve.app                # on the GPU
     python3 -m mmer_tpu_torch.serve.app --device cpu   # on the CPU

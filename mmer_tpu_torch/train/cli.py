@@ -13,8 +13,12 @@ them) → ``results_*.json``, ``best_model_*.pth``, ``final_model_*.pth`` and
 The JAX CLI's flags are here with its defaults, apart from ``--fused``: the
 port has one trainer, which takes the fused trainer's opt-ins
 (``--ema_decay``, ``--mixup_alpha``, ``--modality_dropout``,
-``--distill_from``), and ``--raw_videos`` / ``--raw_audio``, which need a
-video decoder.
+``--distill_from``).  ``--raw_videos DIR --raw_audio DIR`` trains on raw
+face-crop videos and audio tracks, extracted on ``--device`` straight into
+the trainer (``preprocess/extract.py:extract_dataset_arrays``; decoding the
+videos needs ``cv2``):
+
+    python3 -m mmer_tpu_torch.train.cli --raw_videos FACES --raw_audio AUDIO
 
 Launched by ``torchrun`` (``python3 -m torch.distributed.run
 --nproc_per_node N -m mmer_tpu_torch.train.cli ...``) the run is data
@@ -92,9 +96,17 @@ def main(argv=None) -> TrainOutput:
                         "loss = (1-a)*hard + a*T^2*soft")
     p.add_argument("--distill_temp", type=float, default=1.0,
                    help="distillation temperature T")
+    p.add_argument("--raw_videos", default=None, metavar="DIR",
+                   help="RAW face-crop videos: extract ViViT features on "
+                        "the device straight into the trainer, skipping the "
+                        ".npy round trip (requires --raw_audio)")
+    p.add_argument("--raw_audio", default=None, metavar="DIR",
+                   help="RAW audio tracks for --raw_videos")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a GPU) or cpu")
     args = p.parse_args(argv)
+    if (args.raw_videos is None) != (args.raw_audio is None):
+        p.error("--raw_videos and --raw_audio must be given together")
     args.device = init_from_env(args.device)
     say = print if is_writer() else (lambda *a, **k: None)
 
@@ -104,7 +116,14 @@ def main(argv=None) -> TrainOutput:
         batch_size=args.batch_size, pairing=args.pairing,
         normalization=args.normalization,
         oversample_neutral=args.oversample_neutral)
-    data, splits = load_dataset(data_cfg)
+    if args.raw_videos:
+        from mmer_tpu_torch.preprocess.extract import extract_dataset_arrays
+
+        data, splits = extract_dataset_arrays(
+            args.raw_videos, args.raw_audio, data_cfg=data_cfg,
+            device=args.device, verbose=is_writer())
+    else:
+        data, splits = load_dataset(data_cfg)
     say(f"Samples: {data.num_samples}  max_chunks: {data.max_chunks}  "
           f"train/val/test: {len(splits.train)}/{len(splits.val)}/{len(splits.test)}")
 

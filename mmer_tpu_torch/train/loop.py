@@ -89,7 +89,10 @@ from mmer_tpu_torch.models.layers import param_generator
 from mmer_tpu_torch.ops.losses import (focal_loss, loss_denominator,
                                        soft_cross_entropy,
                                        weighted_cross_entropy)
-from mmer_tpu_torch.parallel.sharding import gather_params, shard_params
+from mmer_tpu_torch.parallel.sharding import (gather_optimizer_state,
+                                              gather_params, shard_params,
+                                              slice_optimizer_state,
+                                              slice_params)
 from mmer_tpu_torch.train import checkpoint as ckpt
 from mmer_tpu_torch.train.metrics import (accuracy_from_confusion,
                                           confusion_matrix, prf_from_confusion)
@@ -683,9 +686,11 @@ def train_model(data: DatasetArrays, splits: DataSplits,
     ``device`` and the global ``batch_size`` (a multiple of the data axis).
     Every rank returns the same rows and the full (gathered) state dicts;
     rank 0 alone writes the files.  Without a process group, or with
-    ``mesh_cfg=None``, the run is the single-device one.  Mid-run
-    checkpoints (``checkpoint_every``, ``resume_dir``) are single-device
-    only.
+    ``mesh_cfg=None``, the run is the single-device one.  A mid-run
+    checkpoint holds the single-device layout whatever the mesh (rank 0
+    writes the gathered weights and Adam moments; every rank reads it and
+    takes its shard), so it resumes on any mesh, one device included, as
+    JAX's do (``mmer_tpu/train/loop.py:528-560``, ``:647-660``).
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -697,14 +702,16 @@ def train_model(data: DatasetArrays, splits: DataSplits,
     if batch_size % mesh.dp:
         raise ValueError(f"batch_size {batch_size} does not split over "
                          f"{mesh.dp} data ranks")
-    if mesh.active and (train_cfg.checkpoint_every or resume_dir):
-        raise ValueError("mid-run checkpoints and resume are single-device "
-                         "only: train without mesh_cfg")
     verbose = verbose and mesh.rank == 0
 
     model = init_fusion(model_cfg, device=device, seed=seed)
     if initial_state is not None:
         model.load_state_dict(initial_state)
+    latest = ckpt.latest_checkpoint(resume_dir) if resume_dir else None
+    restored = ckpt.restore_loop_checkpoint(latest, device) if latest else None
+    if restored is not None:
+        # The checkpoint's single-device layout, before the model is split.
+        model.load_state_dict(restored.payload["model"])
     shard_params(model, mesh)
     optimizer = make_optimizer(model, train_cfg)
     shuffle_gen = torch.Generator().manual_seed(seed)
@@ -724,21 +731,18 @@ def train_model(data: DatasetArrays, splits: DataSplits,
     best_state = None
 
     start_epoch = 0
-    if resume_dir:
-        latest = ckpt.latest_checkpoint(resume_dir)
-        if latest:
-            restored = ckpt.restore_loop_checkpoint(latest, device)
-            model.load_state_dict(restored.payload["model"])
-            optimizer.load_state_dict(restored.payload["optimizer"])
-            shuffle_gen.set_state(restored.payload["shuffle_rng"].cpu())
-            dropout_gen.set_state(restored.payload["dropout_rng"].cpu())
-            start_epoch = restored.step
-            control.load(restored.loop)
-            if restored.loop["has_best"]:
-                best_state = restored.payload["best"]
-            set_learning_rate(optimizer, control.lr)
-            if verbose:
-                print(f"Resumed from {latest} at epoch {start_epoch}")
+    if restored is not None:
+        optimizer.load_state_dict(slice_optimizer_state(
+            restored.payload["optimizer"], model, mesh))
+        shuffle_gen.set_state(restored.payload["shuffle_rng"].cpu())
+        dropout_gen.set_state(restored.payload["dropout_rng"].cpu())
+        start_epoch = restored.step
+        control.load(restored.loop)
+        if restored.loop["has_best"]:
+            best_state = slice_params(restored.payload["best"], mesh)
+        set_learning_rate(optimizer, control.lr)
+        if verbose:
+            print(f"Resumed from {latest} at epoch {start_epoch}")
 
     # With EMA on, a second model holds the average (from the weights the
     # run starts from) and is what is evaluated.
@@ -796,18 +800,27 @@ def train_model(data: DatasetArrays, splits: DataSplits,
             break
 
         # Periodic full-state checkpoint, taken after this epoch's updates so
-        # that a resumed run continues the interrupted one exactly.
+        # that a resumed run continues the interrupted one exactly.  Every
+        # rank gathers (the collectives are the model group's), rank 0
+        # writes, and no rank goes on before the file is complete.  The
+        # generators' states are the same on every rank.
         if (train_cfg.checkpoint_every
                 and (epoch + 1) % train_cfg.checkpoint_every == 0):
-            ckpt.save_loop_checkpoint(
-                os.path.join(train_cfg.output_dir, "checkpoints"), epoch + 1,
-                {"model": model.state_dict(),
-                 "optimizer": optimizer.state_dict(),
-                 "best": best_state if best_state is not None
-                 else model.state_dict(),
-                 "shuffle_rng": shuffle_gen.get_state(),
-                 "dropout_rng": dropout_gen.get_state()},
-                {**control.state(), "has_best": best_state is not None})
+            model_state = gather_params(model.state_dict(), mesh)
+            payload = {
+                "model": model_state,
+                "optimizer": gather_optimizer_state(optimizer.state_dict(),
+                                                    model, mesh),
+                "best": (model_state if best_state is None
+                         else gather_params(best_state, mesh)),
+                "shuffle_rng": shuffle_gen.get_state(),
+                "dropout_rng": dropout_gen.get_state()}
+            if mesh.rank == 0:
+                ckpt.save_loop_checkpoint(
+                    os.path.join(train_cfg.output_dir, "checkpoints"),
+                    epoch + 1, payload,
+                    {**control.state(), "has_best": best_state is not None})
+            mesh.barrier()
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)

@@ -142,9 +142,11 @@ def case_audio(mesh_cfg):
     return {"feats": feats, "collectives": counts}
 
 
-def case_train(mesh_cfg, model_kw, train_kw, soft=False, perms=None):
+def case_train(mesh_cfg, model_kw, train_kw, soft=False, perms=None,
+               resume_dir=None):
     """``train_model`` on ``_dataset()``; ``perms``: JAX's epoch shuffles,
-    injected through ``epoch_permutation``."""
+    injected through ``epoch_permutation``; ``resume_dir``: the mid-run
+    checkpoints to continue from."""
     data, splits = _dataset()
     saved = port_loop.epoch_permutation
     if perms is not None:
@@ -156,7 +158,8 @@ def case_train(mesh_cfg, model_kw, train_kw, soft=False, perms=None):
             data, splits, port_config.ModelConfig(**model_kw),
             port_config.TrainConfig(**train_kw), batch_size=BATCH,
             verbose=False, device=CPU, mesh_cfg=mesh_cfg,
-            soft_targets=_soft(len(data.labels)) if soft else None)
+            soft_targets=_soft(len(data.labels)) if soft else None,
+            resume_dir=resume_dir)
     finally:
         port_loop.epoch_permutation = saved
     return {"rows": out.results, "mesh": out.hyperparameters["mesh"],
@@ -245,6 +248,19 @@ def case_dryrun():
     return _dryrun_body(dist.get_world_size(), "cpu")
 
 
+def _cut(root, tag):
+    """``TRAIN`` stopped after epoch 2 of 3, a checkpoint every epoch under
+    ``root/tag/checkpoints``."""
+    return {**TRAIN, "num_epochs": 2, "checkpoint_every": 1,
+            "output_dir": f"{root}/{tag}"}
+
+
+def _resume(mesh_cfg, root, tag, into):
+    """The case that continues ``root/tag``'s checkpoints to epoch 3."""
+    return (case_train, (mesh_cfg, SMALL, {**TRAIN, "output_dir": f"{root}/{into}"},
+                         False, None, f"{root}/{tag}/checkpoints"))
+
+
 def _run_cases(cases):
     """A world's body: every case, in order, on this rank."""
     return [fn(*args) for fn, args in cases]
@@ -280,7 +296,17 @@ def _jax_epoch_perms(n_train, epochs, seed=0):
 
 
 @pytest.fixture(scope="module")
-def worlds():
+def c5_root(tmp_path_factory):
+    """Where the mid-run checkpoints of the resume cases live: a
+    single-device run cut after epoch 2 is written before the worlds start,
+    each world's cut runs under ``dp2`` and ``tp``."""
+    root = str(tmp_path_factory.mktemp("c5"))
+    case_train(None, SMALL, _cut(root, "single"))
+    return root
+
+
+@pytest.fixture(scope="module")
+def worlds(c5_root):
     _, splits = _dataset()
     perms = _jax_perms(len(splits.train), TRAIN["num_epochs"])
     bn_perms = _jax_epoch_perms(len(splits.train), TRAIN["num_epochs"])
@@ -292,14 +318,20 @@ def worlds():
           (case_train, (dp, {**SMALL, "norm": "batchnorm"}, TRAIN)),
           (case_train, (dp, JAX_MODEL, TRAIN, False, perms)),
           (case_scaling, ()),
-          (case_train, (dp, JAX_BN, TRAIN, False, bn_perms))]
+          (case_train, (dp, JAX_BN, TRAIN, False, bn_perms)),
+          (case_train, (dp, SMALL, _cut(c5_root, "dp2"))),
+          _resume(dp, c5_root, "dp2", "dp2_resumed"),
+          _resume(dp, c5_root, "single", "single_on_dp2")]
     w4 = [(case_video, (dp,)), (case_audio, (dp,)),
           (case_train, (dp, SMALL, TRAIN)),
           (case_train, (dp, JAX_MODEL, TRAIN, False, perms)),
           (case_train, (tp, SMALL, TRAIN)),
           (case_train, (tp, SMALL, {**TRAIN, **OPT_INS}, True)),
           (case_train, (tp, JAX_MODEL, {**TRAIN, **DISTILL}, True, perms)),
-          (case_step, (tp,)), (case_mesh_errors, ()), (case_dryrun, ())]
+          (case_step, (tp,)), (case_mesh_errors, ()), (case_dryrun, ()),
+          (case_train, (tp, SMALL, _cut(c5_root, "tp"))),
+          _resume(tp, c5_root, "tp", "tp_resumed"),
+          _resume(tp, c5_root, "single", "single_on_tp")]
     pool = cf.ThreadPoolExecutor(2)
     # One thread a rank: the tier-1 run shares the host with other workers.
     futures = {2: pool.submit(spawn_cpu_world, _run_cases, 2, (w2,),
@@ -559,6 +591,62 @@ def test_sharded_train_model_matches_single_device(worlds, single, world, index,
     for rank in range(1, world):
         assert worlds(world, index, rank)["rows"] == got["rows"]
         assert worlds(world, index, rank)["paths"] is None
+
+
+@pytest.mark.parametrize("world, full, cut, resumed", [(2, 2, 8, 9), (4, 4, 10, 11)])
+def test_mesh_resume_equals_uninterrupted_run(worlds, world, full, cut, resumed):
+    """C5: a dp2 and a dp2×tp2 run cut after epoch 2 and resumed from its
+    checkpoint repeats epoch 3 of the uninterrupted run on the same mesh,
+    rows and final weights bit for bit, on every rank."""
+    want, got = worlds(world, full), worlds(world, resumed)
+    assert [r["epoch"] for r in worlds(world, cut)["rows"]] == [1, 2]
+    assert worlds(world, cut)["rows"] == want["rows"][:2]
+    assert [r["epoch"] for r in got["rows"]] == [3]
+    assert got["rows"] == want["rows"][2:]
+    assert got["best_epoch"] == want["best_epoch"]
+    np.testing.assert_array_equal(got["confusion"], want["confusion"])
+    for name, value in want["final"].items():
+        np.testing.assert_array_equal(got["final"][name], value, err_msg=name)
+    for rank in range(1, world):
+        assert worlds(world, resumed, rank)["rows"] == got["rows"]
+
+
+def _matches_single(got, want):
+    np.testing.assert_allclose(_traj(got), _traj(want)[2:], **TRAJ)
+    assert got["best_epoch"] == want["best_epoch"]
+    for name, value in want["final"].items():
+        np.testing.assert_allclose(got["final"][name], value, rtol=5e-3, atol=5e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("world, index", [(2, 10), (4, 12)])
+def test_single_device_checkpoint_resumes_on_a_mesh(worlds, single, world, index):
+    """A single-device run's epoch-2 checkpoint continued over dp2 and
+    dp2×tp2 (each rank takes its shard of the weights and of Adam's moments)
+    follows the single-device run's epoch 3 to float tolerance."""
+    _matches_single(worlds(world, index), single["small"])
+
+
+@pytest.mark.parametrize("world, tag", [(2, "dp2"), (4, "tp")])
+def test_mesh_checkpoint_resumes_single_device(worlds, single, c5_root, world, tag):
+    """A dp2 and a dp2×tp2 run's epoch-2 checkpoint holds the single-device
+    layout (weights, best weights and Adam's moments at full shape) and
+    continues on one device as the single-device run does."""
+    worlds(world, 0)                        # the world has written its files
+    path = f"{c5_root}/{tag}/checkpoints/state_000002.pth"
+    payload = torch.load(path, weights_only=True)
+    shapes = {k: v.shape for k, v in single["small"]["final"].items()}
+    assert {k: tuple(v.shape) for k, v in payload["model"].items()} == shapes
+    assert {k: tuple(v.shape) for k, v in payload["best"].items()} == shapes
+    params = [n for n, _ in init_fusion(port_config.ModelConfig(**SMALL),
+                                        device=CPU).named_parameters()]
+    assert len(payload["optimizer"]["state"]) == len(params)
+    for idx, st in payload["optimizer"]["state"].items():
+        assert tuple(st["exp_avg"].shape) == shapes[params[idx]]
+        assert tuple(st["exp_avg_sq"].shape) == shapes[params[idx]]
+    got = case_train(None, SMALL, {**TRAIN, "output_dir": f"{c5_root}/{tag}_on_one"},
+                     resume_dir=f"{c5_root}/{tag}/checkpoints")
+    _matches_single(got, single["small"])
 
 
 @pytest.mark.parametrize("world, index", [(2, 2), (4, 2), (4, 4)])
