@@ -30,9 +30,25 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    the Wav2Vec2 width; every mode of ``attention_variant`` at the probe shape
    (16, 12, 1569, 64) padded to 1664 keys, the two ``p = scores`` modes on
    the rows whose plain denominator is at least ``DEN_MIN`` in magnitude.
+3a. random stream: the threefry kernel (``csrc/threefry.cu``, the port's own:
+   ``jax.random``'s draws, not a TPU kernel) against its plain version on the
+   card, bit for bit and the same bits on a second call, at the draws the
+   trainers make at ``ModelConfig()`` width: a training step at batch 64 (the
+   11 dropout masks, modality dropout's ``u`` and the sort keys of mixup's
+   ``j``), phase 9's global batch of 256, four seed lanes, and the epoch
+   permutation of 6,796 rows; its device time (torch.profiler), the call's
+   and the plain version's, beside the bound (integer operations or bytes).
+   One launch a training step (``train/keys.py:KeySchedule.draw``).  The
+   card's draws of both key schedules against JAX's own
+   (``mmer_tpu_torch/assets/jax_draws.npz``, written by ``tests/test_torch_prng.py
+   --write``): permutations, sampled mask elements, ``u``, ``j``, an epoch of
+   mixup ``λ`` and 32-bit bits, all equal.  Then ``scripts/profile_train.py``
+   at full width: ms a step, device busy, idle share, device operations and
+   threefry launches a step (the profiled steps and the shuffle).
 3b. JAX weights (after phase 3): the full default ViViT and Wav2Vec2
    param trees regenerated on the card from the JAX package's seeds
-   (``models/jax_init.py``), timed, every leaf held at the committed
+   (``models/jax_init.py``; each random leaf one threefry launch, counted),
+   timed, every leaf held at the committed
    fixture's sampled indices (``mmer_tpu_torch/assets/jax_reference.npz``,
    written by ``tests/test_torch_jax_weights.py --write``) within
    ``JAX_MAX_ULP`` (the bit-equal share and the worst ulp logged); the
@@ -87,11 +103,19 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 6. profile: ``mmer_tpu_torch.scripts.profile_fused_blocks.main`` and
    ``mmer_tpu_torch.scripts.probe_attn.main`` at their full shapes, with the
    launch counts of ``fused_ln_matmul``, ``fused_ffn`` and every attention mode
-   held to what the scripts' inputs and passes imply.
+   held to what the scripts' inputs and passes imply; then the component
+   profiles ``scripts.profile_vivit`` (ViViT-B at B = 16: the model on the
+   kernel and the plain route, attention alone on both, the model without
+   attention) and ``scripts.profile_w2v2`` (Wav2Vec2-large at 64 x 3.2 s in
+   the 4 s bucket: the default route, the conv encoder alone, the
+   transformer alone), every leg's ms, TFLOP/s, device busy ms and idle
+   share logged, kernel rows 1-3 launched exactly as the legs' calls imply.
 7. training: 8,496 seeded samples written as ``.npy`` feature artifacts
    under CREMA-D / RAVDESS names → ``mmer_tpu_torch.train.cli.main`` at
-   ``ModelConfig()`` width for ``TRAIN_EPOCHS`` epochs at batch 64: the train
-   loss must be finite and fall, the validation accuracy beat chance, the
+   ``ModelConfig()`` width for ``TRAIN_EPOCHS`` epochs at batch 64 on JAX's
+   epoch-loop key schedule (exactly one threefry launch a random leaf of the
+   initial weights, a shuffle and a step): the train loss must be finite and
+   fall, the validation accuracy beat chance, the
    confusion matrix sum to the test split, the artifacts exist; then
    ``InferenceEngine`` loads the trained head and its normalisation
    statistics and answers one request.
@@ -101,7 +125,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    four seed-batched pool calls of S = 2 (``train/fused.train_many_seeds``),
    the top-half teacher, one student call.  Gates: every member's train
    loss finite and falling, the two seeds of a call different, pool seed 0
-   of the winning recipe rerun alone through ``train_model`` within
+   of the winning recipe rerun alone through ``train_model(fused=True)`` (the
+   same key schedule: lane 0 and the solo run share every draw) within
    ``FLAGSHIP_LOSS_RTOL`` of its batched rows with the same best epoch,
    teacher rows summing to 1, the student's
    validation accuracy above twice chance, ``flagship.msgpack``,
@@ -148,7 +173,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    clip is tracked, timed; the phase's wall time.
 
 The second-to-last line is ``{"kernels": [...]}`` (``launches_scale_out``:
-the mesh runs' launches; ``launches_prep_chain``: phase 10's); the last line
+the mesh runs' launches; ``launches_prep_chain``: phase 10's; ``threefry``'s
+launches are the training phase's); the last line
 is ``{"ok": true, "device": {...}}``.
 """
 
@@ -1053,9 +1079,158 @@ def check_probe_kernels(dev) -> dict:
     return res
 
 
+# The threefry kernel's bound: each output word written once, and about 76
+# 32-bit integer operations a word (one threefry2x32, 72, and its transform).
+# The guide's table gives 67 TFLOP/s of float32 outside the tensor cores: 128
+# lanes an SM and clock at 2 operations a fused multiply-add; Hopper has 64
+# int32 lanes an SM, so 67e12 / 4 integer operations a second.
+THREEFRY_OPS_PER_WORD = 76
+INT32_OPS_PER_S = 67e12 / 4
+# The random-stream phase's draws, as the trainers make them at
+# ModelConfig() width (T = 5): a step at batch 64 (the 11 masks, u and j),
+# phase 9's global batch of 256, four seed lanes at 64, and the epoch
+# permutation of the 6,796 training rows (two sort-key rounds).
+STREAM_STEP_B, STREAM_GLOBAL_B, STREAM_LANES = 64, 256, 4
+
+
+def random_leaves(spec: dict) -> int:
+    """The leaves of a ``jax_init`` spec that draw random bits (normal and
+    lecun-normal initializers): one threefry launch each on the card."""
+    from mmer_tpu_torch.models.jax_init import Leaf
+
+    return sum(random_leaves(v) if isinstance(v, dict)
+               else int(v.init in ("normal", "lecun_normal"))
+               for v in spec.values() if isinstance(v, (dict, Leaf)))
+
+
+def _threefry_case(dev, tag: str, draws, lanes, keys, step) -> dict:
+    """One DrawPlan on the card against its plain version on the card: the
+    same values, the same bits on a second call, one launch a call; the
+    kernel's time, the plain version's and the bound."""
+    import torch
+
+    from mmer_tpu_torch.ops import prng
+    from mmer_tpu_torch.scripts.timing import PEAK_BYTES, kernel_device_ms
+
+    plan = prng.DrawPlan(draws, dev, lanes=lanes)
+    before = prng.launch_threefry.launches
+    got = plan.draw(keys, step)
+    if prng.launch_threefry.launches != before + 1:
+        raise AssertionError(f"threefry {tag}: not one launch a draw call")
+    want = plan.draw_plain(keys, step)
+    err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    again = all(torch.equal(g, h) for g, h in zip(got, plan.draw(keys, step)))
+    out_bytes = nbytes(*got)
+    # The kernel's device time (torch.profiler: the host's Python around a
+    # launch, ~0.2 ms, would otherwise be timed), the call's and the plain
+    # version's (CUDA events).
+    ms = kernel_device_ms(lambda: plan.draw(keys, step), "threefry_kernel",
+                          iters=20, per_call=1)[0]
+    call_ms = cuda_ms(lambda: plan.draw(keys, step), iters=50)
+    plain_ms = cuda_ms(lambda: plan.draw_plain(keys, step), iters=5, warmup=1)
+    t_ops = plan.total * THREEFRY_OPS_PER_WORD / INT32_OPS_PER_S * 1e3
+    t_bytes = out_bytes / PEAK_BYTES * 1e3
+    log(f"threefry {tag}: {plan.total} words ({out_bytes / 1e6:.3f} MB) in "
+        f"{len(plan.table)} segments: {'bit-equal' if same else 'DIFFERENT'} to "
+        f"the plain version, {'the same bits' if again else 'OTHER BITS'} on a "
+        f"second call; kernel {ms:.4f} ms (device; the call {call_ms:.4f} ms), "
+        f"plain {plain_ms:.4f} ms, bound "
+        f"{max(t_ops, t_bytes):.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}"
+        f": {t_ops:.4f} ms of integer operations, {t_bytes:.4f} ms of bytes)")
+    if not (same and again):
+        raise AssertionError(f"threefry {tag}: the kernel disagrees with its "
+                             "plain version or with itself")
+    return {"max_abs_err": err, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None, "words": plan.total, "bytes": out_bytes}
+
+
+def run_random_stream(dev) -> dict:
+    """The trainers' random stream on the card: the threefry kernel against
+    its plain version at the trainers' draws, one launch a step, JAX's own
+    draws from the committed fixture, and the training step's operations
+    and time (``scripts/profile_train.py``).  Returns the kernel's line
+    fields (the step case's numbers)."""
+    import numpy as np
+
+    from mmer_tpu_torch.config import ModelConfig, TrainConfig
+    from mmer_tpu_torch.models.fusion import dropout_draws
+    from mmer_tpu_torch.ops import prng
+    from mmer_tpu_torch.scripts import profile_train
+    from mmer_tpu_torch.train import keys as train_keys
+
+    t_phase = time.perf_counter()
+    cfg, t = ModelConfig(), train_keys.FIXTURE_T
+    key = prng.split(prng.PRNGKey(0))[0]
+
+    def step_draws(b):
+        return (dropout_draws(cfg, b, t) + [prng.Draw((103,), (b,), "uniform")]
+                + prng.permutation_draws((102,), b))
+
+    cases = {
+        "step": (step_draws(STREAM_STEP_B), None, [key], 7),
+        "global256": (dropout_draws(cfg, STREAM_GLOBAL_B, t), None, [key], 7),
+        "lanes": (step_draws(STREAM_STEP_B), STREAM_LANES,
+                  [prng.split(prng.PRNGKey(s))[0] for s in range(STREAM_LANES)], 7),
+        "permutation": (prng.permutation_draws((1,), train_keys.FIXTURE_ROWS),
+                        None, [key], None)}
+    res = {name: _threefry_case(dev, name, *args) for name, args in cases.items()}
+
+    # One launch a training step, whatever its draws; an epoch's mixup λ on
+    # the host (107 steps at batch 64), one seed and four lanes.
+    tcfg = TrainConfig(mixup_alpha=0.4, modality_dropout=0.3)
+    steps = -(-train_keys.FIXTURE_ROWS // STREAM_STEP_B)
+    lam_ms = {}
+    for seeds in ([0], list(range(STREAM_LANES))):
+        ks = train_keys.KeySchedule(seeds, "fused", cfg, tcfg, STREAM_STEP_B, t,
+                                    dev, lanes=len(seeds) > 1)
+        for _ in range(2):
+            ks.begin_epoch(train_keys.FIXTURE_ROWS, steps)
+        lam_ms[len(seeds)] = ks.lambda_ms
+        before = prng.launch_threefry.launches
+        ks.draw()
+        if prng.launch_threefry.launches != before + 1:
+            raise AssertionError("a training step took more than one threefry "
+                                 "launch")
+    log(f"random stream: an epoch's mixup weights ({steps} steps) on the host: "
+        + "; ".join(f"{n} seed(s) {', '.join(f'{x:.2f}' for x in v)} ms"
+                    for n, v in lam_ms.items()))
+
+    # JAX's own draws (the committed fixture, written on the CPU by jax).
+    fx = np.load(train_keys.DRAWS_FIXTURE)
+    drawn = train_keys.fixture_draws(dev, fx)
+    bad = [k for k, (g, w) in drawn.items() if not np.array_equal(g, w)]
+    kinds = sorted({k.rsplit("/", 1)[-1].rstrip("0123456789") for k in drawn})
+    log(f"random stream: {len(drawn)} arrays ({sum(w.size for _, w in drawn.values())}"
+        f" values: {', '.join(kinds)}) of the fixture's cases "
+        f"{sorted(train_keys.FIXTURE_CASES)} drawn on the card: "
+        f"{'all equal to JAX' if not bad else f'{len(bad)} DIFFER, e.g. {bad[:3]}'}")
+    if bad:
+        raise AssertionError("the card's draws are not JAX's")
+
+    # The training step at full width: device operations, busy time, idle
+    # share (PERF.md: 737 operations and 14.481 ms a step before the stream).
+    prof = profile_train.main([])
+    if prof["threefry_launches"] != prof["profiled_steps"] + 1:
+        raise AssertionError("the profiled steps did not draw one threefry "
+                             "launch each (and one for the shuffle)")
+    log(f"random stream: phase {time.perf_counter() - t_phase:.2f} s wall")
+    return {**{k: v for k, v in res["step"].items() if k not in ("words", "bytes")},
+            "cases": {name: {k: r[k] for k in ("ms", "call_ms", "plain_ms",
+                                               "bound_ms", "bound_by", "words",
+                                               "bytes")}
+                      for name, r in res.items()},
+            "train_step": {k: prof[k] for k in ("step_ms", "device_busy_ms_per_step",
+                                                "idle_share", "device_ops_per_step")},
+            "lambda_ms_an_epoch": {str(n): v[-1] for n, v in lam_ms.items()}}
+
+
 def run_profile_scripts() -> dict:
-    """The profile and probe scripts through their ``main``; returns the
-    launch counts of that run."""
+    """The profile and probe scripts through their ``main``, then the
+    ViViT and Wav2Vec2 component profiles; returns the launch counts of
+    those runs."""
     from mmer_tpu_torch.ops.attention_variants import MODES, VALID_MODES
     from mmer_tpu_torch.scripts import probe_attn, profile_fused_blocks
     from mmer_tpu_torch.scripts.timing import ROUNDS
@@ -1080,7 +1255,44 @@ def run_profile_scripts() -> dict:
     if launches != expected:
         raise AssertionError("the profile and probe scripts did not launch the "
                              "kernels as expected")
-    return launches
+
+    # The component profiles at full width (ViViT-B at B = 16, Wav2Vec2-large
+    # at 64 x 4 s), on kernel rows 1-3: each leg's calls are a warm-up pass,
+    # ROUNDS timed passes and one traced pass over its inputs.
+    from mmer_tpu_torch.config import ViViTConfig, Wav2Vec2Config
+    from mmer_tpu_torch.scripts import profile_vivit, profile_w2v2
+
+    depth, layers = ViViTConfig().depth, Wav2Vec2Config().num_layers
+    convs = len(Wav2Vec2Config().conv_dims)     # a launch a layer
+    reset_launches()
+    t0 = time.perf_counter()
+    legs = (profile_vivit.main(["--inputs", str(inputs)])
+            + profile_w2v2.main(["--inputs", str(inputs)]))
+    profiles_s = time.perf_counter() - t0
+    comp = read_launches()
+    # Kernel launches of one call of each leg (ViViT legs first).
+    per_call = [{"flash_attention": depth, "fused_ffn": depth}, {},
+                {"flash_attention": 1}, {}, {"fused_ffn": depth},
+                {"fused_conv_encoder": convs, "fused_ffn": layers},
+                {"fused_conv_encoder": convs}, {"fused_ffn": layers}]
+    want = {k: 0 for k in comp}
+    for row, kernels_of in zip(legs, per_call):
+        for k, n in kernels_of.items():
+            want[k] += row["calls"] * n
+    for row in legs:
+        log(f"component profile: {row['name']}: {row['ms']:.4f} ms, "
+            f"{row['tflops']:.2f} TFLOP/s ({100 * row['peak_share']:.2f} % of "
+            f"989), device busy {row['device_busy_ms']:.4f} ms, idle share "
+            f"{row['idle_share']:.4f}, {row['device_ops']:.0f} device operations")
+        if not (row["ms"] > 0 and row["device"] != "cpu"
+                and 0 < row["device_busy_ms"]):
+            raise AssertionError(f"component profile {row['name']}: no device time")
+    log(f"component profiles: {profiles_s:.2f} s wall; launch counts {comp}, "
+        f"expected {want}")
+    if comp != want:
+        raise AssertionError("the component profiles did not launch rows 1-3 as "
+                             "expected")
+    return {k: launches[k] + comp[k] for k in launches}
 
 
 def _make_feature_folders(video_dir: str, audio_dir: str, rng,
@@ -1126,16 +1338,21 @@ def _make_feature_folders(video_dir: str, audio_dir: str, rng,
     return total
 
 
-def run_training(dev, features: str) -> None:
+def run_training(dev, features: str) -> tuple:
     """The fusion training path at full width on a dataset of real size,
     then serving with the trained head.  The feature folders are written
-    under ``features``, where the scale-out phase reads them again."""
+    under ``features``, where the scale-out phase reads them again.
+    Returns the serving request's launches and the run's threefry
+    launches."""
     import glob
     import tempfile
 
     import numpy as np
     import torch
 
+    from mmer_tpu_torch.config import ModelConfig
+    from mmer_tpu_torch.models.jax_init import fusion_spec
+    from mmer_tpu_torch.ops import prng
     from mmer_tpu_torch.serve.engine import InferenceEngine
     from mmer_tpu_torch.train import cli
 
@@ -1151,6 +1368,7 @@ def run_training(dev, features: str) -> None:
             f"{time.perf_counter() - t0:.2f} s")
 
         reset_launches()
+        prng.launch_threefry.launches = 0
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         out = cli.main(["--video_feat_dir", video_dir, "--audio_feat_dir",
@@ -1159,6 +1377,7 @@ def run_training(dev, features: str) -> None:
                         out_dir])
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
+        threefry = prng.launch_threefry.launches
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
         if any(read_launches().values()):
             raise AssertionError(f"training launched kernels: {read_launches()}")
@@ -1189,6 +1408,18 @@ def run_training(dev, features: str) -> None:
             f"warm epoch {warm:.3f} s, {n_train / warm:.1f} samples/s")
         if out.hyperparameters["device"] != "cuda" or len(rows) != TRAIN_EPOCHS:
             raise AssertionError("training did not run its epochs on the card")
+        # JAX's stream: the initial weights (a launch a random leaf), then an
+        # epoch's shuffle and each step's draws, one launch each.
+        steps = -(-n_train // 64)
+        init_draws = random_leaves(fusion_spec(ModelConfig(), 768, 1024)[0])
+        want = init_draws + TRAIN_EPOCHS * (1 + steps)
+        log(f"training: {threefry} threefry launches: {init_draws} for the "
+            f"initial weights, {TRAIN_EPOCHS} x ({steps} steps + the "
+            f"shuffle) (want {want}); mixup weights "
+            f"{out.lambda_ms or 'none (no mixup)'}")
+        if threefry != want:
+            raise AssertionError("training did not draw one threefry launch a "
+                                 "step")
         if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
             raise AssertionError(f"train loss not finite and falling: {losses}")
         if not rows[-1]["val_acc"] > 2 * 100.0 / len(CLASS_COUNTS):
@@ -1219,7 +1450,7 @@ def run_training(dev, features: str) -> None:
                 and set(engine.norm_stats) == {"video_mean", "video_std",
                                                "audio_mean", "audio_std"}):
             raise AssertionError("serving with the trained head failed")
-    return request_launches
+    return request_launches, threefry
 
 
 def _per_epoch(tag: str, wall: float, epochs: int, seeds: int,
@@ -1303,7 +1534,7 @@ def run_flagship_chain(dev, request_launches: dict) -> dict:
         # One pool seed alone through the one trainer.
         model_cfg, train_cfg = res["configs"]["winning"]
         solo = train_model(data, splits, model_cfg, train_cfg, batch_size=64,
-                           seed=0, verbose=False, device=dev)
+                           seed=0, verbose=False, device=dev, fused=True)
         times["solo"] = _per_epoch("train_model alone (winning, seed 0)",
                                    solo.hyperparameters["train_wall_seconds"],
                                    FLAGSHIP_EPOCHS, 1, n_train)
@@ -1408,6 +1639,7 @@ def main() -> int:
     build_kernels()
     kernels = check_kernels(dev)
     kernels.update(check_probe_kernels(dev))
+    stream = run_random_stream(dev)
     run_jax_weights(dev)
     serving = run_main_path(dev)
     file_path = run_serving_file_path(dev)
@@ -1416,7 +1648,7 @@ def main() -> int:
     # The training phase's feature folders, read again by the scale-out phase.
     features = tempfile.TemporaryDirectory(prefix="mmer_smoke_features_")
     try:
-        request_launches = run_training(dev, features.name)
+        request_launches, train_draws = run_training(dev, features.name)
         run_flagship_chain(dev, request_launches)
         scale_out = run_scale_out(dev, extraction["chunks"], extraction["waves"],
                                   features.name)
@@ -1443,8 +1675,14 @@ def main() -> int:
          "launches_prep_chain": prep_chain[name],
          **{k: v for k, v in r.items() if not k.startswith("shape")}}
         for name, r in kernels.items()]
+    lines.append({"name": "threefry", "route": "cuda",
+                  "source": "mmer_tpu_torch/csrc/threefry.cu",
+                  "replaces": "mmer_tpu/train/loop.py:204 (jax.random's threefry "
+                              "draws, which XLA compiles; not a Pallas kernel)",
+                  "launches": train_draws, "launches_training": train_draws,
+                  **{k: v for k, v in stream.items()}})
     idle = [k["name"] for k in lines if k["launches"] < 1]
-    if idle or len(lines) != len(SOURCES):
+    if idle or len(lines) != len(SOURCES) + 1:
         raise AssertionError(f"kernels never launched on a main path: {idle}")
     idle = [k for k in ("flash_attention", "fused_ffn", "fused_conv_encoder")
             if prep_chain[k] < 1]
@@ -1494,20 +1732,31 @@ def run_jax_weights(dev, fixture: str | None = None) -> None:
         f"{meta['samples']} samples a leaf")
     vcfg, wcfg = ViViTConfig(), Wav2Vec2Config()
 
-    # 1. Both full trees regenerated on the card, timed.
+    # 1. Both full trees regenerated on the card, timed: every random leaf
+    # one launch of the threefry kernel.
+    from mmer_tpu_torch.ops import prng
+
     torch.cuda.synchronize()
+    draws0 = prng.launch_threefry.launches
     t0 = time.perf_counter()
     trees = {"vivit": jax_init.vivit_tree(vcfg, device=dev),
              "wav2vec2": jax_init.wav2vec2_tree(wcfg, device=dev)}
     torch.cuda.synchronize()
     regen_s = time.perf_counter() - t0
+    draws = prng.launch_threefry.launches - draws0
+    want_draws = (random_leaves(jax_init.vivit_spec(vcfg))
+                  + random_leaves(jax_init.wav2vec2_spec(wcfg)))
     n_params = sum(v.numel() for t in trees.values()
                    for v in jax_init.flat_leaves(t).values())
     log(f"JAX weights: ViViT {vcfg.dim}x{vcfg.depth} and Wav2Vec2 "
         f"{wcfg.hidden_dim}x{wcfg.num_layers} regenerated on the card in "
-        f"{regen_s:.2f} s ({n_params} params; limit {REGEN_LIMIT_S} s)")
+        f"{regen_s:.2f} s ({n_params} params; limit {REGEN_LIMIT_S} s), "
+        f"{draws} threefry launches ({want_draws} random leaves)")
     if regen_s > REGEN_LIMIT_S:
         raise AssertionError("regenerating the extractors' weights took too long")
+    if draws != want_draws:
+        raise AssertionError("the regeneration did not draw each random leaf "
+                             "in one threefry launch")
 
     # 2. Every leaf at the fixture's sampled indices.
     for name, tree in trees.items():

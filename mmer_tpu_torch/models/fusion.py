@@ -16,13 +16,18 @@ dtype over float32 params; norms and the residual stream are float32.
 In training mode (``model.train()``) dropout is applied where the JAX model
 applies it: on the attention probabilities, after the attention and FFN
 sublayers, inside the FFN, after the positional embedding and after each
-classifier hidden layer; ``forward(..., generator=g)`` draws the masks from
-an explicit ``torch.Generator`` (on the inputs' device), else from the
-global one; ``generator=DropoutMasks(masks)`` applies masks drawn
-beforehand (:func:`draw_dropout_masks`) in the order the forward would draw
-them, which is how a forward under ``torch.vmap`` (one lane a seed) gets
-each seed's own masks.  The JAX and PyTorch random streams differ, so only
-the rate and the scaling of the masks can be compared.
+classifier hidden layer.  The masks are JAX's: flax's ``Dropout`` draws
+``bernoulli(make_rng("dropout"), keep, shape)`` with the site's key the
+step's dropout key folded with the SHA-1 of its module path and counter
+(``fusion/Dropout_0``, ``fusion/layer_i/self_attn/Dropout_0``,
+``fusion/layer_i/Dropout_0..2``, ``classifier/Dropout_0..1``;
+:func:`dropout_draws`), and the trainer draws a step's masks in one kernel
+launch (``train/keys.py``).  ``forward(..., masks=DropoutMasks(...))``
+applies them in the forward's order, as flax does: ``select(mask, x /
+keep, 0)``, where XLA divides a float32 site by multiplying with the
+float32 reciprocal of ``keep`` and a bfloat16 site by dividing by
+bfloat16 ``keep`` (:func:`dropout_scales`).  Under ``torch.vmap`` (seed
+batches) each lane takes its own seed's masks.
 
 Several models of one config run as one program through
 :func:`stack_members` and :func:`member_forward` under ``torch.vmap``: the
@@ -33,7 +38,9 @@ from __future__ import annotations
 
 import copy
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +50,7 @@ from mmer_tpu_torch.config import ModelConfig, torch_dtype
 from mmer_tpu_torch.models import jax_init
 from mmer_tpu_torch.models.convert import fusion_from_flax
 from mmer_tpu_torch.models.layers import LayerNorm, dense
+from mmer_tpu_torch.ops import prng
 from mmer_tpu_torch.ops.masked_ops import (attention_bias_from_pad_mask,
                                            masked_mean_pool)
 from mmer_tpu_torch.parallel.sharding import (copy_to_model, reduce_from_model,
@@ -50,76 +58,99 @@ from mmer_tpu_torch.parallel.sharding import (copy_to_model, reduce_from_model,
 
 
 class DropoutMasks:
-    """Masks drawn ahead of a forward (:func:`draw_dropout_masks`), handed
-    out in order to the dropout sites that ask for them."""
+    """A training forward's masks (:func:`dropout_draws`, drawn ahead of it)
+    with their sites' scales (:func:`dropout_scales`), handed out in order
+    to the dropout sites that ask for them."""
 
-    def __init__(self, masks: Sequence[torch.Tensor]):
-        self._masks = iter(masks)
+    def __init__(self, masks: Sequence[torch.Tensor], scales: Sequence):
+        self._items = iter(zip(masks, scales))
 
-    def next(self) -> torch.Tensor:
-        return next(self._masks)
+    def next(self):
+        return next(self._items)
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
-            generator=None) -> torch.Tensor:
-    """flax ``Dropout``: in training, zero each element with probability
-    ``rate`` and scale the rest by ``1 / (1 - rate)``; else the identity.
-    ``generator``: a ``torch.Generator``, None (the global one) or a
-    :class:`DropoutMasks`."""
+            masks: Optional[DropoutMasks] = None) -> torch.Tensor:
+    """flax ``Dropout``: in training, ``select(mask, x / keep, 0)`` with
+    the next of ``masks`` (a 0 / 1 keep mask in ``x``'s dtype and its
+    site's scale: a float to multiply a float32 ``x`` by, or a 0-dim tensor
+    to divide a bfloat16 ``x`` by); else the identity."""
     if not training or rate <= 0.0:
         return x
-    keep = 1.0 - rate
-    if isinstance(generator, DropoutMasks):
-        mask = generator.next()
-    else:
-        mask = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-        mask.bernoulli_(keep, generator=generator)
-    return x * (mask / keep).to(x.dtype)
+    if masks is None:
+        raise ValueError("a training forward with dropout on takes the step's "
+                         "masks: forward(..., masks=DropoutMasks(...))")
+    mask, scale = masks.next()
+    return (x * scale if isinstance(scale, float) else x / scale) * mask
 
 
-def _dropout_sites(cfg: ModelConfig, b: int, t: int) -> List[Tuple[str, tuple, float]]:
-    """(kind, shape, rate) of every mask a training forward of a (b, t)
-    batch draws, in the order it draws them; sites at rate 0 draw nothing.
-    Kinds: "attn" (b, h, s, s) probabilities, "ffn" (b, s, ffn_dim) inner
-    activations, "rows" the rest."""
+class Site(NamedTuple):
+    """A dropout site of the training forward: its mask's kind ("attn"
+    (b, h, s, s) probabilities, "ffn" (b, s, ffn_dim) inner activations,
+    "rows" the rest), shape, rate, flax module path and the dtype it is
+    applied in."""
+    kind: str
+    shape: tuple
+    rate: float
+    path: tuple
+    dtype: torch.dtype
+
+
+def _dropout_sites(cfg: ModelConfig, b: int, t: int) -> List[Site]:
+    """Every dropout site a training forward of a (b, t) batch applies, in
+    the order it applies them; sites at rate 0 draw nothing."""
     s, f, h = t + 1, cfg.fused_dim, cfg.fusion_heads
     hidden = cfg.classifier_hidden_dim or cfg.fused_dim // 2
-    layer = [("attn", (b, h, s, s)), ("rows", (b, s, f)),
-             ("ffn", (b, s, cfg.fusion_ffn_dim)), ("rows", (b, s, f))]
-    sites = ([("rows", (b, s, f), cfg.fusion_dropout)]
-             + [(kind, shape, cfg.fusion_dropout)
-                for _ in range(cfg.fusion_layers) for kind, shape in layer]
-             + [("rows", (b, hidden), cfg.classifier_dropout)] * 2)
-    return [site for site in sites if site[2] > 0.0]
+    r, fp32 = cfg.fusion_dropout, torch.float32
+    sites = [Site("rows", (b, s, f), r, ("fusion", "Dropout_0"), fp32)]
+    for i in range(cfg.fusion_layers):
+        layer = ("fusion", f"layer_{i}")
+        sites += [Site("attn", (b, h, s, s), r, layer + ("self_attn", "Dropout_0"), fp32),
+                  Site("rows", (b, s, f), r, layer + ("Dropout_0",), fp32),
+                  Site("ffn", (b, s, cfg.fusion_ffn_dim), r, layer + ("Dropout_1",),
+                       torch_dtype(cfg)),
+                  Site("rows", (b, s, f), r, layer + ("Dropout_2",), fp32)]
+    sites += [Site("rows", (b, hidden), cfg.classifier_dropout,
+                   ("classifier", f"Dropout_{i}"), fp32) for i in range(2)]
+    return [site for site in sites if site.rate > 0.0]
 
 
-def dropout_shapes(cfg: ModelConfig, b: int, t: int) -> List[Tuple[tuple, float]]:
-    """(shape, rate) of every mask a training forward of a (b, t) batch
-    draws, in the order it draws them; sites at rate 0 draw nothing."""
-    return [(shape, rate) for _, shape, rate in _dropout_sites(cfg, b, t)]
+def dropout_draws(cfg: ModelConfig, b: int, t: int) -> List[prng.Draw]:
+    """The draws of a training forward's masks for a (b, t) batch, in the
+    order it applies them: each site's key is the step's dropout key folded
+    with flax's word for its path and its scope's first ``make_rng``
+    (``prng.path_word``), its mask ``uniform < float32(1 - rate)`` in the
+    site's dtype."""
+    return [prng.Draw((prng.path_word(site.path + (1,)),), site.shape, "mask",
+                      1.0 - site.rate, site.dtype)
+            for site in _dropout_sites(cfg, b, t)]
 
 
-def draw_dropout_masks(cfg: ModelConfig, b: int, t: int,
-                       generator: Optional[torch.Generator],
-                       out: Sequence[torch.Tensor]) -> Sequence[torch.Tensor]:
-    """Draw into ``out`` (tensors shaped as :func:`dropout_shapes` says) the
-    masks a training forward of a (b, t) batch would draw from
-    ``generator``: the same order, the same bits."""
-    for buf, (_, rate) in zip(out, dropout_shapes(cfg, b, t)):
-        buf.bernoulli_(1.0 - rate, generator=generator)
+def dropout_scales(cfg: ModelConfig, device: torch.device | str) -> list:
+    """Each site's scale, in :func:`dropout_draws`' order: XLA turns a
+    float32 ``x / keep`` into ``x * float32(1 / float32(keep))`` (a float);
+    a bfloat16 one stays a division, in float32, by bfloat16 ``keep`` (a
+    0-dim tensor on ``device``: a true division, where a Python divisor
+    would be a multiply by its reciprocal on CUDA)."""
+    out = []
+    for site in _dropout_sites(cfg, 1, 0):
+        keep = 1.0 - site.rate
+        out.append(float(np.float32(1.0) / np.float32(keep))
+                   if site.dtype == torch.float32
+                   else torch.tensor(keep, dtype=site.dtype, device=device))
     return out
 
 
 def shard_dropout_masks(cfg: ModelConfig, masks: Sequence[torch.Tensor],
                         rows: slice, mesh) -> List[torch.Tensor]:
     """A mesh rank's part of masks drawn for the global batch at full width
-    (:func:`draw_dropout_masks`): its ``rows`` of every mask, and on a model
+    (:func:`dropout_draws`): its ``rows`` of every mask, and on a model
     axis its heads of each (b, h, s, s) attention-probability mask and its
     columns of each (b, s, ffn_dim) FFN mask.  So a sharded step applies the
     single-device step's masks."""
     out = []
     split = mesh is not None and mesh.mp > 1
-    kinds = [kind for kind, _, _ in _dropout_sites(cfg, 1, 0)]
+    kinds = [site.kind for site in _dropout_sites(cfg, 1, 0)]
     for kind, mask in zip(kinds, masks):
         mask = mask[rows]
         if split and kind == "attn":
@@ -228,7 +259,7 @@ class MultiHeadSelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor] = None,
                 return_attn: bool = False,
-                generator: Optional[torch.Generator] = None):
+                masks: Optional[DropoutMasks] = None):
         b, s, _ = x.shape
         h = self.num_heads
         hd = self.head_dim
@@ -243,7 +274,7 @@ class MultiHeadSelfAttention(nn.Module):
         if attn_bias is not None:
             scores = scores + attn_bias.float()
         probs = dropout(torch.softmax(scores, dim=-1), self.dropout_rate,
-                        self.training, generator)
+                        self.training, masks)
         out = torch.matmul(probs.to(dt).float(), v)           # (B, H, S, hd)
         out = row_parallel(out.transpose(1, 2).reshape(b, s, h * hd), self.out,
                            dt, self.tp)
@@ -270,11 +301,11 @@ class PostNormEncoderLayer(nn.Module):
         self.norm2 = LayerNorm(dim, device=device)
 
     def forward(self, x, attn_bias=None, return_attn: bool = False,
-                generator: Optional[torch.Generator] = None):
+                masks: Optional[DropoutMasks] = None):
         def drop(t):
-            return dropout(t, self.dropout_rate, self.training, generator)
+            return dropout(t, self.dropout_rate, self.training, masks)
 
-        attn_out, probs = self.self_attn(x, attn_bias, return_attn, generator)
+        attn_out, probs = self.self_attn(x, attn_bias, return_attn, masks)
         x = self.norm1(x + drop(attn_out.to(x.dtype)))
         y = row_parallel(drop(torch.relu(dense(copy_to_model(x, self.tp),
                                                self.ffn_in, self.dtype))),
@@ -304,14 +335,14 @@ class CrossModalFusion(nn.Module):
 
     def forward(self, video_feats, audio_feats, pad_mask=None,
                 return_attn: bool = False,
-                generator: Optional[torch.Generator] = None):
+                masks: Optional[DropoutMasks] = None):
         dt = torch_dtype(self.cfg)
         b, t, _ = video_feats.shape
         video = self.norm_video(dense(video_feats, self.video_proj, dt))
         audio = self.norm_audio(dense(audio_feats, self.audio_proj, dt))
         x = torch.cat([video.float(), audio.float()[:, None, :]], dim=1)
         x = dropout(x + self.pos_embed[:, :t + 1], self.cfg.fusion_dropout,
-                    self.training, generator)
+                    self.training, masks)
 
         # The audio token is never masked (reference train2.py:163-176).
         full_mask = None
@@ -324,7 +355,7 @@ class CrossModalFusion(nn.Module):
         for i, layer in enumerate(self.layers):
             x, probs = layer(x, bias,
                              return_attn=return_attn and i == len(self.layers) - 1,
-                             generator=generator)
+                             masks=masks)
             if probs is not None:
                 attn_probs = probs
         return self.out_norm(masked_mean_pool(x, full_mask)), attn_probs
@@ -345,14 +376,14 @@ class EmotionClassifier(nn.Module):
         self.out = nn.Linear(hidden, cfg.num_classes, device=device)
 
     def forward(self, fused: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                masks: Optional[DropoutMasks] = None) -> torch.Tensor:
         dt = torch_dtype(self.cfg)
         x = fused.to(dt)
         for lin, norm in ((self.hidden_0, self.norm_0),
                           (self.hidden_1, self.norm_1)):
             x = dropout(torch.relu(norm(dense(x, lin, dt))),
                         self.cfg.classifier_dropout, self.training,
-                        generator).to(dt)
+                        masks).to(dt)
         return F.linear(x.float(), self.out.weight, self.out.bias)
 
 
@@ -370,10 +401,10 @@ class MultimodalEmotionModel(nn.Module):
 
     def forward(self, video_feats, audio_feats, pad_mask=None,
                 return_attn: bool = False,
-                generator: Optional[torch.Generator] = None):
+                masks: Optional[DropoutMasks] = None):
         fused, attn = self.fusion(video_feats, audio_feats, pad_mask,
-                                  return_attn=return_attn, generator=generator)
-        logits = self.classifier(fused, generator)
+                                  return_attn=return_attn, masks=masks)
+        logits = self.classifier(fused, masks)
         return torch.softmax(logits, dim=-1), logits, attn
 
 
@@ -406,7 +437,7 @@ def stack_members(members: Sequence[nn.Module]
 
 def member_forward(base: nn.Module, params: Dict[str, torch.Tensor],
                    buffers: Dict[str, torch.Tensor], video, audio,
-                   pad_mask=None, generator=None):
+                   pad_mask=None, masks=None):
     """``base``'s forward with one member's ``params`` and ``buffers``
     (``torch.func.functional_call``): (probs, logits, attn).  Under
     ``torch.vmap`` over the stacked tensors of :func:`stack_members`, one
@@ -414,4 +445,4 @@ def member_forward(base: nn.Module, params: Dict[str, torch.Tensor],
     from torch.func import functional_call
 
     return functional_call(base, (params, buffers), (video, audio, pad_mask),
-                           {"generator": generator})
+                           {"masks": masks})

@@ -5,14 +5,11 @@ fixed random projection (``init_vivit_params``, ``AudioEmbedder._seeded_params``
 and its trainer seeds the fusion model with ``PRNGKey(seed)`` → ``split`` →
 ``model.init``.  This module redraws those trees on any torch device:
 
-- **threefry2x32** (20 rounds, Random123's rotations and key schedule) on
-  int64 tensors masked to 32 bits, so one code path runs on the CPU and on
-  CUDA, for keys (on the host) and for bits (on the drawing device).
-- **Keys and bits** as jax 0.9 computes them with ``jax_threefry_partitionable``
-  on: ``PRNGKey``, ``split``, ``fold_in``, and ``random_bits``, where an
-  element's bits are the threefry of its key and its flat index (high, low
-  words), xor-ed.  An element's bits depend on nothing else, so a leaf can be
-  drawn at any set of flat indices without the rest (:func:`draw_tree`).
+- **threefry2x32, keys and bits** from ``ops/prng.py`` (``jax.random`` as
+  jax 0.9 computes it with ``jax_threefry_partitionable`` on): an element's
+  bits are the threefry of its key and its flat index, so a leaf can be
+  drawn at any set of flat indices without the rest (:func:`draw_tree`); on
+  a CUDA device the threefry kernel draws them.
 - **flax's key per param** (``flax.core.scope``): a param of the module at
   path ``(m1, ..., mk)``, created as that scope's n-th ``make_rng("params")``
   call, takes ``fold_in(root, h)``, where ``h`` is the first four bytes,
@@ -50,217 +47,17 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-MASK = 0xFFFFFFFF
-ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
-Key = Tuple[int, int]
-
-# flax 0.12's ``flax_fix_rng_separator`` default: no byte between path parts.
-FIX_RNG_SEPARATOR = False
+# Keys, bits and XLA's float32 math live in ops/prng.py (jax.random for the
+# trainers too); re-exported here under the names this module has used.
+from mmer_tpu_torch.ops.prng import (  # noqa: F401
+    FIX_RNG_SEPARATOR, Key, PRNGKey, _f32, _fma, _SQRT2, _unit_uniform,
+    erf_inv, fold_in, fold_in_static, normal, random_bits, split)
 
 # XLA's float32 erf at -2/sqrt(2) and 2/sqrt(2): the truncated normal's bounds.
 TRUNC_LOWER_BITS, TRUNC_UPPER_BITS = 0xBF745A18, 0x3F745A18
 # flax's truncated-normal variance scaling divides by the stddev of a unit
 # normal truncated to [-2, 2].
 TRUNC_STD = 0.87962566103423978
-
-# XLA's single-precision erf_inv (M. Giles), for w = -log1p(-x*x) < 5 and >= 5.
-_ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
-                 -4.39150654e-06, 0.00021858087, -0.00125372503,
-                 -0.00417768164, 0.246640727, 1.50140941)
-_ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322,
-                 -0.00367342844, 0.00573950773, -0.0076224613,
-                 0.00943887047, 1.00167406, 2.83297682)
-# XLA's CPU log1p (Cephes): a rational form for |x| < sqrt(2) - 1 ...
-_LOG1P_SMALL = 0.41421356237309504880
-_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
-              6.5787325942061044846969e0, 2.9911919328553073277375e1,
-              6.0949667980987787057556e1, 5.7112963590585538103336e1,
-              2.0039553499201281259648e1)
-_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
-              2.2176239823732856465394e2, 3.0909872225312059774938e2,
-              2.1642788614495947685003e2, 6.0118660497603843919306e1)
-# ... and log(1 + x) elsewhere, through its vectorised Cephes logf.
-_LOG_SQRTHF = float(np.float32(0.707106781186547524))
-_LOG_P = tuple(float(np.float32(c)) for c in (
-    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
-    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
-    3.3333331174e-1))
-_LOG_Q1, _LOG_Q2 = float(np.float32(-2.12194440e-4)), float(np.float32(0.693359375))
-
-
-def _f32(bits: int) -> float:
-    return float(np.array(bits, np.uint32).view(np.float32))
-
-
-# -- threefry and keys ------------------------------------------------------------
-
-def threefry2x32(key: Key, x0: torch.Tensor, x1: torch.Tensor):
-    """Threefry-2x32 of the counter words (x0, x1), int64 tensors of values
-    below 2**32, under ``key`` (two ints); every sum is masked back to 32
-    bits.  The inputs are not modified."""
-    k0, k1 = key
-    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
-    x0 = x0.add(ks[0]).bitwise_and_(MASK)
-    x1 = x1.add(ks[1]).bitwise_and_(MASK)
-    high = torch.empty_like(x1)
-    for i in range(5):
-        for r in ROTATIONS[i % 2]:
-            x0.add_(x1).bitwise_and_(MASK)
-            torch.bitwise_left_shift(x1, r, out=high).bitwise_and_(MASK)
-            x1.bitwise_right_shift_(32 - r).bitwise_or_(high).bitwise_xor_(x0)
-        x0.add_(ks[(i + 1) % 3]).bitwise_and_(MASK)
-        x1.add_(ks[(i + 2) % 3] + i + 1).bitwise_and_(MASK)
-    return x0, x1
-
-
-def _key_words(key: Key, counters: Sequence[int]) -> list:
-    """The keys ``threefry2x32(key, (0, c))`` for each counter ``c``, on the
-    host."""
-    c = torch.tensor(list(counters), dtype=torch.int64)
-    y0, y1 = threefry2x32(key, c >> 32, c & MASK)
-    return list(zip(y0.tolist(), y1.tolist()))
-
-
-def PRNGKey(seed: int) -> Key:  # noqa: N802 -- jax's name
-    """``jax.random.PRNGKey(seed)`` with 64-bit mode off: the seed as a
-    32-bit word (a negative one wraps), high word 0."""
-    seed = int(seed)
-    if not -2 ** 31 <= seed < 2 ** 32:
-        raise ValueError(f"seed {seed} does not fit 32 bits, as jax's "
-                         "default (64-bit mode off) requires")
-    return (0, seed & MASK)
-
-
-def split(key: Key, num: int = 2) -> list:
-    """``jax.random.split(key, num)``: key i is the threefry of counter
-    (0, i)."""
-    return _key_words(key, range(num))
-
-
-def fold_in(key: Key, data: int) -> Key:
-    """``jax.random.fold_in(key, data)``: the threefry of (0, data)."""
-    return _key_words(key, [int(data) & MASK])[0]
-
-
-def random_bits(key: Key, index: torch.Tensor) -> torch.Tensor:
-    """``jax.random.bits(key, shape)`` (32 bits) at the flat row-major
-    indices ``index`` (int64) of ``shape``, as int64 values below 2**32."""
-    y0, y1 = threefry2x32(key, index >> 32, index & MASK)
-    return y0 ^ y1
-
-
-def fold_in_static(key: Key, parts: Sequence, separator: bool = FIX_RNG_SEPARATOR
-                   ) -> Key:
-    """``flax.core.scope._fold_in_static``: fold the SHA-1 of a module path
-    and a per-scope counter into ``key``."""
-    if not parts:
-        return key
-    m = hashlib.sha1()
-    for x in parts:
-        if separator:
-            m.update(b"\x00")
-        if isinstance(x, str):
-            m.update(x.encode("utf-8"))
-        elif isinstance(x, int):
-            m.update(x.to_bytes((x.bit_length() + 7) // 8, byteorder="big"))
-        else:
-            raise ValueError(f"expected an int or a str, got {x!r}")
-    return fold_in(key, int.from_bytes(m.digest()[:4], byteorder="big"))
-
-
-# -- float32 transforms, as XLA computes them -------------------------------------
-
-def _unit_uniform(bits: torch.Tensor) -> torch.Tensor:
-    """[0, 1) from the top 23 bits: ``bits >> 9 | 0x3F800000`` read as a
-    float in [1, 2), minus 1 (exact)."""
-    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-
-
-def _fma(a, b, c) -> torch.Tensor:
-    """``a*b + c`` with one float32 rounding, as XLA's contracted multiply-add
-    gives it: the product of two floats is exact in float64."""
-    return (torch.as_tensor(a).double() * torch.as_tensor(b).double()
-            + torch.as_tensor(c).double()).float()
-
-
-# float32 quotients and square roots through float64, which rounds them
-# correctly (53 >= 2*24 + 2 bits): torch's float32 CPU sqrt has been seen to
-# take a low-precision path on part of a tensor.
-def _div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return (a.double() / b.double()).float()
-
-
-def _sqrt(a: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(a.double()).float()
-
-
-def _horner(coeffs, x: torch.Tensor) -> torch.Tensor:
-    p = torch.zeros_like(x)
-    for c in coeffs:
-        p = _fma(p, x, float(np.float32(c)))
-    return p
-
-
-def _xla_log(x: torch.Tensor) -> torch.Tensor:
-    """XLA's CPU float32 ``log`` (Cephes ``logf`` in its vectorised form,
-    multiply-adds contracted) for positive normal ``x``."""
-    bits = x.view(torch.int32)
-    frac = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)   # [0.5, 1)
-    e = 1.0 + ((bits >> 23) - 0x7F).float()
-    low = frac < _LOG_SQRTHF
-    e = e - low.float()
-    m = (frac - 1.0) + torch.where(low, frac, torch.zeros_like(frac))
-    m2 = m * m
-    m3 = m2 * m
-    p = _LOG_P
-    y = _fma(_fma(m, p[0], p[1]), m, p[2])
-    y1 = _fma(_fma(m, p[3], p[4]), m, p[5])
-    y2 = _fma(_fma(m, p[6], p[7]), m, p[8])
-    y = _fma(_fma(y, m3, y1), m3, y2)
-    y = _fma(y, m3, _LOG_Q1 * e)
-    out = _fma(-0.5, m2, m) + y
-    return _fma(_LOG_Q2, e, out)
-
-
-def _xla_log1p(x: torch.Tensor) -> torch.Tensor:
-    """XLA's CPU float32 ``log1p`` on (-1, 0]: Cephes' rational form below
-    |x| = sqrt(2) - 1, else ``log(1 + x)``."""
-    x2 = x * x
-    small = _div(_horner(_LOG1P_NUM, x), _horner(_LOG1P_DEN, x))
-    small = x + _fma(-0.5, x2, (x * x2) * small)
-    return torch.where(x.abs() < _LOG1P_SMALL, small, _xla_log(x + 1.0))
-
-
-def erf_inv(x: torch.Tensor) -> torch.Tensor:
-    """XLA's float32 ``erf_inv``: Giles' polynomial over
-    ``w = -log1p(-x*x)``, each step one float32 rounding; +-inf at +-1."""
-    w = -_xla_log1p(-(x * x))
-    small = w < 5.0
-    w = torch.where(small, w - 2.5, _sqrt(w) - 3.0)
-    p = torch.zeros_like(x)
-    for cs, cl in zip(_ERFINV_SMALL, _ERFINV_LARGE):
-        p = _fma(p, w, torch.where(small, float(np.float32(cs)),
-                                   float(np.float32(cl))))
-    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
-
-
-_SQRT2 = float(np.float32(np.sqrt(2.0)))
-
-
-def normal(key: Key, index: torch.Tensor, scale: float = 1.0,
-           jitted: bool = False) -> torch.Tensor:
-    """``jax.random.normal(key, shape, float32) * scale`` at flat ``index``:
-    a uniform on (nextafter(-1, 0), 1), then ``sqrt(2) * erf_inv``, then the
-    scale (flax's ``normal(stddev)``).  Under ``jax.jit`` XLA folds the two
-    constants into one, ``f32(sqrt(2) * scale)``, and rounds once less
-    (``jitted``); eagerly each multiply rounds."""
-    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    # (1 - lo) rounds to 2 in float32, so u*2 is exact and the add rounds once.
-    u = torch.clamp_min(_unit_uniform(random_bits(key, index)) * 2.0 + lo, lo)
-    scale = float(np.float32(scale))
-    if jitted:
-        return erf_inv(u) * float(np.float32(_SQRT2) * np.float32(scale))
-    return _SQRT2 * erf_inv(u) * scale
 
 
 def truncated_normal(key: Key, index: torch.Tensor) -> torch.Tensor:

@@ -45,12 +45,6 @@ def dense(x: torch.Tensor, lin: nn.Linear, dt: torch.dtype) -> torch.Tensor:
     return y if lin.bias is None else y + lin.bias.to(dt)
 
 
-def param_generator(seed: int, device: torch.device | str) -> torch.Generator:
-    """A torch generator on ``device`` seeded with ``seed`` (the trainer's
-    per-step draws: dropout)."""
-    return torch.Generator(device=torch.device(device)).manual_seed(seed)
-
-
 def read_params(path: str, from_flax: Callable[[Mapping], dict]) -> dict:
     """A params file → a state dict: a flax ``.msgpack`` of the JAX model's
     params (as ``mmer_tpu.train.checkpoint.save_params_msgpack`` writes it)

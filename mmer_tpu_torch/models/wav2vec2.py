@@ -224,8 +224,15 @@ class Wav2Vec2Encoder(nn.Module):
 
     def forward(self, wave: torch.Tensor,
                 frame_pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.encode_frames(self.feature_encoder(wave), frame_pad_mask)
+
+    def encode_frames(self, feats: torch.Tensor,
+                      frame_pad_mask: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+        """The encoder after its conv stack: frame features (B, T,
+        conv_dims[-1]) → the projection, the positional conv and the
+        transformer layers → (B, T, hidden_dim) f32."""
         dt = torch_dtype(self.cfg)
-        feats = self.feature_encoder(wave)
         x = dense(self.proj_norm(feats), self.proj, dt).float()
         # Zero padded frames before the (full-context) positional conv.
         if frame_pad_mask is not None:

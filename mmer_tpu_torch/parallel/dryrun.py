@@ -33,9 +33,9 @@ def _dryrun_body(n_devices: int, device: torch.device | str) -> List[str]:
                                               balanced_class_weights,
                                               stratified_splits)
     from mmer_tpu_torch.models.fusion import init_fusion
-    from mmer_tpu_torch.models.layers import param_generator
     from mmer_tpu_torch.parallel.scaling import measure_extract_scaling
     from mmer_tpu_torch.parallel.sharding import shard_params
+    from mmer_tpu_torch.train.keys import KeySchedule
     from mmer_tpu_torch.train.loop import (StepDraws, make_optimizer,
                                            train_model, train_step)
 
@@ -58,10 +58,11 @@ def _dryrun_body(n_devices: int, device: torch.device | str) -> List[str]:
     model = shard_params(init_fusion(model_cfg, device=device, seed=0), mesh)
     optimizer = make_optimizer(model, train_cfg)
     model.train()
+    keys = KeySchedule([0], "loop", model_cfg, train_cfg, batch, 5, device)
     loss = train_step(model, optimizer, data,
                       torch.arange(batch, device=device), StepDraws(),
-                      torch.ones(6, device=device), train_cfg,
-                      dropout_generator=param_generator(1, device), mesh=mesh)
+                      torch.ones(6, device=device), train_cfg, keys.draw(),
+                      mesh=mesh)
     loss = float(mesh.all_reduce(loss.clone()))
     if not np.isfinite(loss):
         raise AssertionError(f"non-finite loss {loss}")

@@ -6,7 +6,7 @@ fusion trainer's epoch function at ``ModelConfig()`` width.
 A seeded dataset of the real size (8,496 samples of up to 5 video chunks,
 6,796 of them in the training split) is made in memory and put on the device;
 one epoch warms up, a second is timed on the host clock, and ``--steps`` steps
-of a third run under the profiler.  Printed: ms per step, samples/s, the
+run twice under the profiler, the second pass recorded.  Printed: ms per step, samples/s, the
 device's busy time per step and its idle share (against the unprofiled step
 time), the number of device kernels per step, and the kernels that take the most device time.
 ``--device cpu --tiny`` rehearses the control flow (no device numbers).
@@ -31,8 +31,10 @@ import torch
 
 from mmer_tpu_torch.config import ModelConfig, TrainConfig
 from mmer_tpu_torch.models.fusion import init_fusion
-from mmer_tpu_torch.models.layers import param_generator
-from mmer_tpu_torch.scripts.timing import resolve_device
+from mmer_tpu_torch.ops import prng
+from mmer_tpu_torch.scripts.timing import (device_events, device_work,
+                                           resolve_device)
+from mmer_tpu_torch.train.keys import KeySchedule
 from mmer_tpu_torch.train.loop import make_optimizer, train_epoch
 
 N_SAMPLES, N_TRAIN, MAX_CHUNKS = 8496, 6796, 5
@@ -72,13 +74,12 @@ def main(argv=None) -> dict:
     class_weights = torch.ones(cfg.num_classes, device=device)
     model = init_fusion(cfg, device=device, seed=args.seed)
     optimizer = make_optimizer(model, tcfg)
-    shuffle = torch.Generator().manual_seed(args.seed)
-    dropout = param_generator(args.seed + 1, device)
+    keys = KeySchedule([args.seed], "loop", cfg, tcfg, args.batch_size,
+                       MAX_CHUNKS, device)
 
     def epoch(idx):
         loss = train_epoch(model, optimizer, data, idx, class_weights, tcfg,
-                           args.batch_size, shuffle_generator=shuffle,
-                           dropout_generator=dropout)
+                           args.batch_size, keys=keys)
         return float(loss)          # the epoch's one host sync
 
     train_idx = torch.arange(n_train, device=device)
@@ -98,57 +99,49 @@ def main(argv=None) -> dict:
     if device.type != "cuda":
         return out
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     window = train_idx[:args.steps * args.batch_size]
     torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # A warm-up pass under the profiler, dropped (timing.device_work), then
+    # the recorded one.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
         epoch(window)
         torch.cuda.synchronize(device)
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    # Device-side kernels and copies only: a host operator's entry, and the
-    # device-side span of the optimizer's annotation, repeat the time of the
-    # kernels under them.
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)
-               and not e.key.startswith("Optimizer.")]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    launches = sum(e.count for e in kernels)
+        prof.step()
+        draws0 = prng.launch_threefry.launches
+        t0 = time.perf_counter()
+        epoch(window)
+        torch.cuda.synchronize(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        # One launch draws a step's masks; one more the epoch's shuffle.
+        threefry = prng.launch_threefry.launches - draws0
+    # Device-side kernels and copies only (timing.device_events), by launch;
+    # summed by name for the table below.
+    events = device_events(prof)
+    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    launches = len(events)
+    by_name: dict = {}
+    for e in events:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
     # The profiler slows the host several times over, so the idle share is
     # taken against the unprofiled step time, not against the window.
     busy_step_ms = busy_ms / args.steps
     out.update(profiled_steps=args.steps, window_ms=wall_ms,
                device_busy_ms_per_step=busy_step_ms,
                idle_share=1.0 - busy_step_ms / out["step_ms"],
-               device_ops_per_step=launches / args.steps)
+               device_ops_per_step=launches / args.steps,
+               threefry_launches=threefry)
     print(f"profiled {args.steps} steps ({wall_ms:.2f} ms with the profiler on): "
           f"device busy {busy_step_ms:.3f} ms of the {out['step_ms']:.3f} ms "
           f"step, idle share {out['idle_share']:.3f}, "
-          f"{out['device_ops_per_step']:.0f} device operations a step")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"  {e.self_device_time_total / 1e3:8.3f} ms  {e.count:6d} x  "
-              f"{e.key[:90]}")
+          f"{out['device_ops_per_step']:.0f} device operations a step, "
+          f"{threefry} threefry launches ({args.steps} steps and the shuffle)")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"  {ms:8.3f} ms  {n:6d} x  {name[:90]}")
     return out
-
-
-def _device_work(fn, device) -> tuple:
-    """(device busy ms, device operations) of one call of ``fn``, from a
-    torch.profiler trace: kernels and copies only, as in ``main``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize(device)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    return (sum(e.self_device_time_total for e in kernels) / 1e3,
-            sum(e.count for e in kernels))
 
 
 def _profile_batched(args, device, cfg: ModelConfig, host: dict,
@@ -191,8 +184,8 @@ def _profile_batched(args, device, cfg: ModelConfig, host: dict,
           f"{out['samples_per_s_per_seed']:.1f} samples/s a seed", flush=True)
     if device.type != "cuda":
         return out
-    busy, ops = _device_work(lambda: call(1), device)
-    busy0, ops0 = _device_work(lambda: call(0), device)
+    busy, ops = device_work(lambda: call(1), device)
+    busy0, ops0 = device_work(lambda: call(0), device)
     out.update(device_busy_ms_per_step=(busy - busy0) / steps,
                device_ops_per_step=(ops - ops0) / steps)
     out["idle_share"] = 1.0 - out["device_busy_ms_per_step"] / out["step_ms"]

@@ -97,6 +97,42 @@ def timed_ms(fn: Callable, inputs: Sequence[tuple], device: torch.device,
         return event_ms(one_pass, rounds, warmup=0) / len(inputs)
 
 
+def device_events(prof) -> list:
+    """A torch.profiler trace's device-side kernels and copies, each launch
+    once: ``prof.events()``, which holds the kernels a ctypes call launches
+    (``key_averages`` can leave out a kernel that no PyTorch operator
+    launched), less user annotations' device-side spans and the optimizer's,
+    which repeat the time of the kernels under them."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith("Optimizer.")]
+
+
+def device_work(fn: Callable, device: torch.device) -> tuple:
+    """(device busy ms, device operations) of one call of ``fn``, from a
+    torch.profiler trace of the card (:func:`device_events`).  ``fn`` runs
+    twice: a warm-up step, traced and dropped (on an H100 the first kernels
+    after a trace starts were now and then missing from it), then the
+    recorded one."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize(device)
+    # One step() between the passes: a step past the active one would end
+    # the cycle and clear its events.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize(device)
+        prof.step()
+        fn()
+        torch.cuda.synchronize(device)
+    events = device_events(prof)
+    return (sum(e.time_range.elapsed_us() for e in events) / 1e3, len(events))
+
+
 def rate_row(name: str, ms: float, flops: float, device: torch.device,
              **extra) -> dict:
     """One result row: ms per call, TFLOP/s and the share of the bf16 peak."""

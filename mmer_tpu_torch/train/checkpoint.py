@@ -11,11 +11,13 @@ of ``mmer_tpu/train/checkpoint.py``.
   model's running statistics are buffers of the state dict) under the
   reference's naming scheme (``best_model_bs{b}_ep{e}_lr{lr}_{ts}.pth``,
   train2.py:766-774); ``InferenceEngine(fusion_params_path=...)`` loads them;
-- the full training state (model, optimizer, best weights, the shuffle and
-  dropout generators) is checkpointed as ``state_{epoch:06d}.pth`` beside the
+- the full training state (model, optimizer, best weights, and the key
+  schedule's ``rng`` words and ``step``, JAX's ``TrainState.rng`` and
+  ``step``) is checkpointed as ``state_{epoch:06d}.pth`` beside the
   host loop's scalars (lr, plateau counters, early-stop streak, best
   tracking) in ``loop_{epoch:06d}.json``, so that a resumed run continues the
-  interrupted one exactly.
+  interrupted one exactly; a checkpoint of the older layout (torch
+  generator states) is refused.
 
 Everything is loaded with ``torch.load(weights_only=True)``.
 """
@@ -136,7 +138,8 @@ class RestoredLoop(NamedTuple):
 def save_loop_checkpoint(ckpt_dir: str, step: int, payload: Dict[str, Any],
                          loop: dict) -> str:
     """Write ``state_{step:06d}.pth`` (the payload: tensors, state dicts,
-    generator states) and ``loop_{step:06d}.json`` (the loop scalars)."""
+    the key schedule's ``rng`` words and ``step`` under ``"keys"``) and
+    ``loop_{step:06d}.json`` (the loop scalars)."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"state_{step:06d}.pth")
     tmp = path + ".tmp"
@@ -154,6 +157,12 @@ def restore_loop_checkpoint(path: str, device: torch.device | str = "cpu"
     if not os.path.exists(loop_path):
         raise FileNotFoundError(f"{path}: its loop file {loop_path} is missing")
     payload = torch.load(path, map_location=device, weights_only=True)
+    if "keys" not in payload:
+        raise ValueError(
+            f"{path}: an older checkpoint layout, with torch generator states "
+            "('shuffle_rng', 'dropout_rng'); the trainer now draws JAX's keys "
+            "and resumes from JAX's TrainState.rng and step ('keys'), so this "
+            "run cannot be continued: start it again")
     with open(loop_path) as f:
         loop = json.load(f)
     loop["sched_bad"] = int(loop["sched_bad"])

@@ -10,10 +10,13 @@ them) → ``results_*.json``, ``best_model_*.pth``, ``final_model_*.pth`` and
 ``norm_stats_*.npz`` under ``--output_dir``.  Trains on the GPU unless
 ``--device cpu`` is given; without CUDA the default raises.
 
-The JAX CLI's flags are here with its defaults, apart from ``--fused``: the
-port has one trainer, which takes the fused trainer's opt-ins
+The JAX CLI's flags are here with its defaults.  ``--fused`` names the JAX
+run to reproduce: the port has one trainer, and a run from ``--seed s``
+draws what the JAX CLI's run from ``--seed s`` with the same ``--fused``
+draws (its key schedule, ``train/keys.py``); as in JAX the opt-ins
 (``--ema_decay``, ``--mixup_alpha``, ``--modality_dropout``,
-``--distill_from``).  ``--raw_videos DIR --raw_audio DIR`` trains on raw
+``--distill_from``) need ``--fused``, and ``--fused`` refuses ``--norm
+batchnorm`` and ``--checkpoint_every``.  ``--raw_videos DIR --raw_audio DIR`` trains on raw
 face-crop videos and audio tracks, extracted on ``--device`` straight into
 the trainer (``preprocess/extract.py:extract_dataset_arrays``; decoding the
 videos needs ``cv2``):
@@ -66,6 +69,10 @@ def main(argv=None) -> TrainOutput:
                    default="val_loss",
                    help="best-model selection: val_loss (v2) or val_acc (v1)")
     p.add_argument("--no_test_eval", action="store_true")
+    p.add_argument("--fused", action="store_true",
+                   help="reproduce the JAX CLI's --fused run: its key "
+                        "schedule and refusals (the opt-ins need it; "
+                        "batchnorm and --checkpoint_every refuse it)")
     p.add_argument("--resume_dir", default=None,
                    help="directory of state_* checkpoints to resume from "
                         "(written to <output_dir>/checkpoints)")
@@ -163,7 +170,8 @@ def main(argv=None) -> TrainOutput:
         out = train_model(data, splits, model_cfg, train_cfg,
                           batch_size=args.batch_size, seed=args.seed,
                           resume_dir=args.resume_dir, device=args.device,
-                          soft_targets=soft_targets, mesh_cfg=MeshConfig())
+                          soft_targets=soft_targets, mesh_cfg=MeshConfig(),
+                          fused=args.fused)
 
     if args.interpret and is_writer():
         from mmer_tpu_torch.interpret.ig import interpret_test_set

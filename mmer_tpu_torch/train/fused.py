@@ -11,11 +11,11 @@ is the point: training the fusion head is host-bound on a GPU (every launch
 is small), so S seeds in one program cost far less than S runs.
 
 Seed ``s`` of a batched call is the computation of
-``train_model(seed=s)``: its initial weights, shuffle, dropout masks and
-opt-in draws come from its own generators in the order ``train_model``
-draws them (the masks are drawn ahead of the vmapped forward,
-``models/fusion.draw_dropout_masks``, since a vmapped lane cannot take a
-generator of its own).  Every seed has its own global-norm clip, Adam step
+``train_model(seed=s, fused=True)``, which is JAX's run of that seed: its
+initial weights and JAX's fused key schedule (``train/keys.py``), one lane
+a seed; a step's masks and opt-in draws for every lane come from one
+kernel launch ahead of the vmapped forward, and lane ``s`` applies exactly
+the masks a solo run of seed ``s`` applies.  Every seed has its own global-norm clip, Adam step
 count, plateau scheduler (S learning rates, host scalars like the solo
 run's), early stop, best copy and EMA.  A seed that stops early is frozen,
 as JAX's batched ``while_loop`` freezes a finished carry: its lanes still
@@ -31,16 +31,13 @@ import numpy as np
 import torch
 
 from mmer_tpu_torch.config import ModelConfig, TrainConfig
-from mmer_tpu_torch.models.fusion import (DropoutMasks, draw_dropout_masks,
-                                          dropout_shapes, init_fusion,
+from mmer_tpu_torch.models.fusion import (DropoutMasks, init_fusion,
                                           member_forward, stack_members)
-from mmer_tpu_torch.models.layers import param_generator
-from mmer_tpu_torch.train import loop
+from mmer_tpu_torch.ops import prng
+from mmer_tpu_torch.train.keys import KeySchedule
 from mmer_tpu_torch.train.loop import (EpochControl, StepDraws, _loss_fn,
                                        _pad_batches, attach_soft_targets,
-                                       augmented_loss, check_opt_ins,
-                                       device_data, draw_step, gather_batch,
-                                       results_row)
+                                       augmented_loss, device_data, gather_batch, results_row)
 from mmer_tpu_torch.train.metrics import accuracy_from_confusion
 
 
@@ -183,25 +180,22 @@ def _train_chunk(chunk: Sequence[int], dev_data, class_weights, splits_dev,
     ema = {k: v.detach().clone() for k, v in params.items()} if use_ema else None
     eval_params = ema if use_ema else {k: v.detach() for k, v in params.items()}
     best = {k: v.clone() for k, v in eval_params.items()}
-    shuffle_gens = [torch.Generator().manual_seed(seed) for seed in chunk]
-    dropout_gens = [param_generator(seed + 1, device) for seed in chunk]
-    mixup_rngs = [np.random.default_rng(seed) for seed in chunk]
+    t = dev_data["video"].shape[1]
+    keys = KeySchedule(chunk, "fused", model_cfg, train_cfg, batch_size, t,
+                       device, lanes=True)
     controls = [EpochControl(train_cfg) for _ in chunk]
     metrics = [{"train_loss": [], "val_loss": [], "val_cm": [], "test_cm": [],
                 "lr": []} for _ in chunk]
     active = np.ones(s_count, bool)
 
     n = train_idx.shape[0]
-    t = dev_data["video"].shape[1]
     steps = -(-n // batch_size)
-    mask_bufs = [torch.empty((s_count,) + shape, device=device)
-                 for shape, _ in dropout_shapes(model_cfg, batch_size, t)]
     num_classes = model_cfg.num_classes
 
     def lane(p, bufs, batch, draws, masks):
         def logits_of(video, audio, mask):
             return member_forward(base, p, bufs, video, audio, mask,
-                                  DropoutMasks(masks))[1]
+                                  DropoutMasks(masks, keys.scales))[1]
 
         return augmented_loss(logits_of, batch, StepDraws(**draws),
                               class_weights, train_cfg, loss_fn)
@@ -210,30 +204,20 @@ def _train_chunk(chunk: Sequence[int], dev_data, class_weights, splits_dev,
     for epoch in range(train_cfg.num_epochs):
         if not active.any():
             break
-        batches = torch.stack([
-            _pad_batches(train_idx[torch.as_tensor(
-                loop.epoch_permutation(n, g), dtype=torch.long).to(device)],
-                batch_size) for g in shuffle_gens], dim=1)     # (steps, S, B)
-        lams = None
-        if train_cfg.mixup_alpha > 0.0:
-            lams = torch.as_tensor(np.stack([
-                loop.mixup_lambdas(steps, train_cfg.mixup_alpha, r)
-                for r in mixup_rngs], axis=1), dtype=torch.float32).to(device)
+        perms, lams = keys.begin_epoch(n, steps)       # (S, n), (S, steps)
+        batches = torch.stack([_pad_batches(train_idx[perms[i]], batch_size)
+                               for i in range(s_count)], dim=1)  # (steps, S, B)
         base.train()
         losses = []
         for step in range(steps):
-            per_seed = [draw_step(train_cfg, batch_size, g, device,
-                                  None if lams is None else lams[step, i])
-                        for i, g in enumerate(dropout_gens)]
-            # The draws that are on, one lane a seed (vmap takes no None).
-            draws = {name: torch.stack(field) for name, field in
-                     zip(StepDraws._fields, zip(*per_seed))
-                     if field[0] is not None}
-            for i, g in enumerate(dropout_gens):
-                draw_dropout_masks(model_cfg, batch_size, t, g,
-                                   [m[i] for m in mask_bufs])
+            rand = keys.draw()             # one lane a seed
+            # The draws that are on (vmap takes no None).
+            draws = {name: value for name, value in
+                     (("u", rand.u), ("j", rand.j),
+                      ("lam", None if lams is None else lams[:, step]))
+                     if value is not None}
             batch = gather_batch(dev_data, batches[step])
-            loss = torch.vmap(lane)(params, buffers, batch, draws, mask_bufs)
+            loss = torch.vmap(lane)(params, buffers, batch, draws, rand.masks)
             for p in plist:
                 p.grad = None
             loss.sum().backward()
@@ -309,7 +293,8 @@ def train_many_seeds(data, splits, model_cfg: ModelConfig,
     program).  ``device`` defaults to the GPU and raises without CUDA;
     ``initial_states`` (one state dict a seed) replaces the seeded initial
     weights, as ``train_model``'s ``initial_state`` does.  A batchnorm model
-    is refused.
+    is refused, and so are more than ``prng.MAX_LANES`` (16) seeds a call:
+    the threefry kernel draws a step's lanes from as many keys.
     """
     del epochs_per_call
     device = torch.device(device)
@@ -319,7 +304,9 @@ def train_many_seeds(data, splits, model_cfg: ModelConfig,
     if model_cfg.norm == "batchnorm":
         raise ValueError("train_many_seeds does not support batchnorm models "
                          "(the fused trainer's rule); use train_model")
-    check_opt_ins(model_cfg, train_cfg)
+    if seeds_per_call > prng.MAX_LANES:
+        raise ValueError(f"seeds_per_call {seeds_per_call}: at most "
+                         f"{prng.MAX_LANES} seeds a batched call")
     seeds = [int(s) for s in seeds]
     if initial_states is not None and len(initial_states) != len(seeds):
         raise ValueError(f"{len(initial_states)} initial states for "

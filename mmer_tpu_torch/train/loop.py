@@ -42,14 +42,14 @@ The opt-ins of the JAX package's fused trainer are options of this one
   loss and best-model selection all see it, ``best_params`` are its weights
   and ``final_params`` the raw ones.
 
-They refuse a batchnorm model and ``checkpoint_every``, as the JAX package
-does.  Every random draw goes through one small function
-(:func:`epoch_permutation`, :func:`modality_uniforms`,
-:func:`partner_permutation`, :func:`mixup_lambdas`): per step ``u`` then ``j``
-then the dropout masks, from the dropout generator on the run's device; the
-epoch's ``λ`` from a host ``numpy`` generator seeded with the run's seed
-(torch has no Beta sampler that takes a generator, and a host scalar a step
-would sync).  With every opt-in at 0 nothing more is drawn.
+Every draw is JAX's (``train/keys.py``): a port run from seed ``s`` with
+``fused=False`` reproduces ``mmer_tpu.train.loop.train_model(seed=s)`` (the
+epoch loop's key schedule), and with ``fused=True`` the JAX run with
+``fused=True`` (the whole-run trainer's schedule), shuffles, dropout masks,
+``u``, ``λ`` and ``j`` included.  ``fused`` selects the schedule and what is
+refused, as in JAX: the opt-ins exist in the fused trainer only
+(``mmer_tpu/train/loop.py:476-486``), and the fused trainer takes no
+batchnorm model and no ``checkpoint_every`` (``:343-349``).
 
 ``train_model(mesh_cfg=)`` runs data- and tensor-parallel over the ranks of a
 ``torch.distributed`` world (``core/mesh.py``), with JAX's sharded semantics
@@ -83,9 +83,7 @@ from mmer_tpu_torch.config import MeshConfig, ModelConfig, TrainConfig
 from mmer_tpu_torch.core.mesh import SINGLE, Mesh, create_mesh
 from mmer_tpu_torch.data.pipeline import DataSplits, DatasetArrays
 from mmer_tpu_torch.models.fusion import (DropoutMasks, MultimodalEmotionModel,
-                                          draw_dropout_masks, dropout_shapes,
                                           init_fusion, shard_dropout_masks)
-from mmer_tpu_torch.models.layers import param_generator
 from mmer_tpu_torch.ops.losses import (focal_loss, loss_denominator,
                                        soft_cross_entropy,
                                        weighted_cross_entropy)
@@ -94,6 +92,7 @@ from mmer_tpu_torch.parallel.sharding import (gather_optimizer_state,
                                               slice_optimizer_state,
                                               slice_params)
 from mmer_tpu_torch.train import checkpoint as ckpt
+from mmer_tpu_torch.train.keys import KeySchedule, StepRandom
 from mmer_tpu_torch.train.metrics import (accuracy_from_confusion,
                                           confusion_matrix, prf_from_confusion)
 
@@ -236,43 +235,27 @@ def _pad_batches(idx: torch.Tensor, batch: int) -> torch.Tensor:
     return torch.cat([idx, pad]).reshape(steps, batch)
 
 
-def epoch_permutation(n: int, generator: torch.Generator) -> torch.Tensor:
-    """The epoch's shuffle: a permutation of ``range(n)`` from the host
-    generator."""
-    return torch.randperm(n, generator=generator)
-
-
-def modality_uniforms(b: int, generator: Optional[torch.Generator],
-                      device: torch.device) -> torch.Tensor:
-    """A step's modality-dropout draws: ``b`` uniforms on the device."""
-    return torch.rand(b, generator=generator, device=device)
-
-
-def partner_permutation(b: int, generator: Optional[torch.Generator],
-                        device: torch.device) -> torch.Tensor:
-    """A step's mixup partners: a permutation of ``range(b)`` on the device."""
-    return torch.randperm(b, generator=generator, device=device)
-
-
-def mixup_lambdas(steps: int, alpha: float, rng: np.random.Generator
-                  ) -> np.ndarray:
-    """An epoch's mixup weights, one ``Beta(alpha, alpha)`` draw a step."""
-    return rng.beta(alpha, alpha, size=steps)
-
-
 OPT_INS = ("ema_decay", "mixup_alpha", "modality_dropout", "distill_alpha")
 
 
-def check_opt_ins(model_cfg: ModelConfig, train_cfg: TrainConfig) -> None:
-    """Refuse what the JAX package's fused trainer refuses
-    (``mmer_tpu/train/loop.py:343-349``)."""
-    on = [name for name in OPT_INS if getattr(train_cfg, name) > 0.0]
-    if on and model_cfg.norm == "batchnorm":
-        raise ValueError(f"{', '.join(on)} do not support batchnorm models "
-                         "(the fused trainer's rule)")
-    if on and train_cfg.checkpoint_every:
-        raise ValueError(f"{', '.join(on)} do not support checkpoint_every: "
-                         "the fused trainer takes no mid-run checkpoints")
+def check_trainer(model_cfg: ModelConfig, train_cfg: TrainConfig,
+                  fused: bool) -> None:
+    """Refuse what the JAX package's trainer of that key schedule refuses:
+    the epoch loop (``fused=False``) has no opt-in
+    (``mmer_tpu/train/loop.py:476-486``); the fused trainer takes no batchnorm
+    model and no mid-run checkpoints (``:343-349``)."""
+    if not fused:
+        on = [name for name in OPT_INS if getattr(train_cfg, name) > 0.0]
+        if on:
+            raise ValueError(f"{', '.join(on)}: implemented in the fused "
+                             "trainer only; pass fused=True / --fused")
+        return
+    if model_cfg.norm == "batchnorm":
+        raise ValueError("the fused trainer does not support batchnorm "
+                         "models; use fused=False")
+    if train_cfg.checkpoint_every:
+        raise ValueError("mid-run checkpoints (checkpoint_every) need the "
+                         "epoch loop (fused=False)")
 
 
 def device_data(data: DatasetArrays, device: torch.device) -> Dict[str, torch.Tensor]:
@@ -321,17 +304,6 @@ class StepDraws(NamedTuple):
     u: Optional[torch.Tensor] = None       # (B,) modality dropout
     j: Optional[torch.Tensor] = None       # (B,) mixup partners
     lam: Optional[torch.Tensor] = None     # () mixup weight
-
-
-def draw_step(train_cfg: TrainConfig, b: int,
-              generator: Optional[torch.Generator], device: torch.device,
-              lam: Optional[torch.Tensor] = None) -> StepDraws:
-    """A step's opt-in draws, ``u`` then ``j``; nothing when both are off."""
-    u = (modality_uniforms(b, generator, device)
-         if train_cfg.modality_dropout > 0.0 else None)
-    j = (partner_permutation(b, generator, device)
-         if train_cfg.mixup_alpha > 0.0 else None)
-    return StepDraws(u, j, lam)
 
 
 def augmented_loss(logits_of: Callable, batch: dict, draws: StepDraws,
@@ -431,32 +403,27 @@ def ema_update(ema: List[torch.Tensor], params: List[torch.Tensor],
 def train_step(model: MultimodalEmotionModel, optimizer: torch.optim.Optimizer,
                data: Dict[str, torch.Tensor], idx: torch.Tensor,
                draws: StepDraws, class_weights: torch.Tensor,
-               train_cfg: TrainConfig, *,
-               dropout_generator: Optional[torch.Generator] = None,
+               train_cfg: TrainConfig, rand: StepRandom, *,
                ema: Optional[List[torch.Tensor]] = None,
                mesh: Optional[Mesh] = None) -> torch.Tensor:
     """One optimizer step on the minibatch ``idx`` (−1 sentinels pad it)
     with the step's opt-in ``draws``: the loss, its gradient (all-reduced
     over the ``mesh``'s data axis), clipping, the Adam step and the EMA
     update.  Returns this rank's share of the loss, detached.  ``idx`` is
-    the global minibatch (``mesh=None``: one device holds all of it); the
-    dropout masks are drawn for it at full width from ``dropout_generator``
-    before this rank takes its part, so every rank applies the
-    single-device step's masks."""
+    the global minibatch (``mesh=None``: one device holds all of it) and
+    ``rand`` the step's draws (``KeySchedule.draw``): its dropout masks are
+    the global batch's at full width, and this rank applies its part of
+    them, so every rank applies the single-device step's masks."""
     mesh = mesh or SINGLE
     loss_fn = _loss_fn(train_cfg)
     params = [p for p in model.parameters() if p.requires_grad]
-    b, t = idx.shape[0], data["video"].shape[1]
-    rows = mesh.batch_rows(b)
-    masks = draw_dropout_masks(
-        model.cfg, b, t, dropout_generator,
-        [torch.empty(shape, device=idx.device)
-         for shape, _ in dropout_shapes(model.cfg, b, t)])
-    local = DropoutMasks(shard_dropout_masks(model.cfg, masks, rows, mesh))
+    rows = mesh.batch_rows(idx.shape[0])
+    local = DropoutMasks(shard_dropout_masks(model.cfg, rand.masks, rows, mesh),
+                         rand.scales)
     batch, local_draws, partner, dens = sharded_batch(
         data, idx, draws, rows, class_weights, train_cfg)
     loss = augmented_loss(
-        lambda v, a, m: model(v, a, m, generator=local)[1],
+        lambda v, a, m: model(v, a, m, masks=local)[1],
         batch, local_draws, class_weights, train_cfg, loss_fn, partner, dens)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
@@ -471,39 +438,33 @@ def train_step(model: MultimodalEmotionModel, optimizer: torch.optim.Optimizer,
 def train_epoch(model: MultimodalEmotionModel, optimizer: torch.optim.Optimizer,
                 data: Dict[str, torch.Tensor], train_idx: torch.Tensor,
                 class_weights: torch.Tensor, train_cfg: TrainConfig,
-                batch_size: int, *, shuffle_generator: torch.Generator,
-                dropout_generator: Optional[torch.Generator] = None,
+                batch_size: int, *, keys: KeySchedule,
                 perm: Optional[torch.Tensor] = None,
-                mixup_rng: Optional[np.random.Generator] = None,
                 ema: Optional[List[torch.Tensor]] = None,
                 mesh: Optional[Mesh] = None) -> torch.Tensor:
     """One epoch over ``train_idx`` in minibatches gathered on the device;
     returns the mean of the per-step losses as a device scalar (no host sync
-    inside).  ``perm`` (a permutation of ``range(len(train_idx))``) replaces
-    the shuffle drawn from ``shuffle_generator``.  ``mixup_rng`` draws the
-    epoch's mixup weights; ``ema`` (tensors shaped as the model's
-    parameters) is updated after every optimizer step.  ``batch_size`` is
-    the global batch and this rank trains on its rows of it
-    (:func:`train_step`); the returned loss is the global batch's."""
+    inside).  ``keys`` (the run's :class:`~mmer_tpu_torch.train.keys.KeySchedule`)
+    draws the epoch's shuffle and mixup weights and each step's masks and
+    opt-in draws; ``perm`` (a permutation of ``range(len(train_idx))``)
+    replaces the shuffle (the keys advance all the same).  ``ema`` (tensors
+    shaped as the model's parameters) is updated after every optimizer step.
+    ``batch_size`` is the global batch and this rank trains on its rows of
+    it (:func:`train_step`); the returned loss is the global batch's."""
     device = train_idx.device
-    if perm is None:
-        perm = epoch_permutation(train_idx.shape[0], shuffle_generator)
+    n = train_idx.shape[0]
+    drawn, lams = keys.begin_epoch(n, -(-n // batch_size))
+    perm = drawn if perm is None else perm
     perm = torch.as_tensor(perm, dtype=torch.long).to(device)
     batches = _pad_batches(train_idx[perm], batch_size)
-    lams = None
-    if train_cfg.mixup_alpha > 0.0:
-        lams = torch.as_tensor(mixup_lambdas(
-            len(batches), train_cfg.mixup_alpha, mixup_rng),
-            dtype=torch.float32).to(device)
 
     model.train()
     losses = []
     for step, idx in enumerate(batches):
-        draws = draw_step(train_cfg, batch_size, dropout_generator, device,
-                          None if lams is None else lams[step])
+        rand = keys.draw()
+        draws = StepDraws(rand.u, rand.j, None if lams is None else lams[step])
         losses.append(train_step(model, optimizer, data, idx, draws,
-                                 class_weights, train_cfg,
-                                 dropout_generator=dropout_generator, ema=ema,
+                                 class_weights, train_cfg, rand, ema=ema,
                                  mesh=mesh))
     model.eval()
     return (mesh or SINGLE).all_reduce(torch.stack(losses)).mean()
@@ -655,6 +616,8 @@ class TrainOutput:
     # Host seconds of each epoch's training pass alone (its evaluations and
     # the first epoch's library warm-up are in ``train_wall_seconds``).
     train_epoch_seconds: List[float] = dataclasses.field(default_factory=list)
+    # Host ms of each epoch's mixup weights (``λ``, drawn before the epoch).
+    lambda_ms: List[float] = dataclasses.field(default_factory=list)
 
 
 def _clone_state(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
@@ -668,9 +631,16 @@ def train_model(data: DatasetArrays, splits: DataSplits,
                 device: torch.device | str = "cuda",
                 initial_state: Optional[Dict[str, torch.Tensor]] = None,
                 soft_targets: Optional[np.ndarray] = None,
-                mesh_cfg: Optional[MeshConfig] = None) -> TrainOutput:
+                mesh_cfg: Optional[MeshConfig] = None,
+                fused: bool = False) -> TrainOutput:
     """Full training run with reference-equivalent control flow and the
     reference's JSON results schema (train2.py:748-764).
+
+    ``fused`` names the JAX run this one reproduces, draw for draw:
+    ``mmer_tpu.train.loop.train_model(seed=seed, fused=fused)``.  It selects
+    the key schedule (``train/keys.py``) and the refusals of that JAX path:
+    the opt-ins need ``fused=True``; batchnorm models and
+    ``checkpoint_every`` need ``fused=False``.
 
     ``device`` defaults to the GPU and raises when CUDA is unavailable (pass
     ``"cpu"`` to train there).  ``initial_state`` (a state dict of the model)
@@ -696,7 +666,7 @@ def train_model(data: DatasetArrays, splits: DataSplits,
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train_model: CUDA device requested but "
                            "torch.cuda.is_available() is False")
-    check_opt_ins(model_cfg, train_cfg)
+    check_trainer(model_cfg, train_cfg, fused)
     mesh = SINGLE if mesh_cfg is None else create_mesh(mesh_cfg)
     mesh.check_device(device)
     if batch_size % mesh.dp:
@@ -714,9 +684,8 @@ def train_model(data: DatasetArrays, splits: DataSplits,
         model.load_state_dict(restored.payload["model"])
     shard_params(model, mesh)
     optimizer = make_optimizer(model, train_cfg)
-    shuffle_gen = torch.Generator().manual_seed(seed)
-    dropout_gen = param_generator(seed + 1, device)
-    mixup_rng = np.random.default_rng(seed)
+    keys = KeySchedule([seed], "fused" if fused else "loop", model_cfg,
+                       train_cfg, batch_size, data.video.shape[1], device)
 
     dev_data = device_data(data, device)
     attach_soft_targets(dev_data, train_cfg, soft_targets)
@@ -734,8 +703,7 @@ def train_model(data: DatasetArrays, splits: DataSplits,
     if restored is not None:
         optimizer.load_state_dict(slice_optimizer_state(
             restored.payload["optimizer"], model, mesh))
-        shuffle_gen.set_state(restored.payload["shuffle_rng"].cpu())
-        dropout_gen.set_state(restored.payload["dropout_rng"].cpu())
+        keys.load(restored.payload["keys"])
         start_epoch = restored.step
         control.load(restored.loop)
         if restored.loop["has_best"]:
@@ -764,10 +732,7 @@ def train_model(data: DatasetArrays, splits: DataSplits,
         # float() is the training pass's one host sync.
         train_loss = float(train_epoch(model, optimizer, dev_data, train_idx,
                                        class_weights, train_cfg, batch_size,
-                                       shuffle_generator=shuffle_gen,
-                                       dropout_generator=dropout_gen,
-                                       mixup_rng=mixup_rng,
-                                       ema=None if ema_model is None else
+                                       keys=keys, ema=None if ema_model is None else
                                        list(ema_model.parameters()),
                                        mesh=mesh))
         train_epoch_seconds.append(time.perf_counter() - t_epoch)
@@ -803,7 +768,8 @@ def train_model(data: DatasetArrays, splits: DataSplits,
         # that a resumed run continues the interrupted one exactly.  Every
         # rank gathers (the collectives are the model group's), rank 0
         # writes, and no rank goes on before the file is complete.  The
-        # generators' states are the same on every rank.
+        # keys (JAX's ``TrainState.rng`` and ``step``) are the same on every
+        # rank.
         if (train_cfg.checkpoint_every
                 and (epoch + 1) % train_cfg.checkpoint_every == 0):
             model_state = gather_params(model.state_dict(), mesh)
@@ -813,8 +779,7 @@ def train_model(data: DatasetArrays, splits: DataSplits,
                                                     model, mesh),
                 "best": (model_state if best_state is None
                          else gather_params(best_state, mesh)),
-                "shuffle_rng": shuffle_gen.get_state(),
-                "dropout_rng": dropout_gen.get_state()}
+                "keys": keys.state()}
             if mesh.rank == 0:
                 ckpt.save_loop_checkpoint(
                     os.path.join(train_cfg.output_dir, "checkpoints"),
@@ -861,4 +826,5 @@ def train_model(data: DatasetArrays, splits: DataSplits,
         best_score=best_score, results_path=results_path,
         best_model_path=best_path, final_model_path=final_path,
         hyperparameters=hyperparameters, confusion=confusion,
-        norm_stats_path=stats_path, train_epoch_seconds=train_epoch_seconds)
+        norm_stats_path=stats_path, train_epoch_seconds=train_epoch_seconds,
+        lambda_ms=keys.lambda_ms)

@@ -8,8 +8,10 @@ batches: Adam with global-norm clipping and L2 weight decay
 the plateau scheduler on the validation loss, early stopping, and the best
 parameters by validation loss.  The initial weights are JAX's for
 ``PRNGKey(seed)`` itself (JAX's streaming trainer inits with the unsplit
-key, ``train_model`` with its split); dropout masks come from the port's
-generator.
+key, ``train_model`` with its split), and so are the dropout masks: the
+key of the run's global step ``i`` is ``fold_in(PRNGKey(seed), i)``
+(``train/keys.py``, the "streaming" schedule), so a run reproduces JAX's
+``train_streaming`` of the same seed.
 
 Use it when the features do not fit in device memory; otherwise
 ``train_model`` is faster.
@@ -25,9 +27,9 @@ import torch
 from mmer_tpu_torch.config import ModelConfig, TrainConfig
 from mmer_tpu_torch.data.streaming import StreamingFeatureDataset
 from mmer_tpu_torch.models import jax_init
-from mmer_tpu_torch.models.fusion import init_fusion
-from mmer_tpu_torch.models.layers import param_generator
+from mmer_tpu_torch.models.fusion import DropoutMasks, init_fusion
 from mmer_tpu_torch.ops.losses import weighted_cross_entropy
+from mmer_tpu_torch.train.keys import KeySchedule
 from mmer_tpu_torch.train.loop import (PlateauScheduler, clip_by_global_norm,
                                        make_optimizer, set_learning_rate)
 
@@ -51,7 +53,8 @@ def train_streaming(train_ds: StreamingFeatureDataset,
     optimizer = make_optimizer(model, train_cfg)
     params = list(model.parameters())
     cw = torch.as_tensor(np.asarray(class_weights, np.float32), device=device)
-    dropout_gen = param_generator(seed + 1, device)
+    keys = KeySchedule([seed], "streaming", model_cfg, train_cfg,
+                       train_ds.batch_size, train_ds.max_chunks, device)
 
     scheduler = PlateauScheduler(train_cfg.scheduler_factor,
                                  train_cfg.scheduler_patience)
@@ -66,8 +69,10 @@ def train_streaming(train_ds: StreamingFeatureDataset,
         model.train()
         losses = []
         for batch in train_ds.epoch(epoch, device=device):
+            rand = keys.draw()
             _, logits, _ = model(batch["video"], batch["audio"],
-                                 batch["pad_mask"], generator=dropout_gen)
+                                 batch["pad_mask"],
+                                 masks=DropoutMasks(rand.masks, rand.scales))
             loss = weighted_cross_entropy(logits, batch["labels"].long(), cw,
                                           batch["weight"])
             optimizer.zero_grad(set_to_none=True)

@@ -648,3 +648,65 @@ def test_attention_variant_kernel_needs_whole_key_tiles(cuda):
         attention_variant(q, q, q, "nomask", s_pad=100)
     with pytest.raises(TypeError):
         attention_variant(q.float(), q.float(), q.float(), "noexp", s_pad=64)
+
+
+# -- the threefry kernel (ops/prng.py) ------------------------------------------------
+
+def _step_draws(b, t=5):
+    """A training step's draws at ModelConfig() width and batch ``b``: the
+    11 bfloat16 / float32 masks, ``u`` and the sort keys of ``j``."""
+    from mmer_tpu_torch.config import ModelConfig
+    from mmer_tpu_torch.models.fusion import dropout_draws
+    from mmer_tpu_torch.ops import prng
+
+    return (dropout_draws(ModelConfig(), b, t)
+            + [prng.Draw((103,), (b,), "uniform")]
+            + prng.permutation_draws((102,), b))
+
+
+@pytest.mark.parametrize("b,lanes", [(64, None), (256, None), (64, 4), (1, 3)])
+def test_threefry_kernel_equals_its_plain_version(cuda, b, lanes):
+    """Every kind the kernel writes, bit for bit its plain version, the
+    step folded in by the kernel, one launch a draw call, the same bits on
+    a second call."""
+    from mmer_tpu_torch.ops import prng
+
+    plan = prng.DrawPlan(_step_draws(b), cuda, lanes=lanes)
+    keys = [(0x1234 + i, 0x9ABCDEF0 - i) for i in range(lanes or 1)]
+    before = prng.launch_threefry.launches
+    got = plan.draw(keys, step=107)
+    assert prng.launch_threefry.launches == before + 1
+    want = plan.draw_plain(keys, step=107)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+    for g, again in zip(got, plan.draw(keys, step=107)):
+        assert torch.equal(g, again)
+
+
+@pytest.mark.parametrize("n", [2, 64, 6796, 70_001])
+def test_threefry_kernel_bits_and_permutations(cuda, n):
+    """``random_bits`` on a CUDA index (any flat indices, through the kernel)
+    and ``permutation`` (its rounds' sort keys in one launch) against the
+    plain int64 versions."""
+    from mmer_tpu_torch.ops import prng
+
+    key = prng.PRNGKey(42)
+    idx = torch.arange(n, device=cuda) * 3 + 2 ** 32 - 7      # high words too
+    assert torch.equal(prng.random_bits(key, idx).cpu(),
+                       prng.random_bits_plain(key, idx.cpu()))
+    assert torch.equal(prng.permutation(key, n, cuda).cpu(),
+                       prng.permutation(key, n, "cpu"))
+
+
+def test_threefry_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from mmer_tpu_torch.ops import prng
+
+    table = prng.DrawPlan(_step_draws(8), cuda).table
+    out = torch.empty(64, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        prng.launch_threefry(table.cpu(), [(0, 1)], 0, 8, out)
+    with pytest.raises(ValueError):
+        prng.launch_threefry(table, [(0, 1)] * 17, 0, 8, out)
+    with pytest.raises(ValueError):
+        prng.DrawPlan([prng.Draw((), (4,), "mask", 0.9, torch.float16)], cuda)

@@ -28,10 +28,10 @@ import torch.distributed as dist
 import mmer_tpu_torch.config as port_config
 import mmer_tpu_torch.data.pipeline as port_pipeline
 import mmer_tpu_torch.train.loop as port_loop
+from mmer_tpu_torch.train.keys import KeySchedule
 from mmer_tpu_torch.config import MeshConfig
 from mmer_tpu_torch.core.mesh import create_mesh, pad_to_multiple
 from mmer_tpu_torch.models.fusion import init_fusion
-from mmer_tpu_torch.models.layers import param_generator
 from mmer_tpu_torch.models.wav2vec2 import AudioEmbedder
 from mmer_tpu_torch.parallel import scaling
 from mmer_tpu_torch.parallel.launch import spawn_cpu_world
@@ -52,9 +52,8 @@ SMALL = dict(max_seq_len=4, fusion_layers=2, fusion_heads=2, fused_dim=32,
              fusion_ffn_dim=64, classifier_hidden_dim=32,
              compute_dtype="float32", fusion_dropout=0.1,
              classifier_dropout=0.1)
-# Against JAX: the same model with dropout off (JAX's shuffles are injected,
-# its dropout masks cannot be).
-JAX_MODEL = dict(SMALL, fusion_dropout=0.0, classifier_dropout=0.0)
+# Against JAX: the same model, dropout on (the port draws JAX's stream).
+JAX_MODEL = SMALL
 JAX_BN = dict(JAX_MODEL, norm="batchnorm")
 TRAIN = dict(num_epochs=3, lr=1e-3, save_checkpoints=False, patience=10 ** 9)
 OPT_INS = dict(ema_decay=0.8, mixup_alpha=0.4, modality_dropout=0.3,
@@ -142,26 +141,18 @@ def case_audio(mesh_cfg):
     return {"feats": feats, "collectives": counts}
 
 
-def case_train(mesh_cfg, model_kw, train_kw, soft=False, perms=None,
+def case_train(mesh_cfg, model_kw, train_kw, soft=False, fused=False,
                resume_dir=None):
-    """``train_model`` on ``_dataset()``; ``perms``: JAX's epoch shuffles,
-    injected through ``epoch_permutation``; ``resume_dir``: the mid-run
-    checkpoints to continue from."""
+    """``train_model`` on ``_dataset()`` with the key schedule of JAX's
+    fused trainer (``fused``) or of its epoch loop; ``resume_dir``: the
+    mid-run checkpoints to continue from."""
     data, splits = _dataset()
-    saved = port_loop.epoch_permutation
-    if perms is not None:
-        it = iter(perms)
-        port_loop.epoch_permutation = lambda n, g: torch.from_numpy(
-            next(it).astype(np.int64))
-    try:
-        out = port_loop.train_model(
-            data, splits, port_config.ModelConfig(**model_kw),
-            port_config.TrainConfig(**train_kw), batch_size=BATCH,
-            verbose=False, device=CPU, mesh_cfg=mesh_cfg,
-            soft_targets=_soft(len(data.labels)) if soft else None,
-            resume_dir=resume_dir)
-    finally:
-        port_loop.epoch_permutation = saved
+    out = port_loop.train_model(
+        data, splits, port_config.ModelConfig(**model_kw),
+        port_config.TrainConfig(**train_kw), batch_size=BATCH,
+        verbose=False, device=CPU, mesh_cfg=mesh_cfg,
+        soft_targets=_soft(len(data.labels)) if soft else None,
+        resume_dir=resume_dir, fused=fused)
     return {"rows": out.results, "mesh": out.hyperparameters["mesh"],
             "best_epoch": out.best_epoch, "confusion": out.confusion,
             "final": {k: v.numpy() for k, v in out.final_params.items()},
@@ -194,10 +185,10 @@ def case_step(mesh_cfg):
     tcfg = port_config.TrainConfig(lr=0.0)
     optimizer = port_loop.make_optimizer(model, tcfg)
     model.train()
+    rand = KeySchedule([1], "loop", cfg, tcfg, 8, 3, CPU).draw()
     loss = port_loop.train_step(
         model, optimizer, data, torch.arange(8), port_loop.StepDraws(),
-        torch.linspace(0.5, 1.5, 6), tcfg,
-        dropout_generator=param_generator(1, CPU), mesh=mesh)
+        torch.linspace(0.5, 1.5, 6), tcfg, rand, mesh=mesh)
     if mesh is not None:
         mesh.all_reduce(loss)
     grads = gather_params({n: p.grad for n, p in model.named_parameters()}, mesh)
@@ -258,7 +249,7 @@ def _cut(root, tag):
 def _resume(mesh_cfg, root, tag, into):
     """The case that continues ``root/tag``'s checkpoints to epoch 3."""
     return (case_train, (mesh_cfg, SMALL, {**TRAIN, "output_dir": f"{root}/{into}"},
-                         False, None, f"{root}/{tag}/checkpoints"))
+                         False, False, f"{root}/{tag}/checkpoints"))
 
 
 def _run_cases(cases):
@@ -267,33 +258,6 @@ def _run_cases(cases):
 
 
 # -- the worlds and the JAX side ------------------------------------------------------
-
-def _jax_perms(n_train, epochs, seed=0):
-    """The epoch shuffles of ``train_model(fused=True, seed=seed)``
-    (``mmer_tpu/train/fused.py``): ``split(rng, 3)`` an epoch."""
-    import jax
-
-    rng = jax.random.split(jax.random.PRNGKey(seed))[0]
-    perms = []
-    for _ in range(epochs):
-        rng, shuffle_key, _ = jax.random.split(rng, 3)
-        perms.append(np.asarray(jax.random.permutation(shuffle_key, n_train)))
-    return perms
-
-
-def _jax_epoch_perms(n_train, epochs, seed=0):
-    """The epoch shuffles of the JAX package's epoch-loop trainer,
-    ``train_model(fused=False, seed=seed)``
-    (``jax.random.permutation(split(state.rng)[1], n)`` an epoch)."""
-    import jax
-
-    rng = jax.random.split(jax.random.PRNGKey(seed))[0]
-    perms = []
-    for _ in range(epochs):
-        rng, key = jax.random.split(rng)
-        perms.append(np.asarray(jax.random.permutation(key, n_train)))
-    return perms
-
 
 @pytest.fixture(scope="module")
 def c5_root(tmp_path_factory):
@@ -307,27 +271,24 @@ def c5_root(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def worlds(c5_root):
-    _, splits = _dataset()
-    perms = _jax_perms(len(splits.train), TRAIN["num_epochs"])
-    bn_perms = _jax_epoch_perms(len(splits.train), TRAIN["num_epochs"])
     dp = MeshConfig()
     tp = MeshConfig(model_parallel=2)
     w2 = [(case_video, (dp,)), (case_audio, (dp,)),
           (case_train, (dp, SMALL, TRAIN)),
-          (case_train, (dp, SMALL, {**TRAIN, **OPT_INS}, True)),
+          (case_train, (dp, SMALL, {**TRAIN, **OPT_INS}, True, True)),
           (case_train, (dp, {**SMALL, "norm": "batchnorm"}, TRAIN)),
-          (case_train, (dp, JAX_MODEL, TRAIN, False, perms)),
+          (case_train, (dp, JAX_MODEL, TRAIN, False, True)),
           (case_scaling, ()),
-          (case_train, (dp, JAX_BN, TRAIN, False, bn_perms)),
+          (case_train, (dp, JAX_BN, TRAIN)),
           (case_train, (dp, SMALL, _cut(c5_root, "dp2"))),
           _resume(dp, c5_root, "dp2", "dp2_resumed"),
           _resume(dp, c5_root, "single", "single_on_dp2")]
     w4 = [(case_video, (dp,)), (case_audio, (dp,)),
           (case_train, (dp, SMALL, TRAIN)),
-          (case_train, (dp, JAX_MODEL, TRAIN, False, perms)),
+          (case_train, (dp, JAX_MODEL, TRAIN, False, True)),
           (case_train, (tp, SMALL, TRAIN)),
-          (case_train, (tp, SMALL, {**TRAIN, **OPT_INS}, True)),
-          (case_train, (tp, JAX_MODEL, {**TRAIN, **DISTILL}, True, perms)),
+          (case_train, (tp, SMALL, {**TRAIN, **OPT_INS}, True, True)),
+          (case_train, (tp, JAX_MODEL, {**TRAIN, **DISTILL}, True, True)),
           (case_step, (tp,)), (case_mesh_errors, ()), (case_dryrun, ()),
           (case_train, (tp, SMALL, _cut(c5_root, "tp"))),
           _resume(tp, c5_root, "tp", "tp_resumed"),
@@ -356,7 +317,7 @@ def single():
     """The port's single-device runs, in this process (no process group)."""
     return {"video": case_video(None), "audio": case_audio(None),
             "small": case_train(None, SMALL, TRAIN),
-            "opt_ins": case_train(None, SMALL, {**TRAIN, **OPT_INS}, True),
+            "opt_ins": case_train(None, SMALL, {**TRAIN, **OPT_INS}, True, True),
             "bn": case_train(None, {**SMALL, "norm": "batchnorm"}, TRAIN),
             "step": case_step(None)}
 
@@ -484,8 +445,9 @@ def test_scaling_does_not_swallow_a_failed_leg(monkeypatch):
 @pytest.mark.parametrize("world, index", [(2, 5), (4, 3)])
 def test_dp_train_model_matches_jax_dp8(worlds, jax_runs, world, index):
     """The port's dp2 and dp4 runs against ``train_model(fused=True,
-    mesh_cfg=MeshConfig())`` on JAX's 8 devices, JAX's shuffles injected
-    and dropout off: the rows at test_torch_train.py's bounds."""
+    mesh_cfg=MeshConfig())`` on JAX's 8 devices, the port drawing the fused
+    trainer's key schedule, dropout on: the rows at test_torch_train.py's
+    bounds."""
     want = jax_runs["dp8"]
     got = worlds(world, index)
     _rows_match(got["rows"], want.results)
@@ -507,8 +469,8 @@ def test_dp_batchnorm_matches_jax_dp8(worlds, jax_runs):
     """The port's dp2 BatchNorm run (global-batch statistics) against JAX's
     epoch-loop trainer on its 8 devices, whose sharded step XLA computes
     with the global batch's statistics (``mmer_tpu/train/loop.py:486-566``):
-    JAX's shuffles injected, dropout off, the rows at test_torch_train.py's
-    bounds and the confusion matrices equal."""
+    the port drawing the epoch loop's key schedule, dropout on, the rows at
+    test_torch_train.py's bounds and the confusion matrices equal."""
     want = jax_runs["bn_dp8"]
     got = worlds(2, 7)
     assert want.hyperparameters["mesh"] == {"data": 8, "model": 1}

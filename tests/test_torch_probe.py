@@ -33,7 +33,7 @@ from mmer_tpu_torch.ops.attention_variants import (MODES, VALID_MODES,
 from mmer_tpu_torch.ops.fused_blocks import (fused_ln_matmul, layer_norm,
                                              ln_matmul_reference)
 from mmer_tpu_torch.scripts import (probe_attn, profile_fused_blocks,
-                                    profile_train)
+                                    profile_train, profile_vivit, profile_w2v2)
 
 
 def _t(a, dtype=torch.float32):
@@ -285,8 +285,47 @@ def test_profile_train_script_runs_on_cpu():
     assert out["step_ms"] > 0 and "idle_share" not in out   # no device numbers
 
 
+@pytest.fixture
+def few_threads():
+    """Two intra-op threads for a profile script's full-length waveforms and
+    whole models: on a full thread pool they slow several times over beside
+    the tier-1 run's other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
+def test_profile_w2v2_script_runs_on_cpu(few_threads):
+    """The three legs at a tiny config: rows with host times, FLOPs that
+    add up (full = conv encoder + transformer), no device numbers."""
+    rows = profile_w2v2.main(["--device", "cpu", "--tiny", "--batch", "2",
+                              "--inputs", "1"])
+    assert [r["name"] for r in rows] == ["full", "conv encoder", "transformer"]
+    for r in rows:
+        assert r["ms"] > 0 and r["device"] == "cpu" and "idle_share" not in r
+    flops = [r["tflops"] * r["ms"] for r in rows]
+    assert flops[0] == pytest.approx(flops[1] + flops[2])
+
+
+def test_profile_vivit_script_runs_on_cpu(few_threads):
+    """The five legs at a tiny config; the model without attention does the
+    model's work less ``depth`` attention calls."""
+    rows = profile_vivit.main(["--device", "cpu", "--tiny", "--batch", "2",
+                               "--inputs", "1"])
+    assert [r["name"] for r in rows] == [
+        "model kernels", "model plain", "attention kernel", "attention plain",
+        "model no attention"]
+    work = {r["name"]: r["tflops"] * r["ms"] for r in rows}
+    for r in rows:
+        assert r["ms"] > 0 and r["device"] == "cpu" and "idle_share" not in r
+    assert work["model no attention"] == pytest.approx(
+        work["model kernels"] - 2 * work["attention kernel"])
+
+
 @pytest.mark.parametrize("main", [profile_fused_blocks.main, probe_attn.main,
-                                  profile_train.main])
+                                  profile_train.main, profile_w2v2.main,
+                                  profile_vivit.main])
 def test_scripts_default_to_the_card_and_raise_without_one(main):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
