@@ -110,6 +110,25 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    the 4 s bucket: the default route, the conv encoder alone, the
    transformer alone), every leg's ms, TFLOP/s, device busy ms and idle
    share logged, kernel rows 1-3 launched exactly as the legs' calls imply.
+6b. component probes: the conv-encoder profiles and the extractor A/B
+   probes through their ``main`` at full width, three distinct inputs a
+   leg: ``scripts.profile_conv_pyramid`` (the conv encoder at 64 x
+   64,000 samples on the plain, per-layer and whole-pyramid routes, each
+   beside its bound, and the whole embedder plain and on kernels),
+   ``scripts.profile_cp_layers`` (each per-layer conv kernel alone on inputs
+   drawn on the card), ``scripts.probe_w2v2_flash`` and
+   ``scripts.probe_w2v2_qkv`` (the encoder with plain against flash
+   attention, separate against fused q/k/v, a quarter of the clips padded),
+   ``scripts.probe_vivit_b32`` (the ViViT at B = 16 and 32) and
+   ``scripts.probe_extract_pipeline`` (96 uint8 chunks through
+   ``embed_chunks``, serial and pipelined, best of two calls each).
+   Gates: every row a device time (CUDA events), but for the pipeline
+   probe's, which are wall-clock times of whole ``embed_chunks`` calls on
+   the card (host staging overlapped with the card is what that probe
+   measures), rows 1-6 launched exactly as each
+   script's calls imply, both kernel conv routes within the conv bound of the
+   plain route, each A/B's two variants within ``EMBED_REL_L2`` a clip, the
+   pipelined rows bit-identical to the serial ones.
 7. training: 8,496 seeded samples written as ``.npy`` feature artifacts
    under CREMA-D / RAVDESS names → ``mmer_tpu_torch.train.cli.main`` at
    ``ModelConfig()`` width for ``TRAIN_EPOCHS`` epochs at batch 64 on JAX's
@@ -137,6 +156,14 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    Logged: seconds an epoch and samples/s per seed, solo (the rerun),
    S = 2 (a warm pool call) and S = 4 (a 2-epoch call of four seeds), peak
    device memory, the phase's wall time.
+8b. quality scripts (before the training phase's folders are removed):
+   ``scripts.{sweep,quality_sweep,probe_recipe_sweep_r4,probe_ensemble,
+   probe_diverse_ensemble,probe_mixup_quality,probe_feature_noise_quality,
+   probe_distill}`` through their ``main`` at ``ModelConfig()`` width on
+   phase 7's 8,496 pairs, 1 epoch, the fewest seeds each takes (2 where it
+   batches seeds; ``QUALITY_ARGS``): every number of each summary finite,
+   every F1 in [0, 1], no extractor kernel launched; each script's wall time
+   and the phase's threefry launches logged.
 
 9. scale-out: a one-rank NCCL world on ``cuda:0`` (the card is one; no
    multi-rank run takes place on it): ``VideoFeatureExtractor(mesh=)`` on
@@ -173,8 +200,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    clip is tracked, timed; the phase's wall time.
 
 The second-to-last line is ``{"kernels": [...]}`` (``launches_scale_out``:
-the mesh runs' launches; ``launches_prep_chain``: phase 10's; ``threefry``'s
-launches are the training phase's); the last line
+the mesh runs' launches; ``launches_prep_chain``: phase 10's;
+``launches_component_probes``: phase 6b's; ``threefry``'s launches are the
+training phase's, its ``launches_training`` also phase 8b's); the last line
 is ``{"ok": true, "device": {...}}``.
 """
 
@@ -379,20 +407,15 @@ def read_launches() -> dict:
 
 
 def bound(flops: float, nbytes: float, tag: str = "") -> dict:
-    """The least time the card could take: operations over the bf16 peak or
-    bytes (each input read once, each output written once) over the memory
-    rate, whichever is larger.  Keys carry the case's ``tag``."""
-    from mmer_tpu_torch.scripts.timing import PEAK_BYTES, PEAK_FLOPS
+    """``timing.bound_ms`` (each input read once, each output written once),
+    logged, with keys that carry the case's ``tag``."""
+    from mmer_tpu_torch.scripts.timing import PEAK_BYTES, PEAK_FLOPS, bound_ms
 
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    log(f"  work: {flops / 1e9:.3f} GFLOP ({t_ops:.4f} ms at the bf16 peak), "
-        f"{nbytes / 1e6:.3f} MB ({t_bytes:.4f} ms at the memory rate)")
-    return {f"bound_ms{tag}": max(t_ops, t_bytes),
-            f"bound_by{tag}": "operations" if t_ops >= t_bytes else "bytes"}
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
+    log(f"  work: {flops / 1e9:.3f} GFLOP ({flops / PEAK_FLOPS * 1e3:.4f} ms "
+        f"at the bf16 peak), {nbytes / 1e6:.3f} MB "
+        f"({nbytes / PEAK_BYTES * 1e3:.4f} ms at the memory rate)")
+    ms, by = bound_ms(flops, nbytes)
+    return {f"bound_ms{tag}": ms, f"bound_by{tag}": by}
 
 
 def log(msg: str) -> None:
@@ -486,7 +509,9 @@ def _conv_bound(cfg, wave, conv_args, out, tag) -> dict:
                          _layer_lengths(cfg, wave.shape[1])):
         flops += 2.0 * wave.shape[0] * t * k * c_in * dim
         c_in = dim
-    return bound(flops, nbytes(wave, out, *(t for ts in conv_args for t in ts)),
+    from mmer_tpu_torch.scripts.timing import tensor_bytes
+
+    return bound(flops, tensor_bytes(wave, out, *(t for ts in conv_args for t in ts)),
                  tag)
 
 
@@ -575,7 +600,7 @@ def check_kernels(dev) -> dict:
                                                     reference_attention,
                                                     reference_attention_varlen)
     from mmer_tpu_torch.ops.fused_blocks import ffn_reference, fused_ffn
-    from mmer_tpu_torch.scripts.timing import kernel_device_ms
+    from mmer_tpu_torch.scripts.timing import kernel_device_ms, tensor_bytes
 
     g = torch.Generator(device=dev)
     case = iter(range(10 ** 6))
@@ -605,7 +630,7 @@ def check_kernels(dev) -> dict:
         lambda: F.scaled_dot_product_attention(q, k, v), 20)
     r["shape"] = "q,k,v (8,12,1569,64) bf16"
     log(f"kernel flash_attention, {r['shape']}")
-    r.update(bound(4.0 * 8 * 12 * 1569 * 1569 * 64, 4 * nbytes(q)))
+    r.update(bound(4.0 * 8 * 12 * 1569 * 1569 * 64, 4 * tensor_bytes(q)))
     res["flash_attention"] = r
     q, k = 3 * q, 3 * k
     r2 = _compare("flash_attention", flash_attention(q, k, v),
@@ -663,7 +688,7 @@ def check_kernels(dev) -> dict:
         # all S values.  q and the output count in full.
         n_keys = int(torch.where(valid, lens, torch.full_like(lens, s)).sum())
         r.update(bound(4.0 * 16 * s * 64 * n_keys,
-                       2 * nbytes(q) + 2 * 16 * 64 * q.element_size() * n_keys
+                       2 * tensor_bytes(q) + 2 * 16 * 64 * q.element_size() * n_keys
                        + 4 * lens.numel(), tag))
         q, k = 3 * q, 3 * k
         r2 = _compare("flash_attention_varlen",
@@ -686,7 +711,7 @@ def check_kernels(dev) -> dict:
     def ffn_bound(args, tag=""):
         x, w1 = args[0], args[3]
         return bound(4.0 * (x.numel() // x.shape[-1]) * w1.numel(),
-                     nbytes(*args) + nbytes(x), tag)
+                     tensor_bytes(*args) + tensor_bytes(x), tag)
 
     # ViViT FFN: bf16 stream (8, 1569, 768), f32 LN params and biases.
     reseed()
@@ -841,7 +866,7 @@ def check_kernels(dev) -> dict:
         _same_bits("conv_gemm_ln_gelu", got, _call_gemm(x, w, *vecs, t_pad))
         log(f"kernel conv_gemm_ln_gelu: grid {grid} = {grid[0] * grid[1]} blocks, "
             f"{'the wgmma body' if kdim >= 64 else 'the CUDA-core kernel'} (K {kdim})")
-        r.update(bound(2.0 * 64 * t_pad * kdim * 512, nbytes(x, w, got, *vecs),
+        r.update(bound(2.0 * 64 * t_pad * kdim * 512, tensor_bytes(x, w, got, *vecs),
                        tag))
         # The same layer as three library calls on the unmerged input: layer
         # 0 over a waveform whose stride-5 windows are the patches (its
@@ -886,7 +911,7 @@ def check_kernels(dev) -> dict:
         r2 = _compare("conv_k3_ln_gelu", got, want, key="conv_layer")
         _same_bits("conv_k3_ln_gelu", got, _call_k3(xm, w01, w2, *vecs, t_pad))
         r.update(bound(2.0 * 64 * t_pad * 1536 * 512,
-                       nbytes(xm, w01, w2, got, *vecs), tag))
+                       tensor_bytes(xm, w01, w2, got, *vecs), tag))
         # The same layer as three library calls on the unmerged activation:
         # the (512, 512, 3) weight whose taps are [W0; W1] and W2.
         weight = torch.stack([w01[:512].t(), w01[512:].t(), w2.t()], dim=-1)
@@ -936,7 +961,7 @@ def check_probe_kernels(dev) -> dict:
     from mmer_tpu_torch.ops.flash_attention import flash_attention
     from mmer_tpu_torch.ops.fused_blocks import (LN_EPS, fused_ln_matmul,
                                                  ln_matmul_reference)
-    from mmer_tpu_torch.scripts.timing import kernel_device_ms
+    from mmer_tpu_torch.scripts.timing import kernel_device_ms, tensor_bytes
 
     g = torch.Generator(device=dev)
     bf = torch.bfloat16
@@ -984,7 +1009,7 @@ def check_probe_kernels(dev) -> dict:
                 lambda: F.linear(F.layer_norm(xb, (d,), ln_w_bf, ln_b_bf, LN_EPS),
                                  w), iters),
             f"shape{tag}": shape_s})
-        r.update(bound(2.0 * x.numel() * n, nbytes(x, ln_w, ln_b, w, got), tag))
+        r.update(bound(2.0 * x.numel() * n, tensor_bytes(x, ln_w, ln_b, w, got), tag))
         del x, w, got, want, xb
     r["library_ms"] = None          # LayerNorm and the product are two calls
     res["fused_ln_matmul"] = r
@@ -1068,7 +1093,7 @@ def check_probe_kernels(dev) -> dict:
         r["plain_ms"] = cuda_ms(plain, 1, warmup=0)
         r["library_ms"] = library.get(mode)
         r["shape"] = f"q,k,v {PROBE_SHAPE} bf16, s_pad {PROBE_S_PAD}"
-        r.update(bound(4.0 * b * h * s * s * d, nbytes(*ops, got)))
+        r.update(bound(4.0 * b * h * s * s * d, tensor_bytes(*ops, got)))
         res[name] = r
         log(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
             + (f", library call {r['library_ms']:.4f} ms"
@@ -1110,7 +1135,8 @@ def _threefry_case(dev, tag: str, draws, lanes, keys, step) -> dict:
     import torch
 
     from mmer_tpu_torch.ops import prng
-    from mmer_tpu_torch.scripts.timing import PEAK_BYTES, kernel_device_ms
+    from mmer_tpu_torch.scripts.timing import (PEAK_BYTES, kernel_device_ms,
+                                               tensor_bytes)
 
     plan = prng.DrawPlan(draws, dev, lanes=lanes)
     before = prng.launch_threefry.launches
@@ -1121,7 +1147,7 @@ def _threefry_case(dev, tag: str, draws, lanes, keys, step) -> dict:
     err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
     same = all(torch.equal(g, w) for g, w in zip(got, want))
     again = all(torch.equal(g, h) for g, h in zip(got, plan.draw(keys, step)))
-    out_bytes = nbytes(*got)
+    out_bytes = tensor_bytes(*got)
     # The kernel's device time (torch.profiler: the host's Python around a
     # launch, ~0.2 ms, would otherwise be timed), the call's and the plain
     # version's (CUDA events).
@@ -1293,6 +1319,109 @@ def run_profile_scripts() -> dict:
         raise AssertionError("the component profiles did not launch rows 1-3 as "
                              "expected")
     return {k: launches[k] + comp[k] for k in launches}
+
+
+# Phase 6b: the conv-encoder profiles and the extractor A/B probes.
+def run_component_probes() -> dict:
+    """The conv-encoder profiles and the four extractor A/B probes through
+    their ``main`` at full width: every row a device time (the pipeline
+    probe's wall-clock calls on the card excepted), exact launches of
+    rows 1-6 per script, the conv routes within the conv bound of the plain
+    route, flash against plain attention and fused against separate q/k/v
+    within ``EMBED_REL_L2`` a clip, the pipelined extraction bit-identical to
+    the serial one.  Returns the phase's launches (threefry's included)."""
+    from mmer_tpu_torch.config import ViViTConfig, Wav2Vec2Config
+    from mmer_tpu_torch.ops import prng
+    from mmer_tpu_torch.scripts import (probe_extract_pipeline, probe_vivit_b32,
+                                        probe_w2v2_flash, probe_w2v2_qkv,
+                                        profile_conv_pyramid, profile_cp_layers)
+
+    wcfg, depth = Wav2Vec2Config(), ViViTConfig().depth
+    convs, layers = len(wcfg.conv_dims), wcfg.num_layers
+    k3 = sum(k == 3 for k in wcfg.conv_kernels)
+    encoder = {"fused_conv_encoder": convs, "fused_ffn": layers}
+    vivit = {"flash_attention": depth, "fused_ffn": depth}
+    # script, arguments, the kernel launches of one call of each row's
+    # function (None: the row makes no call).
+    runs = [
+        (profile_conv_pyramid, [], lambda row: {
+            "conv plain": {}, "full plain": {}, "full kernels": encoder,
+            "conv layers": {"conv_gemm_ln_gelu": convs - k3, "conv_k3_ln_gelu": k3},
+            "conv mega": {"fused_conv_encoder": convs}}[row["name"]]),
+        (profile_cp_layers, [], lambda row: (
+            {"conv_k3_ln_gelu": 1} if "(k3)" in row["name"]
+            else {"conv_gemm_ln_gelu": 1})),
+        (probe_w2v2_flash, [], lambda row: (
+            {**encoder, "flash_attention_varlen": layers}
+            if row["name"] == "flash-attn" else encoder)),
+        (probe_w2v2_qkv, [], lambda row: encoder),
+        (probe_vivit_b32, [], lambda row: vivit),
+        (probe_extract_pipeline, [], None),
+    ]
+    t_phase = time.perf_counter()
+    threefry0 = prng.launch_threefry.launches
+    total, results = {k: 0 for k in read_launches()}, {}
+    for script, argv, per_call in runs:
+        name = script.__name__.rsplit(".", 1)[1]
+        reset_launches()
+        t0 = time.perf_counter()
+        rows = script.main(argv)
+        wall = time.perf_counter() - t0
+        got = read_launches()
+        want = {k: 0 for k in got}
+        if per_call is None:
+            # A warm-up block, then each loop shape's calls of six blocks.
+            blocks = 1 + 2 * probe_extract_pipeline.REPS * probe_extract_pipeline.N_BLOCKS
+            for k, n in vivit.items():
+                want[k] += blocks * n
+        else:
+            for row in rows:
+                for k, n in per_call(row).items():
+                    want[k] += row["calls"] * n
+        log(f"component probes: {name}: {wall:.2f} s wall; launches "
+            f"{ {k: v for k, v in got.items() if v} }, expected "
+            f"{ {k: v for k, v in want.items() if v} }")
+        for row in rows:
+            # The pipeline probe times the host's wall clock on purpose: what
+            # it measures is host staging overlapped with the card's work.
+            host_ok = per_call is None and row.get("clock") == "host"
+            if "ms" in row and not (row["ms"] > 0 and row["device"] != "cpu"
+                                    and (host_ok or "clock" not in row)):
+                raise AssertionError(f"{name}: row {row} is not a time on the "
+                                     "card's clock")
+        if got != want:
+            raise AssertionError(f"{name} did not launch the kernels as expected")
+        for k, v in got.items():
+            total[k] += v
+        results[name] = rows
+
+    conv = {r["name"]: r for r in results["profile_conv_pyramid"]}
+    tol = TOLERANCES["fused_conv_encoder_10s"][0]
+    for route in ("conv layers", "conv mega"):
+        r = conv[route]
+        log(f"component probes: {route}: {r['ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}, max |diff| "
+            f"{r['max_abs_diff']:.4f} from the plain route (limit {tol})")
+        if not r["max_abs_diff"] <= tol:
+            raise AssertionError(f"{route} is not within the conv bound of the "
+                                 "plain route")
+    for name in ("probe_w2v2_flash", "probe_w2v2_qkv"):
+        base, other = results[name]
+        log(f"component probes: {name}: {base['name']} {base['ms']:.4f} ms "
+            f"({base['clips_per_s']:.1f} clips/s), {other['name']} "
+            f"{other['ms']:.4f} ms ({other['clips_per_s']:.1f} clips/s), "
+            f"{base['ms'] / other['ms']:.3f}x; largest rel-L2 of a clip "
+            f"{other['clip_rel_l2_max']:.3e} (limit {EMBED_REL_L2}), max "
+            f"|diff| {other['max_abs_diff']:.3e}")
+        if not other["clip_rel_l2_max"] <= EMBED_REL_L2:
+            raise AssertionError(f"{name}: the two variants disagree")
+    pipe = results["probe_extract_pipeline"][-1]
+    if not pipe["bit_identical"]:
+        raise AssertionError("pipeline=True gave other bits than pipeline=False")
+    total["threefry"] = prng.launch_threefry.launches - threefry0
+    phase_s = time.perf_counter() - t_phase
+    log(f"component probes: phase {phase_s:.2f} s wall; launches {total}")
+    return total
 
 
 def _make_feature_folders(video_dir: str, audio_dir: str, rng,
@@ -1614,6 +1743,82 @@ def run_flagship_chain(dev, request_launches: dict) -> dict:
             "batched_vs_solo_rel": worst}
 
 
+# Phase 8b: the quality scripts at 1 epoch on the training phase's folders.
+QUALITY_ARGS = {
+    "sweep": ["--epochs", "1"],
+    "quality_sweep": ["--epochs", "1"],
+    "probe_recipe_sweep_r4": ["--only", "baseline", "--seeds", "2",
+                              "--seeds_per_call", "2", "--epochs", "1"],
+    "probe_ensemble": ["--seeds", "2", "--seeds_per_call", "2", "--epochs", "1"],
+    "probe_diverse_ensemble": ["--seeds", "2", "--seeds_per_call", "2",
+                               "--epochs", "1", "--greedy"],
+    # Three of the five arms, each opt-in alone and the baseline: phases 6b
+    # and 8b share a 180 s budget, and with all five they read 139.7-169.4 s
+    # on an H100.
+    "probe_mixup_quality": ["--seeds", "2", "--seeds_per_call", "2",
+                            "--epochs", "1", "--arms",
+                            "baseline,mixup0.2,mdrop0.2"],
+    "probe_feature_noise_quality": ["--seeds", "2", "--epochs", "1",
+                                    "--levels", "0,0.01"],
+    "probe_distill": ["--pool_seeds", "2", "--student_seeds", "2",
+                      "--seeds_per_call", "2", "--epochs", "1", "--teacher_k",
+                      "4", "--grid", "0.5:1"],
+}
+
+
+def _check_summary(name: str, value, key: str = "") -> int:
+    """Every number of a quality script's summary finite, every F1 in [0, 1];
+    returns the count of F1 values seen."""
+    if isinstance(value, dict):
+        return sum(_check_summary(name, v, str(k)) for k, v in value.items())
+    if isinstance(value, (list, tuple)):
+        return sum(_check_summary(name, v, key) for v in value)
+    if isinstance(value, bool) or not isinstance(value, (int, float)):
+        return 0
+    if not math.isfinite(value):
+        raise AssertionError(f"{name}: {key} = {value} is not finite")
+    is_f1 = "f1" in key.lower() or key.startswith(("same:", "cross:", "pooled:",
+                                                    "greedy", "student:"))
+    if is_f1 and not 0.0 <= value <= 1.0:
+        raise AssertionError(f"{name}: F1 {key} = {value} is not in [0, 1]")
+    return int(is_f1)
+
+
+def run_quality_scripts(features: str) -> int:
+    """The eight quality scripts through their ``main`` at ``ModelConfig()``
+    width on the training phase's folders, 1 epoch and the fewest seeds each
+    takes: summaries finite, F1 in [0, 1], no extractor kernel launched.
+    Returns the phase's threefry launches."""
+    import importlib
+
+    from mmer_tpu_torch.ops import prng
+
+    folders = ["--video_feat_dir", os.path.join(features, "video"),
+               "--audio_feat_dir", os.path.join(features, "audio")]
+    t_phase = time.perf_counter()
+    threefry0 = prng.launch_threefry.launches
+    for name, argv in QUALITY_ARGS.items():
+        script = importlib.import_module(f"mmer_tpu_torch.scripts.{name}")
+        reset_launches()
+        t0 = time.perf_counter()
+        summary = script.main(argv + folders)
+        wall = time.perf_counter() - t0
+        n_f1 = _check_summary(name, summary)
+        log(f"quality scripts: {name}: {wall:.2f} s wall, {n_f1} F1 values, "
+            f"summary {json.dumps(summary)[:400]}")
+        if not n_f1:
+            raise AssertionError(f"{name}: no F1 in its summary")
+        if any(read_launches().values()):
+            raise AssertionError(f"{name} launched extractor kernels: "
+                                 f"{read_launches()}")
+    draws = prng.launch_threefry.launches - threefry0
+    log(f"quality scripts: phase {time.perf_counter() - t_phase:.2f} s wall, "
+        f"{draws} threefry launches")
+    if not draws:
+        raise AssertionError("the quality scripts drew no threefry launch")
+    return draws
+
+
 def main() -> int:
     log(f"device: {device_line()}")
     import torch
@@ -1645,11 +1850,14 @@ def main() -> int:
     file_path = run_serving_file_path(dev)
     extraction = run_extraction(dev)
     profile = run_profile_scripts()
-    # The training phase's feature folders, read again by the scale-out phase.
+    probes = run_component_probes()
+    # The training phase's feature folders, read again by the quality scripts
+    # and the scale-out phase.
     features = tempfile.TemporaryDirectory(prefix="mmer_smoke_features_")
     try:
         request_launches, train_draws = run_training(dev, features.name)
         run_flagship_chain(dev, request_launches)
+        quality_draws = run_quality_scripts(features.name)
         scale_out = run_scale_out(dev, extraction["chunks"], extraction["waves"],
                                   features.name)
     finally:
@@ -1671,6 +1879,7 @@ def main() -> int:
          "launches_extraction_cli": extraction["cli"][name],
          "launches_extraction_all_kernel": extraction["all_kernel"][name],
          "launches_profile_scripts": profile[name],
+         "launches_component_probes": probes[name],
          "launches_scale_out": scale_out[name],
          "launches_prep_chain": prep_chain[name],
          **{k: v for k, v in r.items() if not k.startswith("shape")}}
@@ -1679,7 +1888,9 @@ def main() -> int:
                   "source": "mmer_tpu_torch/csrc/threefry.cu",
                   "replaces": "mmer_tpu/train/loop.py:204 (jax.random's threefry "
                               "draws, which XLA compiles; not a Pallas kernel)",
-                  "launches": train_draws, "launches_training": train_draws,
+                  "launches": train_draws,
+                  "launches_training": train_draws + quality_draws,
+                  "launches_component_probes": probes["threefry"],
                   **{k: v for k, v in stream.items()}})
     idle = [k["name"] for k in lines if k["launches"] < 1]
     if idle or len(lines) != len(SOURCES) + 1:

@@ -14,7 +14,9 @@ length-masked mean pool → L2 norm → (1024,):
   bias (a fully masked row comes out uniform, not NaN), plain or, with
   ``use_flash_attn``, through
   :func:`~mmer_tpu_torch.ops.flash_attention.flash_attention` with one key
-  length per clip; the FFN sublayer through
+  length per clip; q, k and v from three projections or, with
+  ``use_fused_qkv``, one product over their weights concatenated on every
+  call; the FFN sublayer through
   :func:`~mmer_tpu_torch.ops.fused_blocks.fused_ffn`;
 - a final LayerNorm.
 
@@ -137,11 +139,13 @@ class EncoderLayer(nn.Module):
     """Stable-layer-norm transformer layer (pre-norm, biased projections)."""
 
     def __init__(self, cfg: Wav2Vec2Config, *, device: torch.device | str,
-                 use_kernels: bool = True, use_flash_attn: bool = False):
+                 use_kernels: bool = True, use_flash_attn: bool = False,
+                 use_fused_qkv: bool = False):
         super().__init__()
         self.cfg = cfg
         self.use_kernels = use_kernels
         self.use_flash_attn = use_flash_attn
+        self.use_fused_qkv = use_fused_qkv
         d = cfg.hidden_dim
         self.norm_attn = LayerNorm(d, device=device)
         self.q = nn.Linear(d, d, device=device)
@@ -152,11 +156,26 @@ class EncoderLayer(nn.Module):
         self.ffn_in = nn.Linear(d, cfg.ffn_dim, device=device)
         self.ffn_out = nn.Linear(cfg.ffn_dim, d, device=device)
 
+    def project_qkv(self, yd: torch.Tensor) -> tuple:
+        """q, k, v (B, T, d) in the compute dtype from the normed stream
+        ``yd``: three biased projections or, with ``use_fused_qkv``, one
+        product in the compute dtype, ``yd @ w + b`` over the (d, 3d) weight
+        and (3d,) bias concatenated on every call, as the JAX layer computes
+        them (the params keep the three-projection layout)."""
+        dt = torch_dtype(self.cfg)
+        lins = (self.q, self.k, self.v)
+        if not self.use_fused_qkv:
+            return tuple(dense(yd, lin, dt) for lin in lins)
+        w = torch.cat([lin.weight.t() for lin in lins], dim=1).to(dt)
+        bias = torch.cat([lin.bias for lin in lins]).to(dt)
+        qkv = torch.matmul(yd.to(dt), w) + bias
+        return qkv.split(yd.shape[-1], dim=-1)
+
     def _attention(self, yd: torch.Tensor,
                    pad_mask: Optional[torch.Tensor]) -> torch.Tensor:
-        """Attention over the projected heads.  Plain, as the JAX
-        ``_xla_attention``: f32 scores, −1e9 on padded keys, f32 softmax,
-        probabilities rounded to the compute dtype, f32 output.  With
+        """Attention over the projected heads (:meth:`project_qkv`).  Plain,
+        as the JAX ``_xla_attention``: f32 scores, −1e9 on padded keys, f32
+        softmax, probabilities rounded to the compute dtype, f32 output.  With
         ``use_flash_attn``: q, k, v go to ``flash_attention`` in the compute
         dtype with one key length per clip (frame pads are a suffix, so a
         count is a complete mask) and the output comes back in that dtype."""
@@ -165,11 +184,8 @@ class EncoderLayer(nn.Module):
         b, t, d = yd.shape
         h = cfg.num_heads
         hd = d // h
-
-        def proj(lin):
-            return dense(yd, lin, dt).reshape(b, t, h, hd).transpose(1, 2)
-
-        q, k, v = proj(self.q), proj(self.k), proj(self.v)
+        q, k, v = (y.reshape(b, t, h, hd).transpose(1, 2)
+                   for y in self.project_qkv(yd))
         if self.use_flash_attn:
             key_lens = None if pad_mask is None else (~pad_mask).sum(1)
             out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
@@ -200,11 +216,14 @@ class Wav2Vec2Encoder(nn.Module):
 
     def __init__(self, cfg: Wav2Vec2Config, *, device: torch.device | str,
                  use_kernels: bool = True,
-                 use_flash_attn: Optional[bool] = None, mega: bool = True):
+                 use_flash_attn: Optional[bool] = None, mega: bool = True,
+                 use_fused_qkv: bool = False):
         """``use_flash_attn=None`` follows ``use_kernels``, as the JAX
         encoder's follows ``use_pallas``; an explicit False keeps the conv and
-        FFN kernels while attention stays plain.  On a CUDA device a config
-        the chosen kernels do not take is refused here (:func:`kernel_limits`)."""
+        FFN kernels while attention stays plain.  ``use_fused_qkv`` computes
+        every layer's q, k and v in one product (:class:`EncoderLayer`).  On a
+        CUDA device a config the chosen kernels do not take is refused here
+        (:func:`kernel_limits`)."""
         super().__init__()
         self.cfg = cfg
         flash = use_kernels if use_flash_attn is None else use_flash_attn
@@ -218,7 +237,7 @@ class Wav2Vec2Encoder(nn.Module):
         self.pos_conv = PosConvEmbed(cfg, device=device)
         self.layers = nn.ModuleList(
             EncoderLayer(cfg, device=device, use_kernels=use_kernels,
-                         use_flash_attn=flash)
+                         use_flash_attn=flash, use_fused_qkv=use_fused_qkv)
             for _ in range(cfg.num_layers))
         self.final_norm = LayerNorm(cfg.hidden_dim, device=device)
 
@@ -246,12 +265,14 @@ class Wav2Vec2Encoder(nn.Module):
 def init_wav2vec2(cfg: Wav2Vec2Config, *, device: torch.device | str,
                   use_kernels: bool = True,
                   use_flash_attn: Optional[bool] = None,
-                  mega: bool = True) -> Wav2Vec2Encoder:
+                  mega: bool = True,
+                  use_fused_qkv: bool = False) -> Wav2Vec2Encoder:
     """The JAX package's seeded Wav2Vec2, ``AudioEmbedder(cfg)``'s params for
     ``cfg.param_seed``, drawn on ``device`` without JAX
     (:mod:`~mmer_tpu_torch.models.jax_init`)."""
     model = Wav2Vec2Encoder(cfg, device=device, use_kernels=use_kernels,
-                            use_flash_attn=use_flash_attn, mega=mega)
+                            use_flash_attn=use_flash_attn, mega=mega,
+                            use_fused_qkv=use_fused_qkv)
     model.load_state_dict(wav2vec2_from_flax(
         jax_init.wav2vec2_tree(cfg, device=device)))
     return model.eval()
@@ -278,7 +299,8 @@ class AudioEmbedder:
     encoder on its ``mega`` route, as in the JAX ``AudioEmbedder``; which
     attention route is faster on the card is recorded in PERF.md, not decided
     here.  ``use_flash_attn=True, mega=False`` builds the all-kernel encoder
-    (varlen flash attention, per-layer conv route).
+    (varlen flash attention, per-layer conv route).  ``use_fused_qkv``
+    (default off, as in JAX) computes q, k and v in one product a layer.
 
     ``mesh`` (``core/mesh.py``, every rank constructing the embedder alike):
     the padded batch is rounded up to a multiple of the data axis, each rank
@@ -295,12 +317,14 @@ class AudioEmbedder:
                  params_path: Optional[str] = None,
                  use_kernels: bool = True,
                  use_flash_attn: bool = False, mega: bool = True,
+                 use_fused_qkv: bool = False,
                  mesh: Optional[Mesh] = None):
         self.cfg = cfg or Wav2Vec2Config()
         self.device = torch.device(device)
         self.mesh = active_mesh(mesh, self.device)
         kw = dict(device=self.device, use_kernels=use_kernels,
-                  use_flash_attn=use_flash_attn, mega=mega)
+                  use_flash_attn=use_flash_attn, mega=mega,
+                  use_fused_qkv=use_fused_qkv)
         self.model = load_or_save_params(
             lambda: Wav2Vec2Encoder(self.cfg, **kw),
             lambda: init_wav2vec2(self.cfg, **kw), params, params_path,

@@ -34,7 +34,8 @@ import os
 
 import numpy as np
 
-from mmer_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
+from mmer_tpu_torch.config import ModelConfig, TrainConfig
+from mmer_tpu_torch.scripts.quality import add_data_args, load
 
 RECIPES = [
     ("winning", {}, {}),
@@ -59,23 +60,16 @@ def main(argv=None) -> dict:
     parser.add_argument("--distill_alpha", type=float, default=0.5)
     parser.add_argument("--distill_temp", type=float, default=1.0)
     parser.add_argument("--out_dir", default="artifacts/flagship")
-    parser.add_argument("--video_feat_dir", default=DataConfig.video_feat_dir)
-    parser.add_argument("--audio_feat_dir", default=DataConfig.audio_feat_dir)
-    parser.add_argument("--device", default="cuda",
-                        help="cuda (default; raises without a GPU) or cpu")
+    add_data_args(parser)
     args = parser.parse_args(argv)
 
-    from mmer_tpu_torch.data.pipeline import load_dataset
     from mmer_tpu_torch.models.convert import fusion_to_flax
-    from mmer_tpu_torch.scripts.timing import resolve_device
     from mmer_tpu_torch.train.checkpoint import save_params_msgpack
     from mmer_tpu_torch.train.distill import teacher_soft_targets
     from mmer_tpu_torch.train.ensemble import ensemble_eval
     from mmer_tpu_torch.train.fused import train_many_seeds
 
-    device = resolve_device(args.device)
-    data, splits = load_dataset(DataConfig(video_feat_dir=args.video_feat_dir,
-                                           audio_feat_dir=args.audio_feat_dir))
+    device, data, splits = load(args)
     base_m = dict(max_seq_len=data.max_chunks + 1,
                   fusion_dropout=0.2, classifier_dropout=0.2)
     base_t = dict(num_epochs=args.epochs, lr=1e-5, weight_decay=5e-3,

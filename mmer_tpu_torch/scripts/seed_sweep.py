@@ -24,7 +24,8 @@ import os
 
 import numpy as np
 
-from mmer_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
+from mmer_tpu_torch.config import ModelConfig, TrainConfig
+from mmer_tpu_torch.scripts.quality import add_data_args, load
 
 
 def main(argv=None) -> dict:
@@ -50,19 +51,12 @@ def main(argv=None) -> dict:
                         help="also score the greedy (val-blend F1) "
                              "member selection over all seeds "
                              "(train/ensemble.py greedy_ensemble_eval)")
-    parser.add_argument("--video_feat_dir", default=DataConfig.video_feat_dir)
-    parser.add_argument("--audio_feat_dir", default=DataConfig.audio_feat_dir)
-    parser.add_argument("--device", default="cuda",
-                        help="cuda (default; raises without a GPU) or cpu")
+    add_data_args(parser)
     args = parser.parse_args(argv)
 
-    from mmer_tpu_torch.data.pipeline import load_dataset
-    from mmer_tpu_torch.scripts.timing import resolve_device
     from mmer_tpu_torch.train.fused import train_many_seeds
 
-    device = resolve_device(args.device)
-    data, splits = load_dataset(DataConfig(video_feat_dir=args.video_feat_dir,
-                                           audio_feat_dir=args.audio_feat_dir))
+    device, data, splits = load(args)
     if args.ref_recipe:
         model_cfg = ModelConfig(max_seq_len=data.max_chunks + 1)
         train_cfg = TrainConfig(num_epochs=args.epochs, lr=1e-5,

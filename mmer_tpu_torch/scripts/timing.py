@@ -14,6 +14,9 @@ PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 # Timed passes over the pre-staged inputs (after one warm-up pass).
 ROUNDS = 3
+# Distinct pre-staged inputs a leg of the component probes cycles over (one
+# in a ``--tiny`` rehearsal).
+INPUTS = 3
 
 
 def resolve_device(name: str) -> torch.device:
@@ -95,6 +98,39 @@ def timed_ms(fn: Callable, inputs: Sequence[tuple], device: torch.device,
         return (time.perf_counter() - t0) * 1e3 / (rounds * len(inputs))
     with torch.cuda.device(device):
         return event_ms(one_pass, rounds, warmup=0) / len(inputs)
+
+
+def bound_ms(flops: float, nbytes: float) -> tuple:
+    """(the least ms the card could take for ``flops`` operations and
+    ``nbytes`` bytes, at the bf16 peak and the memory rate; "operations" or
+    "bytes", whichever bounds it)."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def device_randn(shape, dtype: torch.dtype, device: torch.device, seed: int,
+                 n: int) -> list:
+    """``n`` unit-normal tensors of ``shape``, drawn on ``device`` from seeds
+    ``seed``, ``seed + 1``, ..."""
+    gen = torch.Generator(device=device)
+    out = []
+    for i in range(n):
+        gen.manual_seed(seed + i)
+        out.append(torch.randn(shape, generator=gen, device=device, dtype=dtype))
+    return out
+
+
+def timed_row(name: str, fn: Callable, inputs: Sequence[tuple], flops: float,
+              device: torch.device, **extra) -> dict:
+    """:func:`rate_row` of :func:`timed_ms` over ``inputs``, with ``calls``:
+    the calls of ``fn`` it made (a warm-up pass and ``ROUNDS`` timed ones)."""
+    ms = timed_ms(fn, inputs, device)
+    return {**rate_row(name, ms, flops, device, **extra),
+            "calls": (1 + ROUNDS) * len(inputs)}
 
 
 def device_events(prof) -> list:

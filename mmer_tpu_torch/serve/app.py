@@ -139,8 +139,12 @@ def _query_bool(q: Dict, key: str, default: bool = False) -> bool:
 
 
 def make_handler(engine: InferenceEngine,
-                 max_upload_bytes: int = DEFAULT_MAX_UPLOAD_BYTES):
+                 max_upload_bytes: int = DEFAULT_MAX_UPLOAD_BYTES,
+                 extra_static: Optional[Dict[str, Tuple[str, str]]] = None):
+    """The request handler class; ``extra_static`` maps further GET paths
+    to (file, content type), beside the frontend's."""
     lock = threading.Lock()
+    static_routes = {**STATIC_ROUTES, **(extra_static or {})}
 
     class Handler(BaseHTTPRequestHandler):
         server_version = "mmer_tpu_torch/0.1"
@@ -186,8 +190,8 @@ def make_handler(engine: InferenceEngine,
                 self._send_json(200, {"message": "pong"})
             elif path == "/health":
                 self._send_json(200, {"status": "ok"})
-            elif path in STATIC_ROUTES:
-                self._send_file(*STATIC_ROUTES[path])
+            elif path in static_routes:
+                self._send_file(*static_routes[path])
             else:
                 self._send_json(404, {"detail": "Not Found"})
 
@@ -274,11 +278,13 @@ def make_handler(engine: InferenceEngine,
 
 
 def serve(engine: InferenceEngine, host: str = "0.0.0.0", port: int = 8000,
-          max_upload_bytes: int = DEFAULT_MAX_UPLOAD_BYTES
+          max_upload_bytes: int = DEFAULT_MAX_UPLOAD_BYTES,
+          extra_static: Optional[Dict[str, Tuple[str, str]]] = None
           ) -> ThreadingHTTPServer:
     """Start the API server (blocking; returns the server once shut down)."""
     httpd = ThreadingHTTPServer((host, port),
-                                make_handler(engine, max_upload_bytes))
+                                make_handler(engine, max_upload_bytes,
+                                             extra_static))
     print(f"mmer_tpu_torch API listening on {host}:{port} "
           f"(device {engine.device})", flush=True)
     try:
