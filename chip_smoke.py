@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's clip, extraction, probe, training and data-prep
-paths on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's clip, extraction, probe, int8, training and
+data-prep paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -129,6 +129,25 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    script's calls imply, both kernel conv routes within the conv bound of the
    plain route, each A/B's two variants within ``EMBED_REL_L2`` a clip, the
    pipelined rows bit-identical to the serial ones.
+6c. int8 path (``ops/quant.py``, ``csrc/qdot.cu``: the port's own kernel,
+   not a TPU one; XLA compiles JAX's int8 ``dot_general`` and the quantize
+   around it): ``row_quant``, ``qdot_int8`` and ``qdot_u8`` against their
+   plain versions at every GEMM shape of the two int8 forwards
+   (``INT8_CASES``: ViViT-B at B = 16, Wav2Vec2-large at 64 x 4 s, each with
+   the input dtype the model feeds it, the tubelet projection on uint8
+   pixels), bit for bit and the same bits on a second call; each GEMM's
+   and ``row_quant``'s device time (torch.profiler), the call's, the plain
+   version's, ``torch._int_mm`` with the dequantize in PyTorch (the
+   library's), bf16 ``torch.matmul`` at the shape, and the bound at the int8
+   peak.  Then ``scripts.probe_int8``, ``probe_int8_vivit`` and
+   ``probe_int8_w2v2`` through their ``main`` at full width, three distinct
+   inputs a leg: exact launches (a ViViT forward 1 ``qdot_u8``, 48
+   ``qdot_int8``, 48 ``row_quant``, 12 attention; a Wav2Vec2 forward 97
+   ``qdot_int8``, 97 ``row_quant``, 7 conv; no FFN kernel), cosine at least
+   ``INT8_COS_MIN`` to the bf16 route every chunk and clip, the kernel routes
+   within ``INT8_ROUTE_REL_L2`` of the plain routes and the plain-attention
+   ViViT leg bit-identical to its plain route; every leg's ms, rate and
+   speedup logged.  No other phase launches an int8 kernel.
 7. training: 8,496 seeded samples written as ``.npy`` feature artifacts
    under CREMA-D / RAVDESS names → ``mmer_tpu_torch.train.cli.main`` at
    ``ModelConfig()`` width for ``TRAIN_EPOCHS`` epochs at batch 64 on JAX's
@@ -202,8 +221,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 The second-to-last line is ``{"kernels": [...]}`` (``launches_scale_out``:
 the mesh runs' launches; ``launches_prep_chain``: phase 10's;
 ``launches_component_probes``: phase 6b's; ``threefry``'s launches are the
-training phase's, its ``launches_training`` also phase 8b's); the last line
-is ``{"ok": true, "device": {...}}``.
+training phase's, its ``launches_training`` also phase 8b's; the int8
+kernels' are phase 6c's, with one key a case: ``ms_<case>``, ...), after a
+line ``{"int8_probes": ...}`` with the three probes' legs; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -376,13 +397,15 @@ def wrappers() -> dict:
     from mmer_tpu_torch.ops.flash_attention import (flash_attention,
                                                     flash_attention_varlen)
     from mmer_tpu_torch.ops.fused_blocks import fused_ffn, fused_ln_matmul
+    from mmer_tpu_torch.ops.quant import qdot_int8, qdot_u8, row_quant
 
     return {"flash_attention": flash_attention, "fused_ffn": fused_ffn,
             "fused_ln_matmul": fused_ln_matmul,
             "fused_conv_encoder": conv_pyramid.fused_conv_encoder,
             "flash_attention_varlen": flash_attention_varlen,
             "conv_gemm_ln_gelu": conv_pyramid._call_gemm,
-            "conv_k3_ln_gelu": conv_pyramid._call_k3}
+            "conv_k3_ln_gelu": conv_pyramid._call_k3,
+            "row_quant": row_quant, "qdot_int8": qdot_int8, "qdot_u8": qdot_u8}
 
 
 def reset_launches() -> None:
@@ -1424,6 +1447,256 @@ def run_component_probes() -> dict:
     return total
 
 
+# Phase 6c: the int8 path (csrc/qdot.cu, the port's own kernel: JAX lets XLA
+# compile its int8 dot_general and the quantize around it, no Pallas kernel).
+INT8_SOURCES = {
+    "row_quant": "mmer_tpu/ops/quant.py:36 (qdot's dynamic per-row quantize, "
+                 "which XLA compiles; not a Pallas kernel)",
+    "qdot_int8": "mmer_tpu/ops/quant.py:39 (qdot's int8 dot_general and "
+                 "dequantize, which XLA compiles; not a Pallas kernel)",
+    "qdot_u8": "mmer_tpu/ops/quant.py:52 (qdot_u8's int8 dot_general and "
+               "dequantize, which XLA compiles; not a Pallas kernel)",
+}
+# (tag, rows, K, N, input dtype, bias): every GEMM of the two int8 forwards
+# with the input each is fed, ViViT-B at B = 16 (1,569 tokens a chunk) and
+# Wav2Vec2-large at 64 clips of 4 s (199 frames); u8 is the tubelet
+# projection (1,568 tubelets a chunk).
+INT8_CASES = (
+    ("_vivit_qkv", 16 * 1569, 768, 2304, "float32", False),
+    ("_vivit_out", 16 * 1569, 768, 768, "bfloat16", False),
+    ("_vivit_ffn_in", 16 * 1569, 768, 3072, "float32", True),
+    ("_vivit_ffn_out", 16 * 1569, 3072, 768, "float32", False),
+    ("_w2v2_proj", 64 * 199, 512, 1024, "float32", True),
+    ("_w2v2_qkv", 64 * 199, 1024, 3072, "float32", True),
+    ("_w2v2_out", 64 * 199, 1024, 1024, "float32", False),
+    ("_w2v2_ffn_in", 64 * 199, 1024, 4096, "float32", True),
+    ("_w2v2_ffn_out", 64 * 199, 4096, 1024, "float32", False),
+    ("_vivit_tubelets", 16 * 1568, 1536, 768, "uint8", True),
+)
+# row_quant's work a value: an absolute value and a max, a division and a
+# rounding, on the CUDA cores: 67e12 float32 operations a second counts a
+# fused multiply-add as two, so 33.5e12 instructions.
+ROW_QUANT_OPS = 3
+F32_INSTR_PER_S = 67e12 / 2
+# The int8 forwards' kernel route against their plain route on the card, a
+# chunk or a clip (rel-L2).  The int8 products are bit-equal to their plain
+# versions (the ViViT leg with plain attention must equal the plain route bit
+# for bit), so only attention (ViViT) and the conv encoder (Wav2Vec2) differ,
+# each within its own bound; but the next row quantization turns a flipped
+# bf16 rounding into a whole int8 step, and over the layers the two routes'
+# rounding noise decorrelates: they may sit up to sqrt(2) times an int8
+# forward's own distance from the bf16 route apart (~2 % for the ViViT, JAX's
+# own figure; on an H100 the ViViT routes read 1.43e-2, Wav2Vec2's 5.0e-3).
+INT8_ROUTE_REL_L2 = 0.03
+INT8_COS_MIN = 0.999
+
+
+def check_int8_kernels(dev) -> dict:
+    """``row_quant``, ``qdot_int8`` and ``qdot_u8`` against their plain
+    versions at every GEMM shape of the int8 forwards: the same bits, the
+    same bits on a second call; the kernels' device times (torch.profiler),
+    the plain versions', ``torch._int_mm`` with the dequantize as the
+    library's, bf16 ``torch.matmul`` at the shape, and the bounds."""
+    import torch
+
+    from mmer_tpu_torch.ops import quant
+    from mmer_tpu_torch.scripts.probe_int8 import library_qdot
+    from mmer_tpu_torch.scripts.timing import (PEAK_BYTES, PEAK_INT8_OPS,
+                                               bound_ms, kernel_device_ms,
+                                               tensor_bytes)
+
+    g = torch.Generator(device=dev)
+    res = {"row_quant": {}, "qdot_int8": {}, "qdot_u8": {}}
+    for i, (tag, m, k, n, dtype, has_bias) in enumerate(INT8_CASES):
+        g.manual_seed(2000 + i)
+        w = torch.randn(k, n, generator=g, device=dev) * k ** -0.5
+        wq, ws = quant.quantize_weight(w)
+        bias = torch.randn(n, generator=g, device=dev) * 0.1 if has_bias else None
+        shape = f"({m}, {k}) {dtype} x ({k}, {n})" + (" + bias" if has_bias else "")
+        w16 = w.to(torch.bfloat16)
+        if dtype == "uint8":
+            x = torch.randint(0, 256, (m, k), generator=g, device=dev,
+                              dtype=torch.uint8)
+            corr = quant.u8_correction(wq)
+            x8 = (x.to(torch.int16) - 128).to(torch.int8)
+            denom = torch.tensor(255.0, device=dev)
+
+            def call():
+                return quant.qdot_u8(x, wq, ws, corr, bias=bias)
+
+            def plain():
+                return quant.qdot_u8_reference(x, wq, ws, corr, bias=bias)
+
+            def library():
+                return (torch._int_mm(x8, wq) + corr).float() * ws / denom
+
+            gemm_bytes = tensor_bytes(x, wq, ws, corr) + 4 * m * n
+            bf16_in = x.to(torch.bfloat16)
+        else:
+            x = torch.randn(m, k, generator=g, device=dev).to(getattr(torch, dtype))
+
+            def call():
+                return quant.qdot(x, wq, ws, bias)
+
+            def plain():
+                return quant.qdot_reference(x, wq, ws, bias)
+
+            xq, xs = quant.row_quant(x)
+            xq_ref, xs_ref = quant.row_quant_reference(x)
+            torch.cuda.synchronize()
+            same_rows = torch.equal(xq, xq_ref) and torch.equal(xs, xs_ref)
+            rq_again = quant.row_quant(x)
+            if not (same_rows and torch.equal(xq, rq_again[0])
+                    and torch.equal(xs, rq_again[1])):
+                raise AssertionError(f"row_quant{tag}: the kernel disagrees "
+                                     "with its plain version or with itself")
+
+            def library():
+                return library_qdot(xq, xs, wq, ws)
+
+            gemm_bytes = tensor_bytes(xq, xs, wq, ws) + 4 * m * n
+            bf16_in = x.to(torch.bfloat16)
+        if bias is not None:
+            gemm_bytes += tensor_bytes(bias)
+        got = call()
+        want = plain()
+        torch.cuda.synchronize()
+        same, again = torch.equal(got, want), torch.equal(got, call())
+        err = float((got - want).abs().max())
+        row = "qdot_u8" if dtype == "uint8" else "qdot_int8"
+        gemm_ms = kernel_device_ms(call, "int8_gemm_kernel", iters=10,
+                                   per_call=1)[0]
+        t_gemm, by_gemm = bound_ms(2.0 * m * k * n, gemm_bytes, PEAK_INT8_OPS)
+        r = {f"max_abs_err{tag}": err, f"ms{tag}": gemm_ms,
+             f"call_ms{tag}": cuda_ms(call, 10),
+             f"plain_ms{tag}": cuda_ms(plain, 3, warmup=1),
+             f"library_ms{tag}": cuda_ms(library, 10),
+             f"bf16_matmul_ms{tag}": cuda_ms(lambda: torch.matmul(bf16_in, w16), 10),
+             f"bound_ms{tag}": t_gemm, f"bound_by{tag}": by_gemm,
+             f"shape{tag}": shape}
+        line = (f"kernel {row}{tag} {shape}: {'bit-equal' if same else 'DIFFERENT'}"
+                f" to the plain version (max |diff| {err:.3e}), "
+                f"{'the same bits' if again else 'OTHER BITS'} on a second call; "
+                f"GEMM {gemm_ms:.4f} ms (device), the call {r[f'call_ms{tag}']:.4f}"
+                f" ms, plain {r[f'plain_ms{tag}']:.4f} ms, _int_mm + dequantize "
+                f"{r[f'library_ms{tag}']:.4f} ms, bf16 matmul "
+                f"{r[f'bf16_matmul_ms{tag}']:.4f} ms, bound {t_gemm:.4f} ms by {by_gemm}")
+        if dtype != "uint8":
+            rq_ms = kernel_device_ms(call, "row_quant_kernel", iters=10,
+                                     per_call=1)[0]
+            rq_bytes = tensor_bytes(x, xq, xs)
+            t_ops = m * k * ROW_QUANT_OPS / F32_INSTR_PER_S * 1e3
+            t_bytes = rq_bytes / PEAK_BYTES * 1e3
+            res["row_quant"].update({
+                f"max_abs_err{tag}": 0.0, f"ms{tag}": rq_ms,
+                f"plain_ms{tag}": cuda_ms(lambda: quant.row_quant_reference(x),
+                                          3, warmup=1),
+                f"library_ms{tag}": None,
+                f"bound_ms{tag}": max(t_ops, t_bytes),
+                f"bound_by{tag}": "operations" if t_ops >= t_bytes else "bytes",
+                f"shape{tag}": f"({m}, {k}) {dtype}"})
+            line += (f"; row_quant {rq_ms:.4f} ms (device), plain "
+                     f"{res['row_quant'][f'plain_ms{tag}']:.4f} ms, bound "
+                     f"{max(t_ops, t_bytes):.4f} ms, bit-equal")
+            del xq, xs, xq_ref, xs_ref, rq_again
+        log(line)
+        if not (same and again):
+            raise AssertionError(f"{row}{tag}: the kernel disagrees with its "
+                                 "plain version or with itself")
+        res[row].update(r)
+        del x, got, want
+        torch.cuda.synchronize()
+    # Each row's untagged numbers are its first case's.
+    for r in res.values():
+        first = next(key for key in r if key.startswith("ms_"))[len("ms"):]
+        r.update({key: r[f"{key}{first}"] for key in
+                  ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                   "bound_by")})
+    return res
+
+
+def run_int8_path(dev) -> dict:
+    """Phase 6c: the int8 kernels at every GEMM shape of the int8 forwards
+    (:func:`check_int8_kernels`), then ``scripts.probe_int8``,
+    ``probe_int8_vivit`` and ``probe_int8_w2v2`` through their ``main`` at full
+    width with exact launches; the int8 ViViT and Wav2Vec2 within
+    ``INT8_COS_MIN`` of the bf16 route a chunk / clip and their kernel routes
+    within ``INT8_ROUTE_REL_L2`` of their plain routes.  Returns the kernels'
+    line fields and the probes' launches."""
+    from mmer_tpu_torch.config import ViViTConfig, Wav2Vec2Config
+    from mmer_tpu_torch.scripts import probe_int8, probe_int8_vivit, probe_int8_w2v2
+    from mmer_tpu_torch.scripts.timing import INPUTS
+
+    t_phase = time.perf_counter()
+    kernels = check_int8_kernels(dev)
+    depth, wcfg = ViViTConfig().depth, Wav2Vec2Config()
+    layers, convs = wcfg.num_layers, len(wcfg.conv_dims)
+    gemms_v, gemms_w = 4 * depth, 4 * layers + 1
+    int8_vivit = {"qdot_u8": 1, "qdot_int8": gemms_v, "row_quant": gemms_v}
+    per_call = {
+        "probe_int8": lambda row: {
+            "int8_kernel": {"qdot_int8": 1},
+            "int8_dynamic": {"qdot_int8": 1, "row_quant": 1}}.get(row["leg"], {}),
+        "probe_int8_vivit": lambda row: {
+            "bf16": {"flash_attention": depth, "fused_ffn": depth},
+            "int8-flash": {**int8_vivit, "flash_attention": depth},
+            "int8-plain-attn": int8_vivit}[row["name"]],
+        "probe_int8_w2v2": lambda row: {
+            "bf16": {"fused_conv_encoder": convs, "fused_ffn": layers},
+            "int8": {"fused_conv_encoder": convs, "qdot_int8": gemms_w,
+                     "row_quant": gemms_w}}[row["name"]]}
+    total, results = {k: 0 for k in read_launches()}, {}
+    for script in (probe_int8, probe_int8_vivit, probe_int8_w2v2):
+        name = script.__name__.rsplit(".", 1)[1]
+        reset_launches()
+        t0 = time.perf_counter()
+        rows = script.main([])
+        wall = time.perf_counter() - t0
+        got = read_launches()
+        want = {k: 0 for k in got}
+        for row in rows:
+            for k, n in per_call[name](row).items():
+                want[k] += row["calls"] * n
+        if name == "probe_int8":
+            # Each shape's rows are quantized once before the legs.
+            want["row_quant"] += INPUTS * len(probe_int8.SHAPES)
+        log(f"int8 path: {name}: {wall:.2f} s wall; launches "
+            f"{ {k: v for k, v in got.items() if v} }, expected "
+            f"{ {k: v for k, v in want.items() if v} }")
+        for row in rows:
+            if not (row["ms"] > 0 and row["device"] != "cpu"):
+                raise AssertionError(f"{name}: row {row} is not a time on the card")
+        if got != want:
+            raise AssertionError(f"{name} did not launch the kernels as expected")
+        for k, v in got.items():
+            total[k] += v
+        results[name] = rows
+    probes = {}
+    for name in ("probe_int8_vivit", "probe_int8_w2v2"):
+        base = results[name][0]
+        for row in results[name][1:]:
+            unit = "chunks" if "chunks_per_s" in row else "clips"
+            log(f"int8 path: {name} {row['name']}: {row['ms']:.3f} ms "
+                f"({row[f'{unit}_per_s']:.1f} {unit}/s) against {base['name']} "
+                f"{base['ms']:.3f} ms ({base[f'{unit}_per_s']:.1f} {unit}/s): "
+                f"{row['speedup']:.3f}x; cosine {row['cos_min']:.6f}.."
+                f"{row['cos_max']:.6f} (limit {INT8_COS_MIN}), rel-L2 mean "
+                f"{row['rel_l2_mean']:.4e}; the plain route {row['plain_route_rel_l2']:.3e}"
+                f" (limit {0.0 if row['name'] == 'int8-plain-attn' else INT8_ROUTE_REL_L2})")
+            limit = 0.0 if row["name"] == "int8-plain-attn" else INT8_ROUTE_REL_L2
+            if not (row["finite"] and row["cos_min"] >= INT8_COS_MIN
+                    and row["plain_route_rel_l2"] <= limit):
+                raise AssertionError(f"{name} {row['name']}: outside its bounds")
+            probes[f"{name}/{row['name']}"] = {
+                k: row[k] for k in ("ms", f"{unit}_per_s", "speedup", "cos_min",
+                                    "rel_l2_mean", "plain_route_rel_l2")}
+        probes[f"{name}/{base['name']}"] = {k: base[k] for k in ("ms", f"{unit}_per_s")}
+    log(f"int8 path: phase {time.perf_counter() - t_phase:.2f} s wall; launches "
+        f"{ {k: v for k, v in total.items() if v} }")
+    return {"kernels": kernels, "launches": total, "probes": probes,
+            "gemm_rates": {f"{r['name']}": r["tops"] for r in results["probe_int8"]}}
+
+
 def _make_feature_folders(video_dir: str, audio_dir: str, rng,
                           signal: float = CLASS_SIGNAL) -> int:
     """Feature artifacts of CLASS_COUNTS samples per class from a seed:
@@ -1851,6 +2124,7 @@ def main() -> int:
     extraction = run_extraction(dev)
     profile = run_profile_scripts()
     probes = run_component_probes()
+    int8 = run_int8_path(dev)
     # The training phase's feature folders, read again by the quality scripts
     # and the scale-out phase.
     features = tempfile.TemporaryDirectory(prefix="mmer_smoke_features_")
@@ -1884,6 +2158,21 @@ def main() -> int:
          "launches_prep_chain": prep_chain[name],
          **{k: v for k, v in r.items() if not k.startswith("shape")}}
         for name, r in kernels.items()]
+    # The int8 kernels: launches of phase 6c's probes (no other path reaches
+    # them; every other phase's count of them is 0).
+    lines += [
+        {"name": name, "route": "cuda", "source": "mmer_tpu_torch/csrc/qdot.cu",
+         "replaces": INT8_SOURCES[name], "launches": int8["launches"][name],
+         "launches_serving": serving[name],
+         "launches_serving_file_path": file_path["launches"][name],
+         "launches_extraction_cli": extraction["cli"][name],
+         "launches_extraction_all_kernel": extraction["all_kernel"][name],
+         "launches_profile_scripts": profile[name],
+         "launches_component_probes": probes[name],
+         "launches_scale_out": scale_out[name],
+         "launches_prep_chain": prep_chain[name],
+         **{k: v for k, v in r.items() if not k.startswith("shape")}}
+        for name, r in int8["kernels"].items()]
     lines.append({"name": "threefry", "route": "cuda",
                   "source": "mmer_tpu_torch/csrc/threefry.cu",
                   "replaces": "mmer_tpu/train/loop.py:204 (jax.random's threefry "
@@ -1893,12 +2182,17 @@ def main() -> int:
                   "launches_component_probes": probes["threefry"],
                   **{k: v for k, v in stream.items()}})
     idle = [k["name"] for k in lines if k["launches"] < 1]
-    if idle or len(lines) != len(SOURCES) + 1:
+    if idle or len(lines) != len(SOURCES) + len(INT8_SOURCES) + 1:
         raise AssertionError(f"kernels never launched on a main path: {idle}")
     idle = [k for k in ("flash_attention", "fused_ffn", "fused_conv_encoder")
             if prep_chain[k] < 1]
     if idle:
         raise AssertionError(f"the prep chain never launched {idle}")
+    routed = [k["name"] for k in lines if k["name"] in INT8_SOURCES
+              and any(v for f, v in k.items() if f.startswith("launches_"))]
+    if routed:
+        raise AssertionError(f"a path other than the int8 probes launched {routed}")
+    log(json.dumps({"int8_probes": int8["probes"], "int8_gemm_tops": int8["gemm_rates"]}))
     log(json.dumps({"kernels": lines}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

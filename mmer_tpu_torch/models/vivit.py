@@ -53,18 +53,22 @@ class TubeletEmbed(nn.Module):
                               cfg.dim, device=device)
 
     def forward(self, video: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
-        dt = torch_dtype(cfg)
-        b, f, hh, ww, c = video.shape
-        t = cfg.tubelet_size
-        ph, pw = cfg.patch_size
-        ft, hp, wp = f // t, hh // ph, ww // pw
+        dt = torch_dtype(self.cfg)
         # Rounding to the compute dtype first is the same elementwise cast the
         # JAX module applies after its transpose, at half the bytes moved.
-        x = video.to(dt).reshape(b, ft, t, hp, ph, wp, pw, c)
-        x = x.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(b, ft * hp * wp,
-                                                      t * ph * pw * c)
-        return dense(x, self.proj, dt)
+        return dense(tubelets(video.to(dt), self.cfg), self.proj, dt)
+
+
+def tubelets(video: torch.Tensor, cfg: ViViTConfig) -> torch.Tensor:
+    """(B, F, H, W, C) → (B, N, t·ph·pw·C) in video's dtype: tokens in
+    (t', h', w') order, each tubelet flattened as (t, ph, pw, C)."""
+    b, f, hh, ww, c = video.shape
+    t = cfg.tubelet_size
+    ph, pw = cfg.patch_size
+    ft, hp, wp = f // t, hh // ph, ww // pw
+    x = video.reshape(b, ft, t, hp, ph, wp, pw, c)
+    return x.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(b, ft * hp * wp,
+                                                     t * ph * pw * c)
 
 
 class PreNormBlock(nn.Module):

@@ -99,9 +99,14 @@ class ConvFeatureEncoder(nn.Module):
         self.convs = nn.ModuleList(convs)
         self.norms = nn.ModuleList(norms)
 
-    def forward(self, wave: torch.Tensor) -> torch.Tensor:
-        args = ([c.weight for c in self.convs], [c.bias for c in self.convs],
+    def conv_params(self) -> tuple:
+        """(conv weights, conv biases, LN weights, LN biases), the argument
+        lists of ``fused_conv_encoder`` and ``conv_encoder_reference``."""
+        return ([c.weight for c in self.convs], [c.bias for c in self.convs],
                 [n.weight for n in self.norms], [n.bias for n in self.norms])
+
+    def forward(self, wave: torch.Tensor) -> torch.Tensor:
+        args = self.conv_params()
         if not self.use_kernels:
             return conv_encoder_reference(wave, *args, self.cfg)
         return fused_conv_encoder(wave, *args, self.cfg, mega=self.mega)
@@ -278,6 +283,15 @@ def init_wav2vec2(cfg: Wav2Vec2Config, *, device: torch.device | str,
     return model.eval()
 
 
+def pool_embeddings(hidden: torch.Tensor, frame_mask: torch.Tensor
+                    ) -> torch.Tensor:
+    """Per-frame hidden states (B, T, d) and their frame pad mask → the
+    L2-normalised mean of each row's unpadded frames, (B, d)."""
+    keep = (~frame_mask).unsqueeze(-1).to(hidden.dtype)
+    emb = (hidden * keep).sum(1) / keep.sum(1).clamp_min(1.0)
+    return emb / emb.norm(dim=1, keepdim=True).clamp_min(1e-12)
+
+
 class AudioEmbedder:
     """Batched waveforms → L2-normalised (hidden_dim,) embeddings.
 
@@ -363,10 +377,7 @@ class AudioEmbedder:
         """Padded waveforms and their frame pad mask, on the device → the
         L2-normalised length-masked mean of the encoder's output, per row
         (the JAX embedder's ``apply_pool``)."""
-        hidden = self.model(waves, frame_mask)
-        keep = (~frame_mask).unsqueeze(-1).to(hidden.dtype)
-        emb = (hidden * keep).sum(1) / keep.sum(1).clamp_min(1.0)
-        return emb / emb.norm(dim=1, keepdim=True).clamp_min(1e-12)
+        return pool_embeddings(self.model(waves, frame_mask), frame_mask)
 
     def embed_batch(self, waveforms: Sequence[np.ndarray]) -> np.ndarray:
         """list of 1-D float waveforms (16 kHz) → (B, hidden_dim) float32."""

@@ -710,3 +710,101 @@ def test_threefry_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         prng.launch_threefry(table, [(0, 1)] * 17, 0, 8, out)
     with pytest.raises(ValueError):
         prng.DrawPlan([prng.Draw((), (4,), "mask", 0.9, torch.float16)], cuda)
+
+
+# -- the int8 products (csrc/qdot.cu) -----------------------------------------
+
+def _quant_rows(dev, m, k, dtype, seed):
+    """Unit-normal rows with an all-zero row and a row of exact .5 quotients
+    (absmax 127, so the scale is 1 and x / xs is x itself)."""
+    x = torch.randn(m, k, generator=_gen(dev, seed), device=dev) * 3
+    if m > 2:
+        x[1] = 0
+        x[2] = torch.arange(k, device=dev) % 254 - 126.5
+        x[2, 0] = 127
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k", [(1, 8), (3, 64), (37, 768), (300, 3072),
+                                 (2, 4096)])
+def test_row_quant_kernel_equals_plain(cuda, dtype, m, k):
+    from mmer_tpu_torch.ops.quant import row_quant, row_quant_reference
+
+    x = _quant_rows(cuda, m, k, dtype, m + k)
+    n0 = row_quant.launches
+    q, s = row_quant(x)
+    assert row_quant.launches == n0 + 1
+    q_ref, s_ref = row_quant_reference(x)
+    torch.cuda.synchronize()
+    assert q.dtype == torch.int8 and s.shape == (m, 1)
+    assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+    q2, s2 = row_quant(x)
+    assert torch.equal(q, q2) and torch.equal(s, s2)
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (1, 64, 8, torch.float32), (127, 192, 136, torch.bfloat16),
+    (129, 768, 2304, torch.float32), (300, 3072, 768, torch.bfloat16),
+    (257, 4096, 1024, torch.float32)])
+def test_int8_gemm_kernel_equals_plain(cuda, bias, m, k, n, dtype):
+    from mmer_tpu_torch.ops.quant import (qdot, qdot_int8, qdot_reference,
+                                          quantize_weight)
+
+    g = _gen(cuda, m + n)
+    x = _quant_rows(cuda, m, k, dtype, m)
+    wq, ws = quantize_weight(torch.randn(k, n, generator=g, device=cuda))
+    b = torch.randn(n, generator=g, device=cuda) if bias else None
+    n0 = qdot_int8.launches
+    got = qdot(x.reshape(1, m, k), wq, ws, b)
+    assert qdot_int8.launches == n0 + 1
+    want = qdot_reference(x.reshape(1, m, k), wq, ws, b)
+    torch.cuda.synchronize()
+    assert got.shape == (1, m, n) and got.dtype == torch.float32
+    assert torch.equal(got, want)
+    assert torch.equal(got, qdot(x.reshape(1, m, k), wq, ws, b))
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("m,k,n", [(1, 64, 8), (130, 192, 24), (300, 1536, 768)])
+def test_int8_gemm_u8_kernel_equals_plain(cuda, bias, m, k, n):
+    from mmer_tpu_torch.ops.quant import (qdot_u8, qdot_u8_reference,
+                                          quantize_weight, u8_correction)
+
+    g = _gen(cuda, m + k)
+    x = torch.randint(0, 256, (m, k), generator=g, device=cuda).to(torch.uint8)
+    x[0, :4] = torch.tensor([0, 127, 128, 255], dtype=torch.uint8)
+    wq, ws = quantize_weight(torch.randn(k, n, generator=g, device=cuda))
+    corr = u8_correction(wq)
+    b = torch.randn(n, generator=g, device=cuda) if bias else None
+    n0 = qdot_u8.launches
+    got = qdot_u8(x, wq, ws, corr, bias=b)
+    assert qdot_u8.launches == n0 + 1
+    want = qdot_u8_reference(x, wq, ws, corr, bias=b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, qdot_u8(x, wq, ws, corr, bias=b))
+
+
+def test_int8_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from mmer_tpu_torch.ops.quant import (qdot, qdot_u8, quantize_weight,
+                                          row_quant, u8_correction)
+
+    x = torch.randn(4, 96, device=cuda)
+    wq, ws = quantize_weight(torch.randn(96, 16, device=cuda))
+    with pytest.raises(ValueError, match="multiple of 64"):
+        qdot(x, wq, ws)
+    x = torch.randn(4, 64, device=cuda)
+    wq, ws = quantize_weight(torch.randn(64, 16, device=cuda))
+    with pytest.raises(ValueError, match="K-contiguous"):
+        qdot(x, wq.contiguous(), ws)
+    with pytest.raises(TypeError):
+        row_quant(x.half())
+    with pytest.raises(ValueError):
+        qdot(x, wq.cpu().t().contiguous().t(), ws.cpu())
+    with pytest.raises(ValueError):
+        qdot_u8(x.to(torch.uint8), wq, ws, u8_correction(wq).long())
+    wq12, ws12 = quantize_weight(torch.randn(64, 12, device=cuda))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        qdot(x, wq12, ws12)
