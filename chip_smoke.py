@@ -133,9 +133,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    not a TPU one; XLA compiles JAX's int8 ``dot_general`` and the quantize
    around it): ``row_quant``, ``qdot_int8`` and ``qdot_u8`` against their
    plain versions at every GEMM shape of the two int8 forwards
-   (``INT8_CASES``: ViViT-B at B = 16, Wav2Vec2-large at 64 x 4 s, each with
-   the input dtype the model feeds it, the tubelet projection on uint8
-   pixels), bit for bit and the same bits on a second call; each GEMM's
+   (``probe_int8.MODEL_GEMMS``: ViViT-B at B = 16, Wav2Vec2-large at 64 x 4
+   s, each with the input dtype the model feeds it, the tubelet projection
+   on uint8 pixels, 3,072 deep), bit for bit and the same bits on a second call; each GEMM's
    and ``row_quant``'s device time (torch.profiler), the call's, the plain
    version's, ``torch._int_mm`` with the dequantize in PyTorch (the
    library's), bf16 ``torch.matmul`` at the shape, and the bound at the int8
@@ -1181,7 +1181,8 @@ def _threefry_case(dev, tag: str, draws, lanes, keys, step) -> dict:
     t_ops = plan.total * THREEFRY_OPS_PER_WORD / INT32_OPS_PER_S * 1e3
     t_bytes = out_bytes / PEAK_BYTES * 1e3
     log(f"threefry {tag}: {plan.total} words ({out_bytes / 1e6:.3f} MB) in "
-        f"{len(plan.table)} segments: {'bit-equal' if same else 'DIFFERENT'} to "
+        f"{len(plan.table)} segments, {len(plan.work)} work ranges: "
+        f"{'bit-equal' if same else 'DIFFERENT'} to "
         f"the plain version, {'the same bits' if again else 'OTHER BITS'} on a "
         f"second call; kernel {ms:.4f} ms (device; the call {call_ms:.4f} ms), "
         f"plain {plain_ms:.4f} ms, bound "
@@ -1457,22 +1458,6 @@ INT8_SOURCES = {
     "qdot_u8": "mmer_tpu/ops/quant.py:52 (qdot_u8's int8 dot_general and "
                "dequantize, which XLA compiles; not a Pallas kernel)",
 }
-# (tag, rows, K, N, input dtype, bias): every GEMM of the two int8 forwards
-# with the input each is fed, ViViT-B at B = 16 (1,569 tokens a chunk) and
-# Wav2Vec2-large at 64 clips of 4 s (199 frames); u8 is the tubelet
-# projection (1,568 tubelets a chunk).
-INT8_CASES = (
-    ("_vivit_qkv", 16 * 1569, 768, 2304, "float32", False),
-    ("_vivit_out", 16 * 1569, 768, 768, "bfloat16", False),
-    ("_vivit_ffn_in", 16 * 1569, 768, 3072, "float32", True),
-    ("_vivit_ffn_out", 16 * 1569, 3072, 768, "float32", False),
-    ("_w2v2_proj", 64 * 199, 512, 1024, "float32", True),
-    ("_w2v2_qkv", 64 * 199, 1024, 3072, "float32", True),
-    ("_w2v2_out", 64 * 199, 1024, 1024, "float32", False),
-    ("_w2v2_ffn_in", 64 * 199, 1024, 4096, "float32", True),
-    ("_w2v2_ffn_out", 64 * 199, 4096, 1024, "float32", False),
-    ("_vivit_tubelets", 16 * 1568, 1536, 768, "uint8", True),
-)
 # row_quant's work a value: an absolute value and a max, a division and a
 # rounding, on the CUDA cores: 67e12 float32 operations a second counts a
 # fused multiply-add as two, so 33.5e12 instructions.
@@ -1500,14 +1485,14 @@ def check_int8_kernels(dev) -> dict:
     import torch
 
     from mmer_tpu_torch.ops import quant
-    from mmer_tpu_torch.scripts.probe_int8 import library_qdot
+    from mmer_tpu_torch.scripts.probe_int8 import MODEL_GEMMS, library_qdot
     from mmer_tpu_torch.scripts.timing import (PEAK_BYTES, PEAK_INT8_OPS,
                                                bound_ms, kernel_device_ms,
                                                tensor_bytes)
 
     g = torch.Generator(device=dev)
     res = {"row_quant": {}, "qdot_int8": {}, "qdot_u8": {}}
-    for i, (tag, m, k, n, dtype, has_bias) in enumerate(INT8_CASES):
+    for i, (tag, m, k, n, dtype, has_bias) in enumerate(MODEL_GEMMS):
         g.manual_seed(2000 + i)
         w = torch.randn(k, n, generator=g, device=dev) * k ** -0.5
         wq, ws = quant.quantize_weight(w)

@@ -9,7 +9,10 @@ field to the originals.
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass
+from typing import Any
 
 import torch
 
@@ -175,3 +178,11 @@ class Wav2Vec2Config:
     chunk_duration_s: float = 10.0  # voice_extractor.py:20
     param_seed: int = 1
     compute_dtype: str = "bfloat16"
+
+
+def asdict(cfg: Any) -> dict:
+    return dataclasses.asdict(cfg)
+
+
+def to_json(cfg: Any) -> str:
+    return json.dumps(dataclasses.asdict(cfg), indent=2, default=str)

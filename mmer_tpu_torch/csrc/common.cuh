@@ -129,6 +129,19 @@ __device__ __forceinline__ void ln_tile_bf16_sw128(const XT* x, const float* ln_
   }
 }
 
+// The current device's SM count (0 if the runtime cannot say), asked once:
+// the persistent kernels size their grids by it.
+inline int sm_count() {
+  static int count = 0;
+  if (!count) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      count = 0;
+  }
+  return count;
+}
+
 }  // namespace mmer
 
 #define MMER_EXPORT extern "C" __attribute__((visibility("default")))

@@ -10,7 +10,12 @@ and back, tensor for tensor and bit for bit:
   the config the weights imply);
 - ``state_dict_from_params``: the port's state dict → reference names,
   loadable with ``load_state_dict(strict=True)`` into the reference model;
-- ``load_pth`` / ``save_pth``: the file-level wrappers.
+- ``load_pth`` / ``save_pth``: the file-level wrappers;
+- ``main``: the converter CLI, reference ``.pth`` ⇄ flax ``.msgpack`` (the
+  JAX package's checkpoint format), through the port's own msgpack codec:
+
+      python3 -m mmer_tpu_torch.models.port_fusion ref.pth out.msgpack [--heads 8]
+      python3 -m mmer_tpu_torch.models.port_fusion ours.msgpack out.pth
 
 The checkpoint decides the shape: every hyperparameter the weights
 determine is read off the tensors (``infer_model_config``), and a config
@@ -22,8 +27,9 @@ Only the v2 LayerNorm model converts; v1 BatchNorm keys raise.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,7 +38,7 @@ from mmer_tpu_torch.config import ModelConfig
 
 __all__ = ["infer_model_config", "params_from_state_dict",
            "state_dict_from_params", "is_reference_state_dict", "load_pth",
-           "save_pth"]
+           "save_pth", "config_from_tree", "main"]
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -206,3 +212,56 @@ def save_pth(path: str, params: Mapping[str, torch.Tensor],
              cfg: ModelConfig) -> None:
     """Write the port's fusion state dict as a reference-loadable ``.pth``."""
     torch.save(state_dict_from_params(params, cfg), path)
+
+
+def config_from_tree(tree: Mapping[str, Any],
+                     heads: Optional[int] = None) -> ModelConfig:
+    """The config a flax fusion params tree's shapes imply (``heads``, which
+    the shapes do not fix, defaults to 8)."""
+    p = tree.get("params", tree)
+    fusion, cls = p["fusion"], p["classifier"]
+    return ModelConfig(
+        video_dim=int(fusion["video_proj"]["kernel"].shape[0]),
+        audio_dim=int(fusion["audio_proj"]["kernel"].shape[0]),
+        fused_dim=int(fusion["video_proj"]["kernel"].shape[1]),
+        num_classes=int(cls["out"]["kernel"].shape[1]),
+        max_seq_len=int(fusion["pos_embed"].shape[1]),
+        fusion_layers=sum(1 for k in fusion if k.startswith("layer_")),
+        fusion_ffn_dim=int(fusion["layer_0"]["ffn_in"]["kernel"].shape[1]),
+        classifier_hidden_dim=int(cls["hidden_0"]["kernel"].shape[1]),
+        **({"fusion_heads": heads} if heads else {}))
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    """Checkpoint converter CLI, ``mmer_tpu.models.port_fusion``'s:
+
+    python3 -m mmer_tpu_torch.models.port_fusion ref.pth out.msgpack [--heads 8]
+    python3 -m mmer_tpu_torch.models.port_fusion ours.msgpack out.pth
+
+    ``.pth`` → ``.msgpack`` infers the config from the weights; ``.msgpack``
+    → ``.pth`` reads it from the tree's shapes."""
+    from mmer_tpu_torch.models.convert import fusion_from_flax, fusion_to_flax
+    from mmer_tpu_torch.train.checkpoint import (load_params_msgpack,
+                                                 save_params_msgpack)
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("src")
+    parser.add_argument("dst")
+    parser.add_argument("--heads", type=int, default=None,
+                        help="fusion head count (not weight-determined; "
+                             "default 8, train2.py:252)")
+    args = parser.parse_args(argv)
+
+    if args.src.endswith(".pth"):
+        sd, cfg = load_pth(args.src, heads=args.heads)
+        save_params_msgpack(args.dst, fusion_to_flax(sd, cfg.fusion_heads))
+        print(f"{args.src} → {args.dst}  (inferred config: {cfg})")
+    else:
+        tree = load_params_msgpack(args.src)
+        cfg = config_from_tree(tree, args.heads)
+        save_pth(args.dst, fusion_from_flax(tree), cfg)
+        print(f"{args.src} → {args.dst}  (config from tree: {cfg})")
+
+
+if __name__ == "__main__":
+    main()

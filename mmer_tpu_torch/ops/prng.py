@@ -32,16 +32,19 @@ from threefry2x32 keys.  This module computes them as jax 0.9 does with
 transforms of a step in one launch: a :class:`DrawPlan` is a table, built
 once a run, of draws (a chain of fold-in words after the step's key, an
 element count, and what to write: bits, a sort key, a uniform, or a keep
-mask as 0 / 1 in the dtype its site applies it in); :meth:`DrawPlan.draw`
-gives it the lanes' keys and the step, which the kernel folds in itself.
+mask as 0 / 1 in the dtype its site applies it in), and beside it a work
+list that cuts each draw into ranges the kernel's blocks take
+(:func:`work_list`); :meth:`DrawPlan.draw` gives it the lanes' keys and the
+step, which the kernel folds in itself.
 On a CPU tensor the plan runs its plain version (:meth:`DrawPlan.draw_plain`,
 the int64 code above); on a CUDA tensor only the kernel runs, and a refused
 launch raises.  :func:`random_bits` on a CUDA index goes through the same
 kernel.
 
-Threefry is counter-based and elementwise: a thread an output word, the
-20 rounds in registers, one store.  The kernel's bound on this card is its
-integer operations (about 90 a word), not its bytes; see PERF.md.
+Threefry is counter-based and elementwise: a thread four consecutive output
+words, the 20 rounds in registers, one vector store.  The kernel's bound on
+this card is its integer operations (about 76 a word), not its bytes; see
+PERF.md.
 """
 
 from __future__ import annotations
@@ -478,6 +481,30 @@ MAX_LANES = 16         # keys of one launch
 MAX_SEGMENTS = 128     # (draw, lane) pairs of one launch
 _FIELDS = 16           # int64 words a segment of the table takes
 ALIGN = 16             # byte alignment of each output
+VEC = 4                # consecutive words a thread of the kernel writes
+ITEM = 1024            # elements of a work range at most: 256 threads x VEC
+
+
+def work_list(counts: Sequence[int], offsets: Sequence[int],
+              sizes: Sequence[int]) -> np.ndarray:
+    """The kernel's work list for segments of ``counts`` elements of
+    ``sizes`` bytes whose outputs start ``offsets`` bytes into the output:
+    int64 rows ``(begin, segment | count << 32)``, in segment order, each a
+    range of at most :data:`ITEM` elements inside one segment.  A segment's
+    first range ends where its output reaches a multiple of ``VEC``
+    elements, so that every later range starts aligned for the kernel's
+    vector stores."""
+    parts = []
+    for seg, (n, off, size) in enumerate(zip(counts, offsets, sizes)):
+        if not n:
+            continue
+        head = min(n, -(off // size) % VEC)
+        begins = np.arange(head, n, ITEM, dtype=np.int64)
+        if head:
+            begins = np.concatenate([np.zeros(1, np.int64), begins])
+        ends = np.append(begins[1:], n)
+        parts.append(np.stack([begins, seg + ((ends - begins) << 32)], axis=1))
+    return np.concatenate(parts) if parts else np.zeros((0, 2), np.int64)
 
 
 def _kind(d: Draw) -> int:
@@ -540,8 +567,14 @@ class DrawPlan:
             raise ValueError(f"DrawPlan: at most {MAX_SEGMENTS} draws x lanes "
                              f"a launch, got {len(rows)}")
         self.total, self.nbytes = start, offset
-        self.table = torch.tensor(rows, dtype=torch.int64).reshape(
-            -1, _FIELDS).to(self.device)
+        table = np.array(rows, dtype=np.int64).reshape(-1, _FIELDS)
+        work = work_list(table[:, 1], table[:, 3],
+                         [2 if k == KINDS["mask_bf16"] else 4 for k in table[:, 4]])
+        # One copy to the device: the table, then the work list.
+        buf = torch.from_numpy(np.concatenate([table.ravel(), work.ravel()])
+                               ).to(self.device)
+        self.table = buf[:table.size].view(-1, _FIELDS)
+        self.work = buf[table.size:].view(-1, 2)
 
     def _views(self, out: torch.Tensor) -> List[torch.Tensor]:
         res = []
@@ -570,7 +603,7 @@ class DrawPlan:
             raise ValueError(f"DrawPlan: no kernel for device {self.device}")
         out = torch.empty(self.nbytes, dtype=torch.uint8, device=self.device)
         if self.total:
-            launch_threefry(self.table, keys, step, self.total, out)
+            launch_threefry(self.table, keys, step, self.work, out)
         return self._views(out)
 
     def draw_plain(self, keys: Sequence[Key], step: Optional[int] = None
@@ -609,18 +642,22 @@ def random_bits_plain(key: Key, index: torch.Tensor) -> torch.Tensor:
     return y0 ^ y1
 
 
-# mmer_threefry(table, n_seg, keys, n_keys, fold_step, step, total, out, stream)
+# mmer_threefry(table, n_seg, work, n_work, keys, n_keys, fold_step, step, out,
+#               stream)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_int, ctypes.c_uint32, ctypes.c_longlong, ctypes.c_void_p,
-             ctypes.c_void_p]
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint32,
+             ctypes.c_void_p, ctypes.c_void_p]
 
 
 def launch_threefry(table: torch.Tensor, keys: Sequence[Key],
-                    step: Optional[int], total: int, out: torch.Tensor) -> None:
+                    step: Optional[int], work: torch.Tensor,
+                    out: torch.Tensor) -> None:
     """One launch of ``csrc/threefry.cu``: ``table`` (int64, ``(segments,
     16)``, on the card) says what to draw, ``keys`` (host words, one a lane)
-    from which keys, ``step`` (or None) is folded into each key first, and
-    ``out`` (uint8 on the card) receives ``total`` elements."""
+    from which keys, ``step`` (or None) is folded into each key first,
+    ``work`` (int64 ``(ranges, 2)`` on the card, :func:`work_list` of the
+    table) cuts it into the kernel's ranges, and ``out`` (uint8 on the card)
+    receives the elements."""
     if not (table.is_cuda and out.is_cuda and table.dtype == torch.int64
             and out.dtype == torch.uint8 and table.is_contiguous()
             and table.dim() == 2 and table.shape[1] == _FIELDS):
@@ -629,10 +666,17 @@ def launch_threefry(table: torch.Tensor, keys: Sequence[Key],
     if not 1 <= table.shape[0] <= MAX_SEGMENTS or not 1 <= len(keys) <= MAX_LANES:
         raise ValueError(f"launch_threefry: 1 to {MAX_SEGMENTS} segments and 1 "
                          f"to {MAX_LANES} keys")
+    if not (isinstance(work, torch.Tensor) and work.device == table.device
+            and work.dtype == torch.int64 and work.is_contiguous()
+            and work.dim() == 2 and work.shape[1] == 2
+            and 1 <= work.shape[0] < 2 ** 31):
+        raise ValueError("launch_threefry: the work list is an int64 (ranges, 2) "
+                         "tensor beside the table")
     words = (ctypes.c_uint32 * (2 * len(keys)))(*[w & MASK for k in keys for w in k])
     _build.call("threefry", "mmer_threefry", _ARGTYPES,
-                _build.ptr(table), table.shape[0], ctypes.cast(words, ctypes.c_void_p),
-                len(keys), int(step is not None), (step or 0) & MASK, total,
+                _build.ptr(table), table.shape[0], _build.ptr(work), work.shape[0],
+                ctypes.cast(words, ctypes.c_void_p), len(keys),
+                int(step is not None), (step or 0) & MASK,
                 _build.ptr(out), _build.stream_ptr(out.device))
     launch_threefry.launches += 1
 

@@ -24,12 +24,14 @@ the call sites where JAX adds a bias straight to the product.
 **The kernel** (``csrc/qdot.cu``) is the port's own: JAX lets XLA compile an
 int8 ``dot_general`` with the quantize and dequantize around it, which is
 not a Pallas kernel.  ``row_quant`` computes a row's absmax, scale and int8
-row; ``int8_gemm`` runs the product on the tensor cores (``mma.sync``
-m16n8k32, s8 × s8 → s32) with the dequantize (and the bias) in its
-epilogue, and shifts uint8 pixels to int8 as it loads them.  The kernel reads
-the weight K-contiguous: :func:`quantize_weight` returns the (K, N) table as
-the transposed view of an (N, K) buffer, so that the kernel's operand is
-made once, when the weights are quantized, and never on a call.
+row from one read of the row; ``int8_gemm`` runs the product on the tensor
+cores (``wgmma`` m64n256k32, s8 × s8 → s32, a persistent grid of 128 × 256
+tiles) with the dequantize (and the bias) in its epilogue, and shifts uint8
+pixels to int8 in shared memory before the tensor cores read them.  The
+kernel reads the weight K-contiguous: :func:`quantize_weight` returns the
+(K, N) table as the transposed view of an (N, K) buffer, so that the
+kernel's operand is made once, when the weights are quantized, and never on
+a call.
 
 On a CPU tensor each public function runs its plain version
 (:func:`row_quant_reference`, :func:`qdot_int8_reference`,
@@ -50,12 +52,12 @@ from mmer_tpu_torch.ops import _build
 
 W_FLOOR = 1e-12      # the weight scale's floor (float32)
 X_FLOOR = 1e-8       # the row scale's floor, in the row's dtype
-K_TILE = 64          # K bytes a stage of csrc/qdot.cu's GEMM
-N_ALIGN = 8          # the GEMM stores column pairs of an n8 tile
+K_TILE = 64          # K a multiple of this (the GEMM zero-fills its last 128-byte step)
+N_ALIGN = 8          # the GEMM's epilogue takes column pairs of an n8 group
 # |x8| <= 128 and |wq| <= 127: with corr, |acc + corr| <= 2 * 128 * 127 * K,
 # which stays inside int32 up to this depth.
 K_MAX = 65536
-M_MAX = 65535 * 128  # rows: 128-row tiles on the grid's second axis
+M_MAX = 65535 * 128  # rows: the GEMM counts its tiles and K steps in int32
 
 
 def qdot_limits(k: int, n: int) -> str | None:

@@ -92,9 +92,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     common = ["--batch_size", "16", "--num_epochs", "40", "--lr", "1e-4",
               "--output_dir", os.path.join(root, "runs"),
-              "--device", args.device]
+              "--device", args.device, "--fused"]
     if args.hbm:
-        print("[2-4/4] raw-media route: extract on the device -> train, no npy")
+        print("[2-4/4] raw-media route: extract on the device -> fused "
+              "train, no npy")
         out = train_main(common + [
             "--raw_videos", os.path.join(root, "videos"),
             "--raw_audio", os.path.join(root, "audio")])
@@ -107,7 +108,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         extract_audio_folder(os.path.join(root, "audio"),
                              os.path.join(root, "audio_features"),
                              verbose=False, device=args.device)
-        print("[4/4] training on the extracted artifacts")
+        print("[4/4] fused training on the extracted artifacts")
         out = train_main(common + [
             "--video_feat_dir", os.path.join(root, "video_features"),
             "--audio_feat_dir", os.path.join(root, "audio_features")])

@@ -415,17 +415,18 @@ def run_chain(clips: Iterable[Clip], probes: Sequence[Clip], workdir: str,
         f"{embed_s:.2f} s; the raw-media arrays ({rd.num_samples} samples, "
         f"max_chunks {rd.max_chunks}) equal load_dataset's of the .npy files")
 
-    # 5: training.
+    # 5: fused training: the JAX script trains with --fused, and a run from
+    # seed s draws what the JAX run from seed s draws only with the same flag.
     t0 = time.perf_counter()
     out = train_main([
         "--batch_size", "16", "--num_epochs", str(epochs), "--lr", "1e-4",
         "--video_feat_dir", dirs["video_features"],
         "--audio_feat_dir", dirs["audio_features"],
-        "--output_dir", dirs["runs"], "--device", str(device)])
+        "--output_dir", dirs["runs"], "--device", str(device), "--fused"])
     sync()
     result = ChainResult(track, track_s, crop_s, crop_worst, len(keys),
                          embed_s, out.results, time.perf_counter() - t0)
-    log(f"      trained {len(out.results)} epochs in {result.train_s:.2f} s, "
+    log(f"      fused training: {len(out.results)} epochs in {result.train_s:.2f} s, "
         f"best test acc {result.best_acc:.1f}%")
 
     # 6: serving.  The trainer sizes max_seq_len to the dataset; the engine

@@ -36,11 +36,27 @@ from mmer_tpu_torch.scripts.timing import (INPUTS, PEAK_FLOPS, PEAK_INT8_OPS,
                                            ROUNDS, device_randn, resolve_device,
                                            timed_ms)
 
-# (tag, M, K, N): the JAX script's shapes.  Its patch leg is 3,072 deep; the
-# model's tubelet projection is 1,536 (chip_smoke.py phase 6c times that).
+# (tag, M, K, N): the JAX script's shapes.  Its patch leg is the model's
+# tubelet projection, 3 x 16 x 16 x 4 = 3,072 deep.
 SHAPES = (("ffn1", 25088, 768, 3072), ("ffn2", 25088, 3072, 768),
           ("qkv", 25088, 768, 2304), ("outp", 25088, 768, 768),
           ("patch", 16 * 1568, 3072, 768), ("w2v2-ffn1", 12736, 1024, 4096))
+# (tag, M, K, N, row dtype, bias): every GEMM of the two int8 forwards, ViViT-B
+# at B = 16 and Wav2Vec2-large at 64 x 4 s, with the rows each is fed (the
+# tubelet projection on uint8 pixels); chip_smoke.py phase 6c and
+# compare_builds.py time the kernels there.
+MODEL_GEMMS = (
+    ("_vivit_qkv", 16 * 1569, 768, 2304, "float32", False),
+    ("_vivit_out", 16 * 1569, 768, 768, "bfloat16", False),
+    ("_vivit_ffn_in", 16 * 1569, 768, 3072, "float32", True),
+    ("_vivit_ffn_out", 16 * 1569, 3072, 768, "float32", False),
+    ("_w2v2_proj", 64 * 199, 512, 1024, "float32", True),
+    ("_w2v2_qkv", 64 * 199, 1024, 3072, "float32", True),
+    ("_w2v2_out", 64 * 199, 1024, 1024, "float32", False),
+    ("_w2v2_ffn_in", 64 * 199, 1024, 4096, "float32", True),
+    ("_w2v2_ffn_out", 64 * 199, 4096, 1024, "float32", False),
+    ("_vivit_tubelets", 16 * 1568, 3072, 768, "uint8", True),
+)
 TINY_M = 128
 
 

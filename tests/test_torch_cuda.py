@@ -699,6 +699,30 @@ def test_threefry_kernel_bits_and_permutations(cuda, n):
                        prng.permutation(key, n, "cpu"))
 
 
+
+def test_threefry_kernel_tails_and_index_arrays(cuda):
+    """The vector stores' edges, bit for bit the plain version: three lanes
+    of draws of odd sizes (a bfloat16 mask of 15, a uniform of 5, sort keys
+    of 7: every lane after the first starts unaligned, every range ends on a
+    partial group), a draw of more than one work range, and index plans
+    with high counter words and odd counts."""
+    from mmer_tpu_torch.ops import prng
+
+    draws = ([prng.Draw((77,), (3, 5), "mask", 0.9, torch.bfloat16),
+              prng.Draw((78,), (1029,), "mask", 0.5, torch.float32),
+              prng.Draw((79,), (3, 7), "bits"),
+              prng.Draw((103,), (5,), "uniform")]
+             + prng.permutation_draws((102,), 7))
+    keys = [(11, 12), (13, 14), (15, 16)]
+    plan = prng.DrawPlan(draws, cuda, lanes=3)
+    for g, w in zip(plan.draw(keys, step=3), plan.draw_plain(keys, step=3)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    for n in (1, 3, 1027, 5 * 1024 + 3):
+        idx = torch.arange(n, device=cuda) * 5 + 2 ** 32 - 11
+        plan = prng.DrawPlan([prng.Draw((), (n,), "bits")], cuda, index=idx)
+        assert torch.equal(plan.draw([(7, 8)])[0], plan.draw_plain([(7, 8)])[0])
+
+
 def test_threefry_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     from mmer_tpu_torch.ops import prng
 
@@ -708,6 +732,8 @@ def test_threefry_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         prng.launch_threefry(table.cpu(), [(0, 1)], 0, 8, out)
     with pytest.raises(ValueError):
         prng.launch_threefry(table, [(0, 1)] * 17, 0, 8, out)
+    with pytest.raises(ValueError, match="work list"):
+        prng.launch_threefry(table, [(0, 1)], 0, table, out)
     with pytest.raises(ValueError):
         prng.DrawPlan([prng.Draw((), (4,), "mask", 0.9, torch.float16)], cuda)
 
@@ -727,7 +753,7 @@ def _quant_rows(dev, m, k, dtype, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k", [(1, 8), (3, 64), (37, 768), (300, 3072),
-                                 (2, 4096)])
+                                 (2, 4096), (5, 4104), (3, 8192)])
 def test_row_quant_kernel_equals_plain(cuda, dtype, m, k):
     from mmer_tpu_torch.ops.quant import row_quant, row_quant_reference
 
@@ -747,7 +773,13 @@ def test_row_quant_kernel_equals_plain(cuda, dtype, m, k):
 @pytest.mark.parametrize("m,k,n,dtype", [
     (1, 64, 8, torch.float32), (127, 192, 136, torch.bfloat16),
     (129, 768, 2304, torch.float32), (300, 3072, 768, torch.bfloat16),
-    (257, 4096, 1024, torch.float32)])
+    (257, 4096, 1024, torch.float32),
+    # Ragged tiles: M past a 128-row tile, N a multiple of 8 past a
+    # 256-column tile, at each K of the int8 forwards, both row dtypes;
+    # then more tiles than SMs (several tiles a block of the persistent grid).
+    (131, 768, 264, torch.bfloat16), (259, 3072, 776, torch.float32),
+    (130, 4096, 1032, torch.bfloat16), (4100, 768, 2304, torch.float32),
+    (9000, 1024, 1032, torch.bfloat16)])
 def test_int8_gemm_kernel_equals_plain(cuda, bias, m, k, n, dtype):
     from mmer_tpu_torch.ops.quant import (qdot, qdot_int8, qdot_reference,
                                           quantize_weight)
@@ -767,7 +799,8 @@ def test_int8_gemm_kernel_equals_plain(cuda, bias, m, k, n, dtype):
 
 
 @pytest.mark.parametrize("bias", [False, True])
-@pytest.mark.parametrize("m,k,n", [(1, 64, 8), (130, 192, 24), (300, 1536, 768)])
+@pytest.mark.parametrize("m,k,n", [(1, 64, 8), (130, 192, 24), (300, 1536, 768),
+                                   (131, 3072, 264), (4100, 3072, 776)])
 def test_int8_gemm_u8_kernel_equals_plain(cuda, bias, m, k, n):
     from mmer_tpu_torch.ops.quant import (qdot_u8, qdot_u8_reference,
                                           quantize_weight, u8_correction)

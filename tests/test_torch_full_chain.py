@@ -6,6 +6,8 @@ a CPU host, minutes in all).
 """
 
 import os
+import sys
+import types
 import wave
 
 import numpy as np
@@ -127,3 +129,111 @@ def test_full_chain_tiny_on_the_cpu(tmp_path):
     script's own thresholds (accuracy > 80 %, recovery >= 5/6)."""
     assert full_chain.main(["--tiny", "--device", "cpu", "--actors", "10",
                             "--root", str(tmp_path / "chain")]) == 0
+
+
+# -- the trainer's flags, against the JAX scripts' ------------------------------------
+
+class _TrainRecorder:
+    """A stand-in for ``train.cli.main``: records each argument list and
+    returns a run good enough for the scripts' own checks."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, argv):
+        self.calls.append(list(argv))
+        return types.SimpleNamespace(hyperparameters={"max_seq_len": 4},
+                                     results=[{"test_acc": 90.0}])
+
+
+def _flags(argv):
+    """An argument list as {flag: value}, paths cut to their last part and
+    the port's ``--device`` dropped."""
+    out, i = {}, 0
+    while i < len(argv):
+        if i + 1 < len(argv) and not argv[i + 1].startswith("--"):
+            out[argv[i]] = os.path.basename(argv[i + 1])
+            i += 2
+        else:
+            out[argv[i]] = True
+            i += 1
+    out.pop("--device", None)
+    return out
+
+
+@pytest.mark.parametrize("hbm", [False, True])
+def test_e2e_demo_trains_fused_as_the_jax_script(monkeypatch, tmp_path, hbm):
+    """Both routes of ``e2e_demo.main`` pass ``--fused`` (JAX's fused key
+    schedule: a run from seed s then draws what the JAX run draws) and the
+    JAX script's other flags, recorded through stubs of the trainer, the
+    extractors and the clip writer."""
+    import mmer_tpu.core.cache as jax_cache
+    import mmer_tpu.preprocess.extract as jax_extract
+    import mmer_tpu.train.cli as jax_cli
+    import scripts.e2e_demo as jax_e2e
+    from mmer_tpu_torch.preprocess import extract as port_extract
+    from mmer_tpu_torch.train import cli as port_cli
+
+    jax_rec, port_rec = _TrainRecorder(), _TrainRecorder()
+    for mod, rec in ((jax_cli, jax_rec), (port_cli, port_rec)):
+        monkeypatch.setattr(mod, "main", rec)
+    for mod in (jax_extract, port_extract):
+        for name in ("extract_video_folder", "extract_audio_folder"):
+            monkeypatch.setattr(mod, name, lambda *a, **k: None)
+    for mod in (jax_e2e, e2e_demo):
+        monkeypatch.setattr(mod, "generate_dataset", lambda root, actors: os.makedirs(root))
+    monkeypatch.setattr(jax_cache, "enable_persistent_cache", lambda *a, **k: None)
+    route = ["--hbm"] if hbm else []
+    monkeypatch.setattr(sys, "argv", ["e2e_demo", "--root", str(tmp_path / "j")]
+                        + route)
+    jax_e2e.main()
+    assert e2e_demo.main(["--root", str(tmp_path / "p"), "--device", "cpu"]
+                         + route) == 0
+    assert len(port_rec.calls) == len(jax_rec.calls) == 1
+    assert "--fused" in port_rec.calls[0]
+    assert _flags(port_rec.calls[0]) == _flags(jax_rec.calls[0])
+    assert ("--raw_videos" in port_rec.calls[0]) == hbm
+
+
+def test_run_chain_trains_fused(monkeypatch, tmp_path):
+    """``full_chain.run_chain`` step 5 passes ``--fused``, as
+    ``scripts/full_chain.py`` does: twelve small clips through stubbed boxes
+    (the host tracker costs ~33 ms a frame) and a fixed 8/2/2 split (the
+    80/10/10 one needs 60 clips), real crops and tiny extractors, up to the
+    trainer's recorded call."""
+    from mmer_tpu_torch.data import pipeline
+    from mmer_tpu_torch.preprocess import faces
+    from mmer_tpu_torch.train import cli as port_cli
+
+    class Stop(Exception):
+        pass
+
+    calls = []
+
+    def train_main(argv):
+        calls.append(list(argv))
+        raise Stop
+
+    def boxes(frames, detector=None, stats=None):
+        stats.frames += len(frames)
+        stats.full += len(frames)
+        return [(i, 8.0, 6.0, 40.0, 44.0, 0.9) for i in range(len(frames))]
+
+    monkeypatch.setattr(port_cli, "main", train_main)
+    monkeypatch.setattr(faces, "extract_frame_bboxes", boxes)
+    monkeypatch.setattr(faces, "HaarFaceDetector", lambda: None)
+    monkeypatch.setattr(pipeline, "stratified_splits", lambda labels, seed: (
+        np.arange(8), np.arange(8, 10), np.arange(10, 12)))
+    rng = np.random.default_rng(5)
+    clips = [full_chain.Clip(full_chain.clip_key(actor, ei), ei,
+                             rng.integers(0, 255, (n, 48, 64, 3), dtype=np.uint8),
+                             rng.normal(size=8000).astype(np.float32))
+             for actor in (1001, 1002)
+             for ei, n in enumerate((40, 70, 40, 70, 40, 70))]
+    vivit_cfg, wav_cfg = full_chain._tiny_configs()
+    with pytest.raises(Stop):
+        full_chain.run_chain(clips, [], str(tmp_path), "cpu",
+                             vivit_cfg=vivit_cfg, wav_cfg=wav_cfg, epochs=3,
+                             log=lambda s: None)
+    assert len(calls) == 1 and "--fused" in calls[0]
+    assert calls[0][calls[0].index("--num_epochs") + 1] == "3"

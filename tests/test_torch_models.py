@@ -114,6 +114,78 @@ def test_config_copy_matches_jax(name):
     assert ours.__dataclass_params__.frozen == theirs.__dataclass_params__.frozen
 
 
+
+@pytest.mark.parametrize("name", ["ModelConfig", "DataConfig", "TrainConfig",
+                                  "MeshConfig", "ViViTConfig", "Wav2Vec2Config"])
+def test_config_asdict_and_to_json_match_jax(name):
+    """``config.asdict`` / ``config.to_json`` of every config equal the JAX
+    package's on the same field values (the port's defaults, then with its
+    feature folders and output directory set: the port's default paths
+    differ from JAX's machine paths)."""
+    ours, theirs = getattr(port_config, name), getattr(jax_config, name)
+    paths = {f.name: f"/data/{f.name}" for f in dataclasses.fields(ours)
+             if f.name.endswith(("_dir", "_path"))}
+    for kw in ({}, paths):
+        cfg = ours(**kw)
+        jcfg = theirs(**port_config.asdict(cfg))
+        assert port_config.asdict(cfg) == jax_config.asdict(jcfg)
+        assert port_config.to_json(cfg) == jax_config.to_json(jcfg)
+
+
+@pytest.mark.parametrize("heads", [None, 2])
+def test_port_fusion_cli_matches_jax(tmp_path, capsys, heads):
+    """``python -m mmer_tpu_torch.models.port_fusion``: a reference-layout
+    ``.pth`` (tiny widths, values from a numpy seed) → the same ``.msgpack``
+    bytes and report as the JAX CLI's from the same file, leaf for leaf
+    equal; ``.msgpack`` → ``.pth`` gives the original state dict back, key
+    for key and bit for bit, with the JAX CLI's report; ``--heads`` shapes
+    the attention kernels."""
+    from flax import serialization
+
+    from mmer_tpu.models import port_fusion as jax_port_fusion
+    from mmer_tpu_torch.models import port_fusion
+
+    cfg = port_config.ModelConfig(**dict(FUSION_KW, fusion_heads=heads or 8))
+    rng = np.random.default_rng(11)
+    ours = {k: torch.from_numpy(rng.normal(size=v.shape).astype(np.float32))
+            for k, v in MultimodalEmotionModel(cfg, device=CPU).state_dict().items()}
+    ref = port_fusion.state_dict_from_params(ours, cfg)
+    src = str(tmp_path / "ref.pth")
+    torch.save(ref, src)
+    flag = [] if heads is None else ["--heads", str(heads)]
+
+    reports, trees = [], []
+    for tag, cli in (("jax", jax_port_fusion.main), ("port", port_fusion.main)):
+        dst = str(tmp_path / f"{tag}.msgpack")
+        cli([src, dst] + flag)
+        reports.append(capsys.readouterr().out.replace(dst, "DST"))
+        with open(dst, "rb") as f:
+            trees.append(f.read())
+    assert reports[0] == reports[1]
+    assert f"fusion_heads={heads or 8}" in reports[1]
+    assert trees[0] == trees[1]
+    want = serialization.msgpack_restore(trees[0])
+    got = serialization.msgpack_restore(trees[1])
+    assert jax.tree_util.tree_structure(got) == jax.tree_util.tree_structure(want)
+    for a, b in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(want)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    q = got["fusion"]["layer_0"]["self_attn"]["query"]["kernel"]
+    assert q.shape == (32, heads or 8, 32 // (heads or 8))
+
+    reports = []
+    for tag, cli in (("jax", jax_port_fusion.main), ("port", port_fusion.main)):
+        dst = str(tmp_path / f"{tag}.pth")
+        cli([str(tmp_path / "port.msgpack"), dst] + flag)
+        reports.append(capsys.readouterr().out.replace(dst, "DST"))
+    assert reports[0] == reports[1]
+    back = torch.load(str(tmp_path / "port.pth"), weights_only=True)
+    theirs = torch.load(str(tmp_path / "jax.pth"), weights_only=True)
+    assert list(back) == list(ref)
+    for k, v in ref.items():
+        assert back[k].dtype == torch.float32 and torch.equal(back[k], v), k
+        assert torch.equal(theirs[k], v), k
+
+
 def test_labels_and_batch_bucket_copies_match_jax():
     assert port_config.LABELS == jax_config.LABELS
     assert port_config.NUM_CLASSES == jax_config.NUM_CLASSES

@@ -291,6 +291,95 @@ def test_draw_plan_lanes_and_index():
         prng.DrawPlan(draws, CPU, lanes=3).draw(keys[:2])
 
 
+
+# -- the kernel's work list -------------------------------------------------------------
+
+def _step_draws(b, t=5):
+    """A training step's draws at ModelConfig() width and batch ``b``."""
+    return (dropout_draws(port_config.ModelConfig(), b, t)
+            + [prng.Draw((103,), (b,), "uniform")]
+            + prng.permutation_draws((102,), b))
+
+
+@pytest.mark.parametrize("case", ["step64", "step256", "lanes4", "permutation",
+                                  "index"])
+def test_work_list_covers_every_segment_once(case):
+    """``DrawPlan``'s work list at the training phase's plans: every element
+    of every segment in exactly one range, ranges in segment order, none
+    crossing a segment or longer than ``ITEM``, and every range but a
+    segment's first starting where the output is aligned for the kernel's
+    four-word stores (the first ends there, or at the segment's end)."""
+    n = 6796
+    plans = {
+        "step64": lambda: prng.DrawPlan(_step_draws(64), CPU),
+        "step256": lambda: prng.DrawPlan(_step_draws(256), CPU),
+        "lanes4": lambda: prng.DrawPlan(_step_draws(64), CPU, lanes=4),
+        "permutation": lambda: prng.DrawPlan(prng.permutation_draws((1,), n), CPU),
+        "index": lambda: prng.DrawPlan([prng.Draw((), (n,), "bits")], CPU,
+                                       index=torch.arange(n, dtype=torch.int64) * 3)}
+    plan = plans[case]()
+    table, work = plan.table.numpy(), plan.work.numpy()
+    begin, seg, count = work[:, 0], work[:, 1] & 0xFFFFFFFF, work[:, 1] >> 32
+    assert (np.diff(seg) >= 0).all() and (count >= 1).all()
+    assert (count <= prng.ITEM).all() and count.sum() == plan.total
+    for s, (lane, total, _, off, kind) in enumerate(table[:, :5]):
+        mine = seg == s
+        b, c = begin[mine], count[mine]
+        assert b[0] == 0 and (b[1:] == (b + c)[:-1]).all() and (b + c)[-1] == total
+        elt = 2 if kind == prng.KINDS["mask_bf16"] else 4
+        aligned = (off // elt + b) % prng.VEC == 0
+        assert aligned[1:].all()
+        assert aligned[0] or c[0] < prng.VEC and (len(b) == 1 or aligned[1])
+
+
+def _emulate(plan, keys, step):
+    """The kernel's writes, range by range from the work list, in numpy:
+    each range's bits at its counters, transformed as its segment's kind
+    says, stored at the segment's byte offset."""
+    out = np.zeros(plan.nbytes, np.uint8)
+    table = plan.table.numpy()
+    for begin, packed in plan.work.numpy():
+        lane, _, _, off, kind, keep, index, chain_len = table[packed & 0xFFFFFFFF, :8]
+        key = keys[lane] if step is None else prng.fold_in(keys[lane], step)
+        for w in table[packed & 0xFFFFFFFF, 8:8 + chain_len]:
+            key = prng.fold_in(key, int(w))
+        i = torch.arange(begin, begin + (packed >> 32))
+        bits = prng.random_bits_plain(key, plan.index[i] if index else i).numpy()
+        bits = bits.astype(np.uint32)
+        u = ((bits >> 9) | 0x3F800000).view(np.float32) - np.float32(1)
+        keep = np.array(keep, np.uint32).view(np.float32)
+        value = {0: bits, 1: bits ^ 0x80000000, 2: u.view(np.uint32),
+                 3: (u < keep).astype(np.float32).view(np.uint32),
+                 4: (u < keep).astype(np.float32).view(np.uint32) >> 16}[kind]
+        data = value.astype(np.uint16 if kind == 4 else np.uint32).view(np.uint8)
+        start = off + begin * (2 if kind == 4 else 4)
+        out[start:start + data.size] = data
+    return plan._views(torch.from_numpy(out))
+
+
+def test_work_list_ranges_write_the_plain_draws():
+    """Written range by range as the kernel writes them, the work list's
+    ranges give ``draw_plain``'s draws, bit for bit: three lanes of a narrow
+    step with draws of odd sizes (so lanes start unaligned: a bfloat16 mask
+    of 15, a uniform of 5, sort keys of 7) and one of more than ``ITEM``,
+    and an index plan with high counter words."""
+    cfg = port_config.ModelConfig(**NARROW)
+    draws = (dropout_draws(cfg, 3, 3)
+             + [prng.Draw((103,), (5,), "uniform"),
+                prng.Draw((77,), (3, 5), "mask", 0.9, torch.bfloat16),
+                prng.Draw((78, 5), (1029,), "mask", 0.5, torch.float32)]
+             + prng.permutation_draws((102,), 7))
+    keys = [(1, 2), (3, 4), (5, 6)]
+    plan = prng.DrawPlan(draws, CPU, lanes=3)
+    assert (plan.work.numpy()[:, 1] >> 32 < prng.VEC).sum() >= 4     # heads
+    for got, want in zip(_emulate(plan, keys, 9), plan.draw_plain(keys, 9)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    idx = torch.arange(2 ** 32 - 700, 2 ** 32 + 1300, 3, dtype=torch.int64)
+    plan = prng.DrawPlan([prng.Draw((), (idx.numel(),), "bits")], CPU, index=idx)
+    assert torch.equal(_emulate(plan, [(7, 8)], None)[0],
+                       plan.draw_plain([(7, 8)])[0])
+
+
 # -- the committed fixture of JAX's draws ----------------------------------------------
 
 def test_committed_fixture_matches_the_plain_draws():

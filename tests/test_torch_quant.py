@@ -160,6 +160,40 @@ def test_qdot_limits():
     assert "K <=" in quant.qdot_limits(2 * quant.K_MAX, 64)
 
 
+
+def _int8_tables(tree, out):
+    """The (K, N) shapes of a tree's int8 weight tables."""
+    items = tree.values() if isinstance(tree, dict) else tree
+    for v in items:
+        if isinstance(v, (dict, list)):
+            _int8_tables(v, out)
+        elif v.dtype == torch.int8:
+            out.append(tuple(v.shape))
+    return out
+
+
+def test_qdot_limits_admit_the_forwards_and_the_probe_shapes():
+    """Every GEMM of the two int8 forwards at the default widths (their
+    tables built on the meta device: a layer each, shapes only) and every
+    shape of ``probe_int8`` (JAX's six, ``scripts/probe_int8.py:95-103``)
+    pass ``qdot_limits``; a shape the kernel refuses is refused with its
+    limit named."""
+    vivit = ViViTFeatureExtractor(port_config.ViViTConfig(depth=1), device="meta",
+                                  use_kernels=False)
+    w2v2 = Wav2Vec2Encoder(port_config.Wav2Vec2Config(num_layers=1), device="meta",
+                           use_kernels=False)
+    shapes = (_int8_tables(quantize_vivit_params(vivit), [])
+              + _int8_tables(quantize_w2v2_params(w2v2), []))
+    assert len(shapes) == 10 and (3072, 768) in shapes and (512, 1024) in shapes
+    shapes += [(k, n) for _, _, k, n in probe_int8.SHAPES]
+    for k, n in shapes:
+        assert quant.qdot_limits(k, n) is None, (k, n)
+    for (k, n), limit in (((96, 64), "K a multiple of 64"),
+                          ((64, 12), "N a multiple of 8"),
+                          ((2 * quant.K_MAX, 64), "K <= 65536")):
+        assert limit in quant.qdot_limits(k, n)
+
+
 # -- the int8 tables ------------------------------------------------------------
 
 @pytest.fixture(scope="module")
