@@ -7,7 +7,11 @@ data-prep paths on one NVIDIA GPU.
 Phases, each of which ends the run with a non-zero exit if it fails:
 
 1. device: print the card's name and power limit (``nvidia-smi``); exit
-   non-zero when CUDA is unavailable -- there is no CPU fallback.
+   non-zero when CUDA is unavailable -- there is no CPU fallback.  Then a
+   fixed host workload (``host_reference``: a Python loop, a numpy copy,
+   the native cascade on the packaged face), logged, so that a slow phase
+   can be put down to the host or to the code; each phase's wall time is
+   logged at the end.
 2. build: compile every kernel under ``mmer_tpu_torch/csrc`` with nvcc.
 3. kernels: each of the eight kernels against its plain PyTorch version,
    both on the card, at the shapes the main paths give it (the serving
@@ -90,6 +94,18 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    within ``IG_RESIDUAL_TOL``; ``/ping``, ``/health``, ``/remux/`` (the bytes
    of ``flv_to_mp4``), 422 and 413 from the server.  Each request's warm
    latency is logged by stage.
+4c. cold start, in fresh processes (the kernels already built):
+   ``scripts.bench_serving --route frames`` with ``--no_warmup`` (the cold
+   first request), then with a warmup (``--warmup_resolutions 256x300``
+   and a decoded sample, ``--warmup_upload``), ``COLD_REQUESTS`` requests
+   a leg, then ``scripts.bench_extract``.  Gates: every process exits 0;
+   the warmed first request (``explain=true``) within
+   ``COLD_FIRST_FACTOR`` times the warm ``explain_p50_ms``; no kernel
+   library built after the warmup; the warmup launched ``flash_attention``,
+   ``fused_ffn`` and ``fused_conv_encoder``; the phase within
+   ``COLD_START_LIMIT_S``.  Logged: both first requests, the warmup's
+   phases, p50 / p95, the novel-resolution requests and bench_extract's
+   four numbers.
 5. extraction: 96 seeded WAV files (1.5-5 s, one 12 s, one 44.1 kHz stereo,
    one 10 ms) → ``mmer_tpu_torch.preprocess.extract.main`` → 96 float16
    (1024,) artifacts; the same folder through ``iter_audio_embeddings`` on
@@ -193,9 +209,10 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    its seed), rows and final weights bit-equal to the single-device run's,
    the run log's ``"mesh"`` ``{"data": 1, "model": 1}``, and the same mesh
    run cut after epoch 1 and resumed from its mid-run checkpoint, bit-equal
-   to the uninterrupted one; the native load of the pairs against numpy's (equal arrays, both timed); ``train_streaming``
-   over the same folders, every batch through the native loader, seconds an
-   epoch beside the in-memory trainer's; the scaling probe's JSON lines at
+   to the uninterrupted one; the native load of the pairs against numpy's
+   on every ``NUMPY_LOAD_STRIDE``-th pair (equal arrays, both timed);
+   ``train_streaming`` over the same folders, every batch through the
+   native loader, seconds an epoch beside the in-memory trainer's; the scaling probe's JSON lines at
    n = 1 and ``core.check``'s matmul rate; the phase within
    ``SCALE_OUT_LIMIT_S``.
 
@@ -220,6 +237,7 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 
 The second-to-last line is ``{"kernels": [...]}`` (``launches_scale_out``:
 the mesh runs' launches; ``launches_prep_chain``: phase 10's;
+``launches_cold_start_warmup``: phase 4c's warmup's, in its own process;
 ``launches_component_probes``: phase 6b's; ``threefry``'s launches are the
 training phase's, its ``launches_training`` also phase 8b's; the int8
 kernels' are phase 6c's, with one key a case: ``ms_<case>``, ...), after a
@@ -570,6 +588,28 @@ def three_call_ms(x_cf, weight, conv_bias, ln_w, ln_b, stride: int, iters: int) 
     return cuda_ms(layer, iters)
 
 
+def four_call_ms(x, ln_w, ln_b, w1, b1, w2, b2, iters: int) -> float:
+    """The yardstick of the FFN sublayer: ``F.layer_norm`` in x's dtype,
+    ``F.linear``, ``F.gelu``, ``F.linear`` plus the residual, the products
+    in the weights' bf16 (an f32 stream's LN output cast to it, the
+    residual added in f32), as the kernel computes them.  Timed only: the
+    port never calls it, and no single call computes the sublayer (hence no
+    ``library_ms``)."""
+    import torch.nn.functional as F
+
+    from mmer_tpu_torch.ops.fused_blocks import LN_EPS
+
+    lw, lb = ln_w.to(x.dtype), ln_b.to(x.dtype)
+    b1c, b2c = b1.to(w1.dtype), b2.to(w2.dtype)
+    d = x.shape[-1]
+
+    def sublayer():
+        y = F.layer_norm(x, (d,), lw, lb, LN_EPS).to(w1.dtype)
+        return x + F.linear(F.gelu(F.linear(y, w1, b1c)), w2, b2c)
+
+    return cuda_ms(sublayer, iters)
+
+
 def conv_layers_report(dev, cfg, wave, conv_args, iters: int, tag: str) -> dict:
     """Per-layer device times of the whole-pyramid route with each layer's
     bound, three-call yardstick on inputs of the layer's shape, and the grid
@@ -748,6 +788,7 @@ def check_kernels(dev) -> dict:
     r["ms"] = cuda_ms(lambda: fused_ffn(*args), 20)
     r["plain_ms"] = cuda_ms(lambda: ffn_reference(*args), 5)
     r["library_ms"] = None          # no single PyTorch call computes it
+    r["four_call_ms"] = four_call_ms(*args, 20)
     r["shape"] = "x (8,1569,768) bf16, M 3072"
     r.update(ffn_bound(args))
     # W2V2 FFN: f32 stream over bf16 weights and biases; a 3 s clip (serving),
@@ -783,6 +824,8 @@ def check_kernels(dev) -> dict:
                   f"ms{tag}": cuda_ms(lambda: fused_ffn(*args), iters),
                   f"plain_ms{tag}": cuda_ms(lambda: ffn_reference(*args), 5),
                   f"shape{tag}": f"x {(*shape, 1024)} f32, M 4096"})
+        if tag == "_w2v2_extract":
+            r[f"four_call_ms{tag}"] = four_call_ms(*args, iters)
         r.update(ffn_bound(args, tag))
     res["fused_ffn"] = r
     del args, got, want
@@ -957,6 +1000,7 @@ def check_kernels(dev) -> dict:
             lib = r.get("library_ms" + tag)
             plan = r.get("plan" + tag)
             three = r.get("three_call_ms" + tag)
+            four = r.get("four_call_ms" + tag)
             device = r.get("device_ms" + tag)
             log(f"time {name}: kernel {r['ms' + tag]:.4f} ms"
                 + (f" ({device:.4f} ms device time)" if device is not None else "")
@@ -965,6 +1009,7 @@ def check_kernels(dev) -> dict:
                 f"by {r['bound_by' + tag]}"
                 + (f", library call {lib:.4f} ms" if lib is not None else "")
                 + (f", three library calls {three:.4f} ms" if three is not None else "")
+                + (f", four library calls {four:.4f} ms" if four is not None else "")
                 + (f", grid plan (rows, D slices, M slices) {tuple(plan)}"
                    if plan else "")
                 + f" ({r['shape' + tag]})")
@@ -2099,29 +2144,46 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
 
-    build_kernels()
-    kernels = check_kernels(dev)
-    kernels.update(check_probe_kernels(dev))
-    stream = run_random_stream(dev)
-    run_jax_weights(dev)
-    serving = run_main_path(dev)
-    file_path = run_serving_file_path(dev)
-    extraction = run_extraction(dev)
-    profile = run_profile_scripts()
-    probes = run_component_probes()
-    int8 = run_int8_path(dev)
+    t_run = time.perf_counter()
+    host_reference()
+    walls = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        log(f"phase {name}: {walls[name]:.2f} s wall, "
+            f"{time.perf_counter() - t_run:.2f} s into the run")
+        return out
+
+    phase("2 build", build_kernels)
+    kernels = phase("3 kernels", check_kernels, dev)
+    kernels.update(phase("3 probe kernels", check_probe_kernels, dev))
+    stream = phase("3a random stream", run_random_stream, dev)
+    phase("3b JAX weights", run_jax_weights, dev)
+    serving = phase("4 main path", run_main_path, dev)
+    file_path = phase("4b serving file path", run_serving_file_path, dev)
+    cold_start = phase("4c cold start", run_cold_start)
+    extraction = phase("5 extraction", run_extraction, dev)
+    profile = phase("6 profile scripts", run_profile_scripts)
+    probes = phase("6b component probes", run_component_probes)
+    int8 = phase("6c int8 path", run_int8_path, dev)
     # The training phase's feature folders, read again by the quality scripts
     # and the scale-out phase.
     features = tempfile.TemporaryDirectory(prefix="mmer_smoke_features_")
     try:
-        request_launches, train_draws = run_training(dev, features.name)
-        run_flagship_chain(dev, request_launches)
-        quality_draws = run_quality_scripts(features.name)
-        scale_out = run_scale_out(dev, extraction["chunks"], extraction["waves"],
-                                  features.name)
+        request_launches, train_draws = phase("7 training", run_training, dev,
+                                              features.name)
+        phase("8 flagship chain", run_flagship_chain, dev, request_launches)
+        quality_draws = phase("8b quality scripts", run_quality_scripts,
+                              features.name)
+        scale_out = phase("9 scale-out", run_scale_out, dev, extraction["chunks"],
+                          extraction["waves"], features.name)
     finally:
         features.cleanup()
-    prep_chain = run_prep_chain(dev)
+    prep_chain = phase("10 prep chain", run_prep_chain, dev)
+    log(json.dumps({"phase_wall_s": walls,
+                    "run_s": time.perf_counter() - t_run}))
     # launches: of the main path that runs the kernel.  The serving requests
     # for the three kernels on the clip path (which the serving file path and
     # the extraction CLI also run: launches_serving_file_path,
@@ -2141,6 +2203,7 @@ def main() -> int:
          "launches_component_probes": probes[name],
          "launches_scale_out": scale_out[name],
          "launches_prep_chain": prep_chain[name],
+         "launches_cold_start_warmup": cold_start.get(name, 0),
          **{k: v for k, v in r.items() if not k.startswith("shape")}}
         for name, r in kernels.items()]
     # The int8 kernels: launches of phase 6c's probes (no other path reaches
@@ -2156,6 +2219,7 @@ def main() -> int:
          "launches_component_probes": probes[name],
          "launches_scale_out": scale_out[name],
          "launches_prep_chain": prep_chain[name],
+         "launches_cold_start_warmup": cold_start.get(name, 0),
          **{k: v for k, v in r.items() if not k.startswith("shape")}}
         for name, r in int8["kernels"].items()]
     lines.append({"name": "threefry", "route": "cuda",
@@ -2165,6 +2229,7 @@ def main() -> int:
                   "launches": train_draws,
                   "launches_training": train_draws + quality_draws,
                   "launches_component_probes": probes["threefry"],
+                  "launches_cold_start_warmup": cold_start.get("threefry", 0),
                   **{k: v for k, v in stream.items()}})
     idle = [k["name"] for k in lines if k["launches"] < 1]
     if idle or len(lines) != len(SOURCES) + len(INT8_SOURCES) + 1:
@@ -2914,6 +2979,120 @@ def run_serving_file_path(dev) -> dict:
     return {"launches": total, "ig": _ig_check(engine, results["B"][2], dev)}
 
 
+# -- phase 4c: the serving cold start -------------------------------------------
+
+COLD_START_LIMIT_S = 120.0
+# The warmed first request (explain=true) within this many warm explain p50s.
+COLD_FIRST_FACTOR = 1.5
+COLD_REQUESTS = 4
+
+
+def _run_script(args: list, timeout: float) -> tuple:
+    """``python3 -m args`` in a fresh process from the repository root →
+    (the last stdout line as JSON, the stdout lines, the stderr lines).
+    Raises when it exits non-zero; killed at ``timeout``."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=REPO,
+                          capture_output=True, text=True, timeout=timeout,
+                          check=False)
+    log(f"cold start: {' '.join(args)}: exit {proc.returncode} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if proc.returncode != 0:
+        log(proc.stdout[-3000:])
+        log(proc.stderr[-6000:])
+        raise AssertionError(f"{args[0]} exited {proc.returncode}")
+    out = proc.stdout.strip().splitlines()
+    return json.loads(out[-1]), out, proc.stderr.splitlines()
+
+
+def _cold_line(err: list) -> dict:
+    prefix = "cold start: "
+    return json.loads(next(l for l in err if l.startswith(prefix))[len(prefix):])
+
+
+def run_cold_start() -> dict:
+    """Phase 4c: the serving cold start in fresh processes.  Returns the
+    warmup's launches (run b's)."""
+    t_phase = time.perf_counter()
+    serving = ["mmer_tpu_torch.scripts.bench_serving", "--route", "frames",
+               "--requests", str(COLD_REQUESTS)]
+    cold, _, cold_err = _run_script(serving + ["--no_warmup"],
+                                    COLD_START_LIMIT_S)
+    warm, _, warm_err = _run_script(
+        serving + ["--warmup_resolutions", "256x300", "--warmup_upload"],
+        COLD_START_LIMIT_S)
+    extract, extract_out, _ = _run_script(["mmer_tpu_torch.scripts.bench_extract"],
+                                          COLD_START_LIMIT_S)
+    a, b = _cold_line(cold_err), _cold_line(warm_err)
+    for tag, res, info in (("a, no warmup", cold, a), ("b, warmed", warm, b)):
+        log(f"cold start ({tag}): first request (explain=true) "
+            f"{res['first_request_s']} s; explain=false p50 {res['p50_ms']} / "
+            f"p95 {res['p95_ms']} ms, explain=true p50 {res['explain_p50_ms']} "
+            f"/ p95 {res['explain_p95_ms']} ms; novel resolution 280x310 "
+            f"{res['same_bucket_novel_res_s']} s, new bucket 500x700 "
+            f"{res['new_bucket_first_req_s']} s; kernel libraries built "
+            f"{info['kernel_builds_in_warmup']} in warmup, "
+            f"{info['kernel_builds_after_warmup']} after")
+    warmup = b["warmup"]
+    log(f"cold start (b): warmup {warmup['seconds']:.2f} s: "
+        + "; ".join(f"{name} {sec:.3f} s" for name, sec in warmup["phases"]))
+    log(f"cold start (b): warmup launches {warmup['launches']}")
+    for line in extract_out[1:5]:
+        log(f"cold start (c): bench_extract {line}")
+    log(f"cold start (c): {json.dumps(extract)}")
+    if b["kernel_builds_after_warmup"]:
+        raise AssertionError("a kernel library was built after the warmup")
+    idle = [k for k in ("flash_attention", "fused_ffn", "fused_conv_encoder")
+            if warmup["launches"].get(k, 0) < 1]
+    if idle:
+        raise AssertionError(f"the warmup never launched {idle}")
+    first_ms = warm["first_request_s"] * 1e3
+    log(f"cold start: warmed first request {first_ms:.0f} ms = "
+        f"{first_ms / warm['explain_p50_ms']:.3f} x the warm explain p50 "
+        f"(limit {COLD_FIRST_FACTOR}); cold first request "
+        f"{cold['first_request_s'] * 1e3:.0f} ms = "
+        f"{cold['first_request_s'] * 1e3 / cold['explain_p50_ms']:.3f} x its p50")
+    if first_ms > COLD_FIRST_FACTOR * warm["explain_p50_ms"]:
+        raise AssertionError("the warmed first request is not at steady-state "
+                             "latency")
+    phase_s = time.perf_counter() - t_phase
+    log(f"cold start: phase {phase_s:.2f} s wall (limit {COLD_START_LIMIT_S} s)")
+    if phase_s > COLD_START_LIMIT_S:
+        raise AssertionError("the cold-start phase took too long")
+    return warmup["launches"]
+
+
+def host_reference() -> dict:
+    """A fixed host workload, seconds each: a single-threaded Python loop,
+    copying 256 MiB with numpy, and the native cascade on the packaged face
+    (20 calls)."""
+    import numpy as np
+
+    from mmer_tpu_torch.preprocess.faces import HaarFaceDetector
+
+    out = {}
+    t0 = time.perf_counter()
+    total = 0
+    for i in range(3_000_000):
+        total += i
+    out["python_loop_s"] = time.perf_counter() - t0
+    buf = np.ones(2 ** 25)
+    t0 = time.perf_counter()
+    for _ in range(4):
+        buf.copy()
+    out["numpy_copy_s"] = time.perf_counter() - t0
+    face = np.load(os.path.join(REPO, "mmer_tpu_torch", "assets",
+                                "face_300x256.npy"))
+    det = HaarFaceDetector()
+    det.detect(face)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        det.detect(face)
+    out["cascade_s"] = time.perf_counter() - t0
+    log(f"host reference: {json.dumps(out)} (os.cpu_count {os.cpu_count()})")
+    return out
+
+
 def _write_wav(path: str, wave, rate: int, channels: int = 1) -> None:
     import wave as wave_mod
 
@@ -3131,6 +3310,8 @@ def run_extraction(dev) -> dict:
 # -- phase 9: the scale-out paths on a one-rank NCCL world ------------------------
 
 SCALE_OUT_LIMIT_S = 60.0
+# The numpy-route load reads every 4th of the 8,496 pairs.
+NUMPY_LOAD_STRIDE = 4
 SCALE_OUT_EPOCHS = 2
 # The global batch of the phase's training runs: a dp4 run's 4 x 64 rows.
 SCALE_OUT_BATCH = 256
@@ -3259,23 +3440,28 @@ def run_scale_out(dev, chunks, waves, features: str) -> dict:
 
         video_dir, audio_dir = (os.path.join(features, d) for d in ("video", "audio"))
 
-        # The native loader against numpy's (each route once: the numpy
-        # route takes 10-18 s).
+        # The native loader against numpy's: all pairs natively, every
+        # NUMPY_LOAD_STRIDE-th through numpy (all of them took 10-26 s, a
+        # third to a half of the phase).
         catalog = build_catalog(video_dir, audio_dir, "key")
         n = len(catalog)
         if n != sum(CLASS_COUNTS):
             raise AssertionError(f"scale-out: {n} pairs in the training phase's folders")
-        secs, arrays = {}, {}
-        for native in (True, False):
-            t0 = time.perf_counter()
-            arrays[native] = load_feature_arrays(catalog, use_native=native)
-            secs[native] = time.perf_counter() - t0
-        (v1, a1), (v2, a2) = arrays[True], arrays[False]
-        if not (np.array_equal(a1, a2) and len(v1) == len(v2) == n
-                and all(np.array_equal(x, y) for x, y in zip(v1, v2))):
+        t0 = time.perf_counter()
+        v1, a1 = load_feature_arrays(catalog, use_native=True)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        v2, a2 = load_feature_arrays(catalog[::NUMPY_LOAD_STRIDE], use_native=False)
+        numpy_s = time.perf_counter() - t0
+        n2 = len(v2)
+        if not (np.array_equal(a1[::NUMPY_LOAD_STRIDE], a2) and len(v1) == n
+                and all(np.array_equal(x, y)
+                        for x, y in zip(v1[::NUMPY_LOAD_STRIDE], v2))):
             raise AssertionError("scale-out: the native load differs from numpy's")
-        log(f"scale-out: {n} pairs loaded natively in {secs[True]:.3f} s, through "
-            f"numpy in {secs[False]:.3f} s; equal arrays")
+        log(f"scale-out: {n} pairs loaded natively in {native_s:.3f} s "
+            f"({native_s / n * 1e3:.3f} ms a pair), every {NUMPY_LOAD_STRIDE}th "
+            f"({n2}) through numpy in {numpy_s:.3f} s ({numpy_s / n2 * 1e3:.3f} "
+            "ms a pair); equal arrays")
 
         # Training: single device, then the one-rank mesh, same seed, on
         # load_dataset's arrays from the native load above.

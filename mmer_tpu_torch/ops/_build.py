@@ -8,7 +8,9 @@ under a file name keyed by a hash of the sources and flags: an edited
 source never loads a stale library, and an unchanged one is built once.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
-:func:`call` turns a non-zero code into an exception.
+:func:`call` turns a non-zero code into an exception.  :data:`builds` counts
+the libraries :func:`compile_kernel` built in this process (a check that a
+warmed server builds nothing more reads it).
 
 Host code in C++ (``csrc/<name>.cpp``: the face detector's cascade
 evaluator, the bulk ``.npy`` loader) is built the same way by
@@ -41,6 +43,9 @@ HOST_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
 _locks = {name: threading.Lock() for name in KERNELS + HOST_LIBRARIES}
 _libs: dict[str, ctypes.CDLL] = {}
 _entries: dict[str, Callable[..., int]] = {}
+# Kernel libraries compile_kernel built (ran nvcc for) in this process.
+builds = 0
+_builds_lock = threading.Lock()
 
 
 def build_dir() -> Path:
@@ -68,6 +73,7 @@ def compile_kernel(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library exists; return the path.
     The compiler's report (registers, shared memory, spills per kernel) is
     kept beside the library as ``.log``."""
+    global builds
     out = _library_path(name)
     if out.exists():
         return out
@@ -81,6 +87,8 @@ def compile_kernel(name: str) -> Path:
         raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{proc.stderr}")
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
+    with _builds_lock:
+        builds += 1
     return out
 
 

@@ -23,6 +23,10 @@ is not ported: neither machine has FastAPI.
 
     python3 -m mmer_tpu_torch.serve.app                # on the GPU
     python3 -m mmer_tpu_torch.serve.app --device cpu   # on the CPU
+    python3 -m mmer_tpu_torch.serve.app --warmup_resolutions 480x640,720x1280
+
+``--warmup`` (implied by either of the other two ``--warmup*`` flags) runs
+:meth:`InferenceEngine.warmup` before the server listens.
 """
 
 from __future__ import annotations
@@ -323,7 +327,31 @@ def main(argv=None) -> None:
     parser.add_argument("--device", default="cuda",
                         help="torch device; fails if it is cuda and no GPU is "
                              "present (default: cuda)")
+    parser.add_argument("--warmup", action="store_true",
+                        help="run every stage of a default request once at "
+                             "startup (kernel libraries, weights, each "
+                             "shape's first run), so the first upload runs "
+                             "at steady-state latency")
+    parser.add_argument("--warmup_resolutions", default="",
+                        help="comma-separated HxW video formats to also warm "
+                             "the crop route for, e.g. '480x640,720x1280' "
+                             "(the first upload of an unwarmed resolution "
+                             "bucket pays for its crop shape's first run)")
+    parser.add_argument("--warmup_upload", default=None, metavar="PATH",
+                        help="video file replayed end-to-end as the last "
+                             "warmup phase: it reaches what the enumerated "
+                             "warmup cannot (a multi-window request's audio "
+                             "batch, host buffers), so the FIRST real "
+                             "request runs at steady-state latency; use a "
+                             "representative clip (real face + audio, "
+                             "production resolution).  Decoding it needs "
+                             "cv2, so without cv2 the server does not start")
     args = parser.parse_args(argv)
+    if args.warmup_upload and not os.path.exists(args.warmup_upload):
+        parser.error(f"--warmup_upload file not found: {args.warmup_upload}")
+    if (args.warmup_upload or args.warmup_resolutions) and not args.warmup:
+        # Asking for specific warming implies warming at all.
+        args.warmup = True
     model_cfg = None
     if args.fusion_params is None:
         ckpt, ns, mc = resolve_default_fusion()
@@ -345,6 +373,20 @@ def main(argv=None) -> None:
                              vivit_params_path=args.vivit_params,
                              wav_params_path=args.wav_params,
                              norm_stats_path=args.norm_stats)
+    if args.warmup:
+        resolutions = []
+        for part in filter(None, args.warmup_resolutions.split(",")):
+            try:
+                h, w = part.lower().strip().split("x")
+                resolutions.append((int(h), int(w)))
+            except ValueError:
+                parser.error(f"--warmup_resolutions entry {part!r} is not "
+                             f"HxW (e.g. '480x640')")
+        sample = None
+        if args.warmup_upload:
+            with open(args.warmup_upload, "rb") as f:
+                sample = f.read()
+        engine.warmup(resolutions=resolutions, sample_upload=sample)
     serve(engine, args.host, args.port,
           max_upload_bytes=args.max_upload_mb << 20)
 

@@ -27,9 +27,17 @@ Fusion checkpoints are ``.pth`` files (the port's own state dict, what
 ``train.cli`` writes, or a reference v2 state dict, ``models/port_fusion``)
 or flax ``.msgpack`` params trees (the JAX trainer's and the flagship's);
 comma-separated paths, of either kind, are served as a mean-probability
-ensemble.  The JAX
-engine's ``warmup`` and its compile-cache opt-ins have no counterpart:
-PyTorch compiles nothing ahead of a request.
+ensemble.
+
+A fresh process pays at its first request for what no earlier call made:
+``nvcc`` for a kernel library missing from the build directory
+(``ops/_build.py``), each library's first load and launch, the CUDA context,
+cuBLAS / cuDNN handles and their choice for each new shape, the caching
+allocator's growth and the seeded weight trees.  :meth:`InferenceEngine.warmup`
+pays for them before the first upload, stage by stage in the JAX engine's
+order.  The JAX engine's compile-cache opt-ins (``_auto_mosaic_opt_in``,
+``core/aot.py``) have no counterpart: the port has no compile to trade
+against a faster request.
 """
 
 from __future__ import annotations
@@ -107,6 +115,56 @@ def _topk_importance(video_imp: np.ndarray, audio_imp: np.ndarray,
     return {"video": top(video_imp), "audio": top(audio_imp)}
 
 
+def _launch_counters() -> Dict[str, Tuple[object, str]]:
+    """Every kernel wrapper's launch counter as (owner, attribute), by the
+    kernel's name: the FFN's reduce pass and the attention probe's per-mode
+    dict included."""
+    from mmer_tpu_torch.ops import (attention_variants, conv_pyramid,
+                                    flash_attention, fused_blocks, prng, quant)
+
+    return {
+        "flash_attention": (flash_attention.flash_attention, "launches"),
+        "flash_attention_varlen": (flash_attention.flash_attention_varlen,
+                                   "launches"),
+        "fused_ffn": (fused_blocks.fused_ffn, "launches"),
+        "fused_ffn_reduce": (fused_blocks.fused_ffn, "reduce_launches"),
+        "fused_ln_matmul": (fused_blocks.fused_ln_matmul, "launches"),
+        "fused_conv_encoder": (conv_pyramid.fused_conv_encoder, "launches"),
+        "conv_gemm_ln_gelu": (conv_pyramid._call_gemm, "launches"),
+        "conv_k3_ln_gelu": (conv_pyramid._call_k3, "launches"),
+        "threefry": (prng.launch_threefry, "launches"),
+        "row_quant": (quant.row_quant, "launches"),
+        "qdot_int8": (quant.qdot_int8, "launches"),
+        "qdot_u8": (quant.qdot_u8, "launches"),
+        "attention_variant": (attention_variants.attention_variant, "launches"),
+    }
+
+
+def _read_counters(counters: Dict[str, Tuple[object, str]]) -> Dict[str, object]:
+    saved = {}
+    for name, (owner, attr) in counters.items():
+        value = getattr(owner, attr)
+        saved[name] = dict(value) if isinstance(value, dict) else value
+    return saved
+
+
+def _restore_counters(counters: Dict[str, Tuple[object, str]],
+                      saved: Dict[str, object]) -> Dict[str, int]:
+    """Put the counters back to ``saved``; return the launches made since,
+    by kernel (the probe's modes as ``attention_variant[mode]``)."""
+    made: Dict[str, int] = {}
+    for name, (owner, attr) in counters.items():
+        now, before = getattr(owner, attr), saved[name]
+        if isinstance(now, dict):
+            made.update({f"{name}[{k}]": now[k] - before.get(k, 0) for k in now})
+            now.clear()
+            now.update(before)
+        else:
+            made[name] = now - before
+            setattr(owner, attr, before)
+    return made
+
+
 class EnsembleFusion(nn.Module):
     """Fusion models of one config served as one program: the members'
     parameters stacked (``models/fusion.stack_members``) and the forward
@@ -180,6 +238,7 @@ class InferenceEngine:
         self._fusion = None
         self._fusion_logits_fn = None
         self.last_timings: Dict[str, float] = {}
+        self.last_warmup: Dict = {}
 
     @property
     def detector(self):
@@ -258,13 +317,16 @@ class InferenceEngine:
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    @torch.inference_mode()
     def _fusion_probs(self, video: np.ndarray, audio: np.ndarray,
                       mask: np.ndarray) -> np.ndarray:
-        probs, _, _ = self.fusion(self._dev(video.astype(np.float32)),
-                                  self._dev(audio.astype(np.float32)),
-                                  self._dev(mask))
-        return probs.cpu().numpy()
+        # Built outside inference mode: IG differentiates through the same
+        # model, and weights made under inference mode cannot be.
+        fusion = self.fusion
+        with torch.inference_mode():
+            probs, _, _ = fusion(self._dev(video.astype(np.float32)),
+                                 self._dev(audio.astype(np.float32)),
+                                 self._dev(mask))
+            return probs.cpu().numpy()
 
     def _importances(self, video: np.ndarray, audio: np.ndarray,
                      mask: np.ndarray, targets: np.ndarray
@@ -470,6 +532,203 @@ class InferenceEngine:
                 f.write(data)
             return self.infer_video_file(path, subchunk_size, window_size,
                                          explain, detect_every=detect_every)
+
+    def _open_device_session(self) -> None:
+        """The device's first round trip; on CUDA, then each kernel library
+        of the request path (``ffn``, ``attention``, ``conv_encoder``) built
+        where missing, loaded and launched once on zeros at the engine's
+        widths.  A kernel that fails to build or launch raises."""
+        torch.zeros((8, 128), device=self.device).add_(1.0).cpu()
+        if self.device.type != "cuda":
+            return
+        from mmer_tpu_torch.ops.conv_pyramid import fused_conv_encoder
+        from mmer_tpu_torch.ops.flash_attention import flash_attention
+        from mmer_tpu_torch.ops.fused_blocks import fused_ffn
+
+        dev, bf = self.device, torch.bfloat16
+
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        v = self.vivit_cfg
+        fused_ffn(zeros(1, 1, v.dim, dtype=bf), zeros(v.dim) + 1, zeros(v.dim),
+                  zeros(v.mlp_dim, v.dim, dtype=bf), zeros(v.mlp_dim),
+                  zeros(v.dim, v.mlp_dim, dtype=bf), zeros(v.dim))
+        q = zeros(1, v.heads, 8, v.dim_head, dtype=bf)
+        flash_attention(q, q, q)
+        w = self.wav_cfg
+        weights, c_in = [], 1
+        for c_out, k in zip(w.conv_dims, w.conv_kernels):
+            weights.append(zeros(c_out, c_in, k))
+            c_in = c_out
+        samples = 1            # the receptive field of one output frame
+        for k, stride in reversed(list(zip(w.conv_kernels, w.conv_strides))):
+            samples = (samples - 1) * stride + k
+        fused_conv_encoder(zeros(1, samples), weights,
+                           [zeros(c) for c in w.conv_dims],
+                           [zeros(c) + 1 for c in w.conv_dims],
+                           [zeros(c) for c in w.conv_dims], w)
+        torch.cuda.synchronize(dev)
+
+    def warmup(self, subchunk_size: int = 32, window_size: int = 5,
+               explain: bool = True,
+               resolutions: Sequence[Tuple[int, int]] = (),
+               fps: float = 30.0,
+               sample_upload: Optional[bytes] = None,
+               sample_detect_every: int = 3,
+               sample_frames: Optional[Tuple[Iterable[np.ndarray], float,
+                                             Optional[np.ndarray]]] = None
+               ) -> None:
+        """Run every stage of a default request once, so that the first
+        real upload runs at steady-state latency: the JAX engine's
+        ``warmup``, phase for phase.
+
+        1. the device session (:meth:`_open_device_session`), then the face
+           detector: its native evaluator, and its resampling pyramid at
+           each format of ``resolutions`` (host state of the port's
+           cascade, built at a frame size's first detection);
+        2. the ViViT params and its forward on uint8 ``(1, subchunk_size,
+           H, W, 3)`` (a ViViT block always pads to ``device_batch``
+           chunks, so this is every request's ViViT shape);
+        3. the crop route at each distinct ``resolution_bucket`` of
+           ``resolutions`` ((height, width) formats, e.g. ``[(480, 640)]``);
+        4. the Wav2Vec2 params and its forward at the 1 s bucket and at
+           every bucket a window of at most ``window_size`` subchunks lands
+           in at ``fps``;
+        5. the fusion model, and IG when ``explain``, at each window length;
+        6. a sample request, replayed end to end: ``sample_upload`` (the
+           bytes of a video file, through :meth:`infer_file_bytes`, which
+           needs ``cv2``) or ``sample_frames`` (``(frames, fps, waveform)``
+           already decoded, through :meth:`infer_frames`), with detection
+           every ``sample_detect_every`` frames.  It reaches what the
+           enumeration misses: the Wav2Vec2 batch of a multi-window
+           request's audio pieces (phase 4 runs one piece), the stages'
+           host code and buffers.  A sample that gives no inference item
+           warms none of that, and a WARNING says so.
+
+        Prints each phase's seconds and the total.  Changes no state a
+        later response depends on, and leaves the kernels' launch counters
+        as it found them: :attr:`last_warmup` holds the phases' seconds, the
+        launches the warmup made and the kernel libraries it built.  On a
+        CUDA engine a kernel that fails to build or launch raises."""
+        from mmer_tpu_torch.ops import _build
+
+        if sample_upload is not None and sample_frames is not None:
+            raise ValueError("warmup: pass sample_upload or sample_frames, "
+                             "not both")
+        t_start = last = time.perf_counter()
+        phases: List[Tuple[str, float]] = []        # (name, seconds)
+        counters = _launch_counters()
+        saved = _read_counters(counters)
+        builds0 = _build.builds
+        timings = self.last_timings
+
+        def phase(name):
+            nonlocal last
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            now = time.perf_counter()
+            phases.append((name, now - last))
+            last = now
+
+        try:
+            self._open_device_session()
+            phase("device session open (CUDA context; kernel libraries ffn, "
+                  "attention, conv_encoder loaded and launched once)"
+                  if self.device.type == "cuda" else "device session open")
+            # The cascade's native evaluator, and its per-size resampling
+            # pyramid at each listed format (a blank frame detects nothing).
+            detector = self.detector
+            getattr(detector, "engine", None)
+            formats = list(dict.fromkeys((int(h), int(w)) for h, w in resolutions))
+            for h, w in formats:
+                detector.detect(np.zeros((h, w, 3), np.uint8))
+            phase("face detector (native evaluator loaded, pyramids of "
+                  f"{len(formats)} formats)")
+
+            max_tokens = self.model_cfg.max_seq_len - 1
+            window_size = min(window_size, max_tokens)
+            # uint8, as the request path's crops are.
+            chunks = np.zeros((1, subchunk_size, *self.vivit_cfg.image_size, 3),
+                              np.uint8)
+            _ = self.video_extractor
+            phase("vivit params init")
+            sub_feats = self.video_extractor.embed_chunks(chunks)
+            phase("vivit forward")
+            warmed = set()
+            for h, w in resolutions:
+                # Requests crop the canonical (bucketed) frame.
+                (ch, cw), _ = resolution_bucket(h, w)
+                if (ch, cw) in warmed:
+                    continue
+                warmed.add((ch, cw))
+                frames = np.zeros((subchunk_size, ch, cw, 3), np.uint8)
+                bboxes = np.tile(np.asarray([0, 0, cw, ch], np.float32),
+                                 (subchunk_size, 1))
+                self.video_extractor.embed_cropped_frames(frames, bboxes,
+                                                          subchunk_size)
+                phase(f"crop route {ch}x{cw} (bucket of {h}x{w})")
+            _ = self.audio_embedder
+            phase("w2v2 params init")
+            self.audio_embedder.embed_batch(
+                [np.zeros(self.wav_cfg.sample_rate, np.float32)])
+            phase("w2v2 forward (1s bucket)")
+            # A window of wl subchunks spans wl·subchunk_size frames, so its
+            # audio piece lands in the ceil(wl·subchunk_size/fps) s bucket,
+            # for every wl up to window_size; pieces past chunk_duration_s
+            # are split, which caps the buckets.
+            warmed_buckets = {1}
+            for wl in range(1, window_size + 1):
+                win_s = min(wl * subchunk_size / max(fps, 1e-6),
+                            float(self.wav_cfg.chunk_duration_s))
+                b = int(np.ceil(win_s))
+                if b in warmed_buckets:
+                    continue
+                warmed_buckets.add(b)
+                self.audio_embedder.embed_batch(
+                    [np.zeros(b * self.wav_cfg.sample_rate, np.float32)])
+                phase(f"w2v2 forward ({b}s bucket, window wl={wl})")
+            _ = self.fusion
+            phase("fusion params init+load")
+            for wl in range(1, window_size + 1):
+                video_w = np.tile(sub_feats[:1][None], (1, wl, 1)
+                                  ).reshape(1, wl, -1)
+                audio_w = np.zeros((1, self.model_cfg.audio_dim), np.float32)
+                mask = np.zeros((1, wl), bool)
+                self._fusion_probs(video_w, audio_w, mask)
+                phase(f"fusion wl={wl}")
+                if explain:
+                    self._importances(video_w, audio_w, mask,
+                                      np.zeros((1,), np.int64))
+                    phase(f"IG wl={wl}")
+            if sample_upload is not None or sample_frames is not None:
+                if sample_upload is not None:
+                    res = self.infer_file_bytes(
+                        sample_upload, "warmup_sample.mp4",
+                        subchunk_size=subchunk_size, window_size=window_size,
+                        explain=explain, detect_every=sample_detect_every)
+                else:
+                    frames, sample_fps, waveform = sample_frames
+                    res = self.infer_frames(
+                        frames, sample_fps, waveform, subchunk_size,
+                        window_size, explain, detect_every=sample_detect_every)
+                if not res["inference"]:
+                    print("WARNING: warmup sample_upload produced no "
+                          "inference items (no face detected / not "
+                          "decodable) — auxiliary request-path graphs were "
+                          "NOT warmed; use a clip with a detectable face",
+                          flush=True)
+                phase("end-to-end sample request (what the enumerated "
+                      "phases miss)")
+        finally:
+            made = _restore_counters(counters, saved)
+            self.last_timings = timings
+        for name, seconds in phases:
+            print(f"warmup {seconds:7.1f}s  {name}", flush=True)
+        total = time.perf_counter() - t_start
+        print(f"engine warmup complete in {total:.1f}s", flush=True)
+        self.last_warmup = {"seconds": total, "phases": phases,
+                            "launches": made, "builds": _build.builds - builds0}
 
     def predict_chunks(self, chunks_u8: np.ndarray,
                        waveform: Optional[np.ndarray],

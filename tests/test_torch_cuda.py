@@ -841,3 +841,30 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take(cuda):
     wq12, ws12 = quantize_weight(torch.randn(64, 12, device=cuda))
     with pytest.raises(ValueError, match="multiple of 8"):
         qdot(x, wq12, ws12)
+
+
+def test_warmup_leaves_no_build_and_requests_launch_the_kernels(cuda):
+    """After ``InferenceEngine.warmup`` at the full default widths (a
+    decoded sample replayed) a request builds no kernel library, and the
+    three kernels of the request path launch in it; warmup itself launched
+    them and left the counters as it found them."""
+    from mmer_tpu_torch.ops import _build
+    from mmer_tpu_torch.scripts.bench_serving import make_face_frames
+    from mmer_tpu_torch.serve.engine import InferenceEngine
+
+    wrappers = {"flash_attention": flash_attention, "fused_ffn": fused_ffn,
+                "fused_conv_encoder": fused_conv_encoder}
+    engine = InferenceEngine(cuda)
+    frames, wave = make_face_frames(96, 5)
+    before = {k: w.launches for k, w in wrappers.items()}
+    engine.warmup(resolutions=[(300, 256)], sample_frames=(frames, 30.0, wave))
+    assert {k: w.launches for k, w in wrappers.items()} == before
+    for k in wrappers:
+        assert engine.last_warmup["launches"][k] > 0, k
+    builds = _build.builds
+    frames, wave = make_face_frames(96, 6)
+    res = engine.infer_frames(frames, 30.0, wave, explain=True, detect_every=3)
+    assert len(res["inference"]) == 3
+    assert _build.builds == builds
+    for k, w in wrappers.items():
+        assert w.launches > before[k], k
