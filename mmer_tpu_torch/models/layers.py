@@ -14,6 +14,7 @@ from torch import nn
 
 from mmer_tpu_torch.core import msgpack
 from mmer_tpu_torch.ops.fused_blocks import layer_norm
+from mmer_tpu_torch.utils.profiling import cast
 
 
 class LayerNorm(nn.Module):
@@ -41,8 +42,8 @@ def dense(x: torch.Tensor, lin: nn.Linear, dt: torch.dtype) -> torch.Tensor:
     """flax ``Dense(dtype=dt)`` over an ``nn.Linear``'s float32 params: the
     product of the operands cast to ``dt`` is rounded to ``dt`` before the
     bias, cast to ``dt``, is added (in bf16 a second rounding)."""
-    y = F.linear(x.to(dt), lin.weight.to(dt))
-    return y if lin.bias is None else y + lin.bias.to(dt)
+    y = F.linear(x.to(dt), cast(lin.weight, dt))
+    return y if lin.bias is None else y + cast(lin.bias, dt)
 
 
 def read_params(path: str, from_flax: Callable[[Mapping], dict]) -> dict:

@@ -25,6 +25,7 @@ from mmer_tpu_torch.models.layers import LayerNorm, dense, refuse_kernel_limit
 from mmer_tpu_torch.ops.flash_attention import (attention_limits, flash_attention,
                                                 reference_attention)
 from mmer_tpu_torch.ops.fused_blocks import ffn_limits, ffn_reference, fused_ffn
+from mmer_tpu_torch.utils.profiling import cast
 
 
 def max_tokens(cfg: ViViTConfig) -> int:
@@ -102,8 +103,8 @@ class PreNormBlock(nn.Module):
 
         ffn = fused_ffn if self.use_kernels else ffn_reference
         return ffn(x, self.norm2.weight, self.norm2.bias,
-                   self.ffn_in.weight.to(dt), self.ffn_in.bias,
-                   self.ffn_out.weight.to(dt), self.ffn_out.bias)
+                   cast(self.ffn_in.weight, dt), self.ffn_in.bias,
+                   cast(self.ffn_out.weight, dt), self.ffn_out.bias)
 
 
 class ViViTFeatureExtractor(nn.Module):
@@ -131,12 +132,12 @@ class ViViTFeatureExtractor(nn.Module):
         x = self.embed(video)
         b, n, d = x.shape
         if self.cls_token is not None:
-            x = torch.cat([self.cls_token.to(x.dtype).expand(b, 1, d), x], dim=1)
+            x = torch.cat([cast(self.cls_token, x.dtype).expand(b, 1, d), x], dim=1)
             n += 1
         if n > self.pos_embed.shape[1]:
             raise ValueError(f"chunk produces {n} tokens > configured maximum "
                              f"{self.pos_embed.shape[1]}")
-        x = x + self.pos_embed[:, :n].to(x.dtype)
+        x = x + cast(self.pos_embed[:, :n], x.dtype)
         for blk in self.blocks:
             x = blk(x)
         feats = x[:, 0] if self.cls_token is not None else x.mean(dim=1)

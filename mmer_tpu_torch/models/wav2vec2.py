@@ -46,6 +46,7 @@ from mmer_tpu_torch.ops.conv_pyramid import (conv_encoder_reference,
                                              fused_conv_encoder, supports_config)
 from mmer_tpu_torch.ops.flash_attention import attention_limits, flash_attention
 from mmer_tpu_torch.ops.fused_blocks import ffn_limits, ffn_reference, fused_ffn
+from mmer_tpu_torch.utils.profiling import cast, count, span
 
 
 def feat_extract_output_length(cfg: Wav2Vec2Config, input_length: int) -> int:
@@ -125,8 +126,8 @@ class PosConvEmbed(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = torch_dtype(self.cfg)
-        xt, w, b = x.to(dt).transpose(1, 2), self.conv.weight.to(dt), \
-            self.conv.bias.to(dt)
+        xt = x.to(dt).transpose(1, 2)
+        w, b = cast(self.conv.weight, dt), cast(self.conv.bias, dt)
         if xt.device.type == "cpu" and dt == torch.bfloat16:
             # PyTorch's CPU bf16 grouped conv1d returns wrong values (rel-L2
             # ~1 against the f32 conv of the same operands, torch 2.13).  The
@@ -171,8 +172,8 @@ class EncoderLayer(nn.Module):
         lins = (self.q, self.k, self.v)
         if not self.use_fused_qkv:
             return tuple(dense(yd, lin, dt) for lin in lins)
-        w = torch.cat([lin.weight.t() for lin in lins], dim=1).to(dt)
-        bias = torch.cat([lin.bias for lin in lins]).to(dt)
+        w = cast(torch.cat([lin.weight.t() for lin in lins], dim=1), dt)
+        bias = cast(torch.cat([lin.bias for lin in lins]), dt)
         qkv = torch.matmul(yd.to(dt), w) + bias
         return qkv.split(yd.shape[-1], dim=-1)
 
@@ -212,8 +213,8 @@ class EncoderLayer(nn.Module):
         x = x + attn.to(x.dtype)
         ffn = fused_ffn if self.use_kernels else ffn_reference
         return ffn(x, self.norm_ffn.weight, self.norm_ffn.bias,
-                   self.ffn_in.weight.to(dt), self.ffn_in.bias.to(dt),
-                   self.ffn_out.weight.to(dt), self.ffn_out.bias.to(dt))
+                   cast(self.ffn_in.weight, dt), cast(self.ffn_in.bias, dt),
+                   cast(self.ffn_out.weight, dt), cast(self.ffn_out.bias, dt))
 
 
 class Wav2Vec2Encoder(nn.Module):
@@ -351,25 +352,39 @@ class AudioEmbedder:
 
     @torch.inference_mode()
     def _embed_padded(self, waves: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+        """Pieces padded to one length (N, L) and their sample counts →
+        their embeddings (N, hidden_dim): frame mask and :func:`batch_bucket`
+        rows (the last piece repeated), the device's rows, the fetch.  Counts
+        ``w2v2.frames_useful`` (the real pieces' frames among the rows this
+        process runs) and ``w2v2.frames_computed`` (those rows times the
+        padded frames)."""
         cfg = self.cfg
-        t_out = feat_extract_output_length(cfg, waves.shape[1])
-        frame_lens = np.asarray(
-            [feat_extract_output_length(cfg, int(n)) for n in lengths])
-        mask = np.arange(t_out)[None, :] >= frame_lens[:, None]
-        n = waves.shape[0]
-        n_pad = batch_bucket(n)
-        rows = slice(None)
-        if self.mesh is not None:
-            n_pad = pad_to_multiple(n_pad, self.mesh.dp)
-            rows = self.mesh.batch_rows(n_pad)
-        if n_pad > n:
-            waves = np.concatenate([waves, np.repeat(waves[-1:], n_pad - n, 0)])
-            mask = np.concatenate([mask, np.repeat(mask[-1:], n_pad - n, 0)])
-        emb = self.embed_rows(torch.from_numpy(waves[rows]).to(self.device),
-                              torch.from_numpy(mask[rows]).to(self.device))
-        if self.mesh is not None:
-            emb = self.mesh.all_gather_rows(emb)
-        return emb.float().cpu().numpy()[:n]
+        with span("mmer.w2v2.pad"):
+            t_out = feat_extract_output_length(cfg, waves.shape[1])
+            frame_lens = np.asarray(
+                [feat_extract_output_length(cfg, int(n)) for n in lengths])
+            mask = np.arange(t_out)[None, :] >= frame_lens[:, None]
+            n = waves.shape[0]
+            n_pad = batch_bucket(n)
+            rows = slice(None)
+            if self.mesh is not None:
+                n_pad = pad_to_multiple(n_pad, self.mesh.dp)
+                rows = self.mesh.batch_rows(n_pad)
+            if n_pad > n:
+                waves = np.concatenate([waves, np.repeat(waves[-1:], n_pad - n, 0)])
+                mask = np.concatenate([mask, np.repeat(mask[-1:], n_pad - n, 0)])
+            run = np.arange(n_pad)[rows]
+            count("w2v2.frames_useful", int(frame_lens[run[run < n]].sum()))
+            count("w2v2.frames_computed", len(run) * t_out)
+        with span("mmer.w2v2.upload"):
+            waves_d = torch.from_numpy(waves[rows]).to(self.device)
+            mask_d = torch.from_numpy(mask[rows]).to(self.device)
+        with span("mmer.w2v2.forward"):
+            emb = self.embed_rows(waves_d, mask_d)
+            if self.mesh is not None:
+                emb = self.mesh.all_gather_rows(emb)
+        with span("mmer.w2v2.fetch"):
+            return emb.float().cpu().numpy()[:n]
 
     @torch.inference_mode()
     def embed_rows(self, waves: torch.Tensor, frame_mask: torch.Tensor
@@ -380,31 +395,37 @@ class AudioEmbedder:
         return pool_embeddings(self.model(waves, frame_mask), frame_mask)
 
     def embed_batch(self, waveforms: Sequence[np.ndarray]) -> np.ndarray:
-        """list of 1-D float waveforms (16 kHz) → (B, hidden_dim) float32."""
+        """list of 1-D float waveforms (16 kHz) → (B, hidden_dim) float32.
+        Marked by the spans ``mmer.w2v2.normalise``, ``.pad`` (twice),
+        ``.upload``, ``.forward``, ``.fetch`` and ``.merge``
+        (``utils/profiling.py``), in that order."""
         cfg = self.cfg
         chunk = int(cfg.chunk_duration_s * cfg.sample_rate)
         pieces: List[np.ndarray] = []
         owners: List[int] = []
-        for bi, wave in enumerate(waveforms):
-            wave = np.asarray(wave, np.float32)
-            wave = (wave - wave.mean()) / np.sqrt(wave.var() + 1e-7)
-            for start in range(0, max(len(wave), 1), chunk):
-                piece = wave[start:start + chunk]
-                pieces.append(piece if len(piece) else np.zeros(1, np.float32))
-                owners.append(bi)
+        with span("mmer.w2v2.normalise"):
+            for bi, wave in enumerate(waveforms):
+                wave = np.asarray(wave, np.float32)
+                wave = (wave - wave.mean()) / np.sqrt(wave.var() + 1e-7)
+                for start in range(0, max(len(wave), 1), chunk):
+                    piece = wave[start:start + chunk]
+                    pieces.append(piece if len(piece) else np.zeros(1, np.float32))
+                    owners.append(bi)
 
-        batch = np.zeros((len(pieces), self._bucket_len(max(map(len, pieces)))),
-                         np.float32)
-        lengths = np.zeros(len(pieces), np.int64)
-        for i, p in enumerate(pieces):
-            batch[i, :len(p)] = p
-            lengths[i] = len(p)
+        with span("mmer.w2v2.pad"):
+            batch = np.zeros((len(pieces), self._bucket_len(max(map(len, pieces)))),
+                             np.float32)
+            lengths = np.zeros(len(pieces), np.int64)
+            for i, p in enumerate(pieces):
+                batch[i, :len(p)] = p
+                lengths[i] = len(p)
         piece_embs = self._embed_padded(batch, lengths)
 
-        owners_arr = np.asarray(owners)
-        out = np.zeros((len(waveforms), cfg.hidden_dim), np.float32)
-        for bi in range(len(waveforms)):
-            emb = piece_embs[owners_arr == bi].mean(axis=0)
-            out[bi] = emb / np.maximum(np.linalg.norm(emb), 1e-12)
+        with span("mmer.w2v2.merge"):
+            owners_arr = np.asarray(owners)
+            out = np.zeros((len(waveforms), cfg.hidden_dim), np.float32)
+            for bi in range(len(waveforms)):
+                emb = piece_embs[owners_arr == bi].mean(axis=0)
+                out[bi] = emb / np.maximum(np.linalg.norm(emb), 1e-12)
         return out
 

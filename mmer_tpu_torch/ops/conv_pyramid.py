@@ -53,6 +53,7 @@ import torch.nn.functional as F
 from mmer_tpu_torch.config import compute_dtype_limit, torch_dtype
 from mmer_tpu_torch.ops import _build
 from mmer_tpu_torch.ops.fused_blocks import LN_EPS, layer_norm
+from mmer_tpu_torch.utils.profiling import cast
 
 __all__ = ["MAX_FIRST_TAPS", "conv_encoder_reference", "fused_conv_encoder",
            "gemm_ln_gelu_reference", "gemm_weight", "halves_row_stats",
@@ -107,9 +108,9 @@ def gemm_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     (C_out, k·C_in rounded up to 16), tap-major to match contiguous input
     rows, zero-padded, in ``dtype``."""
     c_out, c_in, k = weight.shape
-    w = weight.permute(0, 2, 1).reshape(c_out, k * c_in)
+    w = cast(weight, dtype).permute(0, 2, 1).reshape(c_out, k * c_in)
     kp = -(-k * c_in // 16) * 16
-    return F.pad(w, (0, kp - k * c_in)).to(dtype).contiguous()
+    return F.pad(w, (0, kp - k * c_in)).contiguous()
 
 
 def _check_args(wave, weights, cfg) -> None:
@@ -436,14 +437,14 @@ def _per_layer_encoder(wave, weights, biases, ln_weights, ln_biases,
     t_pad = _round_up(t, 2)
     patches = _l0_patches(wave, k0, s0, t_pad, dt)
     w0 = weights[0][:, 0, :].t()                           # (k0, C)
-    w0 = F.pad(w0, (0, 0, 0, patches.shape[2] - k0)).to(dt).contiguous()
+    w0 = F.pad(cast(w0, dt), (0, 0, 0, patches.shape[2] - k0)).contiguous()
     a = _call_gemm(patches, w0, biases[0], ln_weights[0], ln_biases[0], t_pad)
     for i in range(1, len(weights)):
         c, c_in, k = weights[i].shape
         t = (t - k) // 2 + 1
         t_pad = _round_up(t, 2)
         xm = a.view(bsz, a.shape[1] // 2, 2 * c_in)        # same bytes
-        w = weights[i].permute(2, 1, 0).to(dt).contiguous()    # (k, c_in, c)
+        w = cast(weights[i], dt).permute(2, 1, 0).contiguous()    # (k, c_in, c)
         w01 = w[:2].reshape(2 * c_in, c)
         if k == 2:
             a = _call_gemm(xm, w01, biases[i], ln_weights[i], ln_biases[i], t_pad)

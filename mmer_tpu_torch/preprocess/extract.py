@@ -56,6 +56,7 @@ from mmer_tpu_torch.preprocess.audio import (audio_output_name, iter_audio_files
                                              load_waveform)
 from mmer_tpu_torch.preprocess.video import (feature_output_name,
                                              iter_video_files, load_video_chunks)
+from mmer_tpu_torch.utils.profiling import span
 
 
 def _require(device: torch.device | str) -> torch.device:
@@ -122,6 +123,10 @@ class VideoFeatureExtractor:
 
         Over a mesh each rank stages and embeds its rows of every block,
         and one all-gather a block returns the block's rows to every rank.
+
+        Each block is marked by the spans ``mmer.vivit.stage``, ``.upload``,
+        ``.forward`` and ``.fetch`` (``utils/profiling.py``); the last
+        fetch also joins the rows.
         """
         x_all = torch.as_tensor(chunks)
         n = x_all.shape[0]
@@ -141,44 +146,54 @@ class VideoFeatureExtractor:
             return host.numpy()
 
         for i, start in enumerate(range(0, n, bs)):
-            block = x_all[start:start + bs]
-            if block.shape[0] < bs:
-                block = torch.cat(
-                    [block, block[-1:].expand(bs - block.shape[0],
-                                              *block.shape[1:])])
-            block = block[rows]
-            if pipeline and staged:
-                if len(staging) < 2:
-                    staging.append(torch.empty(block.shape, dtype=block.dtype,
-                                               pin_memory=True))
-                # Slot i % 2 last held block i-2, whose result has been
-                # fetched: its copy to the device is complete.
-                staging[i % 2].copy_(block)
-                x = staging[i % 2].to(self.device, non_blocking=True)
-            else:
-                x = block.to(self.device)
-            if x.dtype == torch.uint8:
-                x = x.float() / 255.0
-            feats = self.model(x)
-            if self.mesh is not None:
-                feats = self.mesh.all_gather_rows(feats)
+            with span("mmer.vivit.stage"):
+                block = x_all[start:start + bs]
+                if block.shape[0] < bs:
+                    block = torch.cat(
+                        [block, block[-1:].expand(bs - block.shape[0],
+                                                  *block.shape[1:])])
+                block = block[rows]
+                if pipeline and staged:
+                    if len(staging) < 2:
+                        staging.append(torch.empty(block.shape, dtype=block.dtype,
+                                                   pin_memory=True))
+                    # Slot i % 2 last held block i-2, whose result has been
+                    # fetched: its copy to the device is complete.
+                    staging[i % 2].copy_(block)
+            with span("mmer.vivit.upload"):
+                if pipeline and staged:
+                    x = staging[i % 2].to(self.device, non_blocking=True)
+                else:
+                    x = block.to(self.device)
+                if x.dtype == torch.uint8:
+                    x = x.float() / 255.0
+            with span("mmer.vivit.forward"):
+                feats = self.model(x)
+                if self.mesh is not None:
+                    feats = self.mesh.all_gather_rows(feats)
+                if pipeline and on_card:
+                    host = torch.empty(feats.shape, dtype=feats.dtype,
+                                       pin_memory=True)
+                    host.copy_(feats, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record()
+                elif pipeline:
+                    host, event = feats, None
             if not pipeline:
-                out.append(feats.cpu().numpy())
+                # The last block's fetch also joins the rows.
+                with span("mmer.vivit.fetch"):
+                    out.append(feats.cpu().numpy())
+                    if start + bs >= n:
+                        return np.concatenate(out)[:n]
                 continue
-            if on_card:
-                host = torch.empty(feats.shape, dtype=feats.dtype,
-                                   pin_memory=True)
-                host.copy_(feats, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record()
-            else:
-                host, event = feats, None
+            if in_flight is not None:
+                with span("mmer.vivit.fetch"):
+                    out.append(fetch(*in_flight))
+            in_flight = (host, event)
+        with span("mmer.vivit.fetch"):
             if in_flight is not None:
                 out.append(fetch(*in_flight))
-            in_flight = (host, event)
-        if in_flight is not None:
-            out.append(fetch(*in_flight))
-        return np.concatenate(out)[:n]
+            return np.concatenate(out)[:n]
 
     def embed_cropped_frames(self, frames_u8: np.ndarray, bboxes: np.ndarray,
                              subchunk_size: int) -> np.ndarray:

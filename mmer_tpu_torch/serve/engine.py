@@ -52,6 +52,7 @@ from torch import nn
 
 from mmer_tpu_torch.config import LABELS, ModelConfig, ViViTConfig, Wav2Vec2Config
 from mmer_tpu_torch.core.buckets import batch_bucket, resolution_bucket
+from mmer_tpu_torch.utils.profiling import span
 
 # Gap-tolerant face sequences (faces.group_face_sequences semantics).
 MAX_DELAY, MAX_SEQ_FRAMES = 10, 10000
@@ -203,7 +204,8 @@ class InferenceEngine:
     by commas for an ensemble; without it the fusion weights are the JAX
     engine's seeded ones (init key ``PRNGKey(0)``), drawn without JAX.  After each :meth:`infer_frames` call
     :attr:`last_timings` holds the seconds spent in each of ``STAGES`` and
-    the frame counts.
+    the frame counts; each stage is the span ``mmer.serve.<stage>``
+    (``utils/profiling.py``), in a profiler's trace too.
     """
 
     def __init__(self, device: torch.device | str, *,
@@ -361,18 +363,17 @@ class InferenceEngine:
         win_lens = [min(window_size, n_sub - s) for s in range(n_sub)]
 
         # Per-window audio slices, embedded in one batch.
-        t0 = time.perf_counter()
-        if waveform is not None:
-            waves = []
-            for lo, hi in window_audio_slices(seq_frames_idx, win_lens,
-                                              subchunk_size, fps,
-                                              self.wav_cfg.sample_rate):
-                piece = waveform[lo:hi]
-                waves.append(piece if len(piece) else np.zeros(1, np.float32))
-            audio_embs = self.audio_embedder.embed_batch(waves)
-        else:
-            audio_embs = np.zeros((n_sub, self.model_cfg.audio_dim), np.float32)
-        timings["audio"] += time.perf_counter() - t0
+        with span("mmer.serve.audio", into=timings):
+            if waveform is not None:
+                waves = []
+                for lo, hi in window_audio_slices(seq_frames_idx, win_lens,
+                                                  subchunk_size, fps,
+                                                  self.wav_cfg.sample_rate):
+                    piece = waveform[lo:hi]
+                    waves.append(piece if len(piece) else np.zeros(1, np.float32))
+                audio_embs = self.audio_embedder.embed_batch(waves)
+            else:
+                audio_embs = np.zeros((n_sub, self.model_cfg.audio_dim), np.float32)
 
         # Windows batched by token count, batch sizes bucketed; padding rows
         # repeat the last window and are dropped.
@@ -382,29 +383,27 @@ class InferenceEngine:
         probs_all = np.zeros((n_sub, len(self.labels)), np.float32)
         importances: Dict[int, Dict] = {}
         for wl, starts in by_len.items():
-            t0 = time.perf_counter()
-            nb = len(starts)
-            video_w = np.stack([sub_feats[s:s + wl] for s in starts])
-            audio_w = audio_embs[starts]
-            video_w, audio_w = self._normalize(video_w, audio_w)
-            bp = batch_bucket(nb)
-            if bp > nb:
-                video_w = np.concatenate(
-                    [video_w, np.repeat(video_w[-1:], bp - nb, axis=0)])
-                audio_w = np.concatenate(
-                    [audio_w, np.repeat(audio_w[-1:], bp - nb, axis=0)])
-            mask = np.zeros((bp, wl), bool)
-            probs = self._fusion_probs(video_w, audio_w, mask)
-            probs_all[starts] = probs[:nb]
-            timings["fusion"] += time.perf_counter() - t0
+            with span("mmer.serve.fusion", into=timings):
+                nb = len(starts)
+                video_w = np.stack([sub_feats[s:s + wl] for s in starts])
+                audio_w = audio_embs[starts]
+                video_w, audio_w = self._normalize(video_w, audio_w)
+                bp = batch_bucket(nb)
+                if bp > nb:
+                    video_w = np.concatenate(
+                        [video_w, np.repeat(video_w[-1:], bp - nb, axis=0)])
+                    audio_w = np.concatenate(
+                        [audio_w, np.repeat(audio_w[-1:], bp - nb, axis=0)])
+                mask = np.zeros((bp, wl), bool)
+                probs = self._fusion_probs(video_w, audio_w, mask)
+                probs_all[starts] = probs[:nb]
             if explain:
                 # IG target: the window's predicted class.
-                t0 = time.perf_counter()
-                vi, ai = self._importances(video_w, audio_w, mask,
-                                           np.argmax(probs, axis=-1))
-                for row, s in enumerate(starts):
-                    importances[s] = _topk_importance(vi[row], ai[row])
-                timings["ig"] += time.perf_counter() - t0
+                with span("mmer.serve.ig", into=timings):
+                    vi, ai = self._importances(video_w, audio_w, mask,
+                                               np.argmax(probs, axis=-1))
+                    for row, s in enumerate(starts):
+                        importances[s] = _topk_importance(vi[row], ai[row])
 
         items = []
         for s in range(n_sub):
@@ -443,9 +442,8 @@ class InferenceEngine:
         def close_sequence():
             nonlocal open_stream
             if open_stream is not None and open_frames:
-                t0 = time.perf_counter()
-                sequences.append((list(open_frames), open_stream.finish()))
-                timings["crop_vivit"] += time.perf_counter() - t0
+                with span("mmer.serve.crop_vivit", into=timings):
+                    sequences.append((list(open_frames), open_stream.finish()))
             open_stream = None
             open_frames.clear()
 
@@ -454,9 +452,8 @@ class InferenceEngine:
         carried: Optional[list] = None
         for rgb in frames:
             if idx % step == 0:
-                t0 = time.perf_counter()
-                carried = self.detector.detect(rgb)
-                timings["detect"] += time.perf_counter() - t0
+                with span("mmer.serve.detect", into=timings):
+                    carried = self.detector.detect(rgb)
                 n_detected += 1
             for (x1, y1, x2, y2, conf) in (carried or []):
                 bounding_box.append({
@@ -474,9 +471,8 @@ class InferenceEngine:
                 open_frames.append(idx)
                 crgb, cbox = canonicalize_frame(
                     rgb, np.asarray(best[:4], np.float32)[None])
-                t0 = time.perf_counter()
-                open_stream.add(crgb[None], cbox)
-                timings["crop_vivit"] += time.perf_counter() - t0
+                with span("mmer.serve.crop_vivit", into=timings):
+                    open_stream.add(crgb[None], cbox)
             idx += 1
         close_sequence()
 
