@@ -66,6 +66,17 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    within ``JAX_VIDEO_BF16_FACTOR`` times JAX's own bf16-to-f32 distance of
    JAX's f32 features), with exact launch counts; the phase within
    ``JAX_PHASE_LIMIT_S``.
+3c. positional conv: the port's own kernel for Wav2Vec2's positional-conv
+   sublayer (``csrc/pos_conv.cu``; not a TPU kernel: XLA compiles the JAX
+   package's grouped conv, ``mmer_tpu/models/wav2vec2.py:185``) against its
+   plain version at both extraction forwards' shapes (64 x 249 / 499
+   frames) and the serving shapes (1 x 65 / 149 / 1,500, 2 x 499), masks
+   with a fully padded row, within ``TOLERANCES["pos_conv"]`` and the same
+   bits twice; its time (CUDA events and the launch's device time from
+   torch.profiler), the plain version's and cuDNN's ``F.conv1d`` + bias +
+   GELU + residual on pre-cast operands (timed only), beside the bound and
+   the grid plan.  Every later phase counts its launches with the other
+   kernels': one a Wav2Vec2 forward on the kernel route.
 4. main path: ``InferenceEngine`` at the full default configs with the JAX
    package's seeded weights serves three requests (``predict_chunks`` on a
    3-chunk clip with 3.2 s of audio and on a 1-chunk clip with 12 s of
@@ -296,6 +307,12 @@ TOLERANCES = {
     # one conv layer on unit-normal rows: a flipped bf16 rounding of the conv
     # sum moves an O(1) output by a few bf16 steps (tests/test_torch_cuda.py).
     "conv_layer": (0.0625, 1e-3),
+    # The positional-conv sublayer on a unit-normal stream: the same rounding
+    # points as the plain version, so only the order of an output's 8,192
+    # f32 products differs, which flips the bf16 rounding of a conv output
+    # now and then: a step or two of the rounded GELU, 2^-5 at values in
+    # [4, 8) (tests/test_torch_pos_conv.py).  An H100 read 0.0469 / 8.6e-7.
+    "pos_conv": (2 ** -4, 2 ** -14),
 }
 TOLERANCES["flash_attention_varlen"] = TOLERANCES["flash_attention"]
 # Same rounding points as the plain version (LN rounded to bf16, one rounding
@@ -396,6 +413,9 @@ SOURCES = {
                         "mmer_tpu/ops/conv_pyramid.py:97"),
     "fused_ln_matmul": ("mmer_tpu_torch/csrc/ln_matmul.cu",
                         "mmer_tpu/ops/fused_blocks.py:88"),
+    "pos_conv": ("mmer_tpu_torch/csrc/pos_conv.cu",
+                 "mmer_tpu/models/wav2vec2.py:185 (XLA's grouped nn.Conv; "
+                 "not a Pallas kernel)"),
 }
 # The probe kernels of scripts/probe_attn.py, by the kernel body each mode ran.
 SOURCES.update({
@@ -415,6 +435,7 @@ def wrappers() -> dict:
     from mmer_tpu_torch.ops.flash_attention import (flash_attention,
                                                     flash_attention_varlen)
     from mmer_tpu_torch.ops.fused_blocks import fused_ffn, fused_ln_matmul
+    from mmer_tpu_torch.ops.pos_conv import pos_conv_residual
     from mmer_tpu_torch.ops.quant import qdot_int8, qdot_u8, row_quant
 
     return {"flash_attention": flash_attention, "fused_ffn": fused_ffn,
@@ -423,6 +444,7 @@ def wrappers() -> dict:
             "flash_attention_varlen": flash_attention_varlen,
             "conv_gemm_ln_gelu": conv_pyramid._call_gemm,
             "conv_k3_ln_gelu": conv_pyramid._call_k3,
+            "pos_conv": pos_conv_residual,
             "row_quant": row_quant, "qdot_int8": qdot_int8, "qdot_u8": qdot_u8}
 
 
@@ -1017,6 +1039,81 @@ def check_kernels(dev) -> dict:
 
 
 
+# The positional conv's shapes: both extraction forwards' (64 rows of the 5
+# and 10 s buckets' frames) and the serving requests' (a 3 s clip, a ragged
+# 65 frames, five windows of up to 6 s, a 10 s and a 2 s piece).
+POS_CONV_SHAPES = ((64, 249), (64, 499), (1, 149), (1, 65), (1, 1500), (2, 499))
+
+
+def check_pos_conv(dev) -> dict:
+    """Phase 3c: the positional-conv kernel against its plain version at
+    POS_CONV_SHAPES, timed beside its bound, the plain version and cuDNN."""
+    import torch
+    import torch.nn.functional as F
+
+    from mmer_tpu_torch.config import Wav2Vec2Config
+    from mmer_tpu_torch.ops.pos_conv import pos_conv_reference, pos_conv_residual
+    from mmer_tpu_torch.scripts.timing import kernel_device_ms, tensor_bytes
+
+    cfg = Wav2Vec2Config()
+    d, groups, taps = cfg.hidden_dim, cfg.num_conv_pos_embedding_groups, \
+        cfg.num_conv_pos_embeddings
+    g = torch.Generator(device=dev)
+    r = {}
+    for i, (rows, frames) in enumerate(POS_CONV_SHAPES):
+        g.manual_seed(i)
+        weight = torch.randn(d, d // groups, taps, generator=g, device=dev) \
+            * (d // groups * taps) ** -0.5
+        bias = 0.1 * torch.randn(d, generator=g, device=dev)
+        x = torch.randn(rows, frames, d, generator=g, device=dev)
+        keep = torch.randint(1, frames + 1, (rows,), generator=g, device=dev)
+        keep[0] = frames
+        if rows > 1:
+            keep[-1] = 0                    # a fully padded row
+        mask = torch.arange(frames, device=dev)[None, :] >= keep[:, None]
+        tag = "" if i == 0 else f"_{rows}x{frames}"
+        shape = f"x ({rows},{frames},{d}) f32, {groups} groups of {taps} taps"
+        log(f"kernel pos_conv, {shape}")
+        args = (x, mask, weight, bias, cfg)
+        with torch.inference_mode():
+            got = pos_conv_residual(*args)
+            plan = pos_conv_residual.last_plan
+            want = pos_conv_reference(*args)
+            torch.cuda.synchronize()
+            r2 = _compare("pos_conv", got, want)
+            _same_bits("pos_conv", got, pos_conv_residual(*args))
+            # cuDNN's grouped conv with the bias, GELU and the residual on
+            # operands cast and laid out beforehand: the library's time for
+            # the sublayer (the plain version also zeroes, casts and trims).
+            xt = x.masked_fill(mask[:, :, None], 0.0).to(torch.bfloat16).transpose(1, 2)
+            wb, bb = weight.to(torch.bfloat16), bias.to(torch.bfloat16)
+            trim = taps % 2 == 0
+
+            def library():
+                y = F.conv1d(xt, wb, bb, padding=taps // 2, groups=groups)
+                return x + F.gelu(y[:, :, :-1] if trim else y).transpose(1, 2).float()
+
+            r.update({f"max_abs_err{tag}": r2["max_abs_err"],
+                      f"mean_abs_err{tag}": r2["mean_abs_err"],
+                      f"plan{tag}": list(plan),
+                      f"ms{tag}": cuda_ms(lambda: pos_conv_residual(*args), 20),
+                      f"device_ms{tag}": kernel_device_ms(
+                          lambda: pos_conv_residual(*args), "pos_conv_gelu", 10, 1)[0],
+                      f"plain_ms{tag}": cuda_ms(lambda: pos_conv_reference(*args), 3),
+                      f"library_ms{tag}": cuda_ms(library, 3),
+                      f"shape{tag}": shape})
+        r.update(bound(2.0 * rows * frames * d * (d // groups) * taps,
+                       2 * tensor_bytes(x) + tensor_bytes(mask)
+                       + weight.numel() * 2 + d * 2, tag))
+        log(f"time pos_conv: kernel {r['ms' + tag]:.4f} ms ({r['device_ms' + tag]:.4f} "
+            f"ms device time), plain {r['plain_ms' + tag]:.4f} ms, cuDNN conv + bias "
+            f"+ GELU + residual {r['library_ms' + tag]:.4f} ms, bound "
+            f"{r['bound_ms' + tag]:.4f} ms by {r['bound_by' + tag]}, plan (tile, "
+            f"blocks) {tuple(plan)} ({shape})")
+        del x, mask, got, want, xt
+    return {"pos_conv": r}
+
+
 def check_probe_kernels(dev) -> dict:
     """``fused_ln_matmul`` and every mode of ``attention_variant`` against
     their plain versions at the profile and probe scripts' shapes."""
@@ -1368,8 +1465,8 @@ def run_profile_scripts() -> dict:
     # Kernel launches of one call of each leg (ViViT legs first).
     per_call = [{"flash_attention": depth, "fused_ffn": depth}, {},
                 {"flash_attention": 1}, {}, {"fused_ffn": depth},
-                {"fused_conv_encoder": convs, "fused_ffn": layers},
-                {"fused_conv_encoder": convs}, {"fused_ffn": layers}]
+                {"fused_conv_encoder": convs, "fused_ffn": layers, "pos_conv": 1},
+                {"fused_conv_encoder": convs}, {"fused_ffn": layers, "pos_conv": 1}]
     want = {k: 0 for k in comp}
     for row, kernels_of in zip(legs, per_call):
         for k, n in kernels_of.items():
@@ -1408,7 +1505,7 @@ def run_component_probes() -> dict:
     wcfg, depth = Wav2Vec2Config(), ViViTConfig().depth
     convs, layers = len(wcfg.conv_dims), wcfg.num_layers
     k3 = sum(k == 3 for k in wcfg.conv_kernels)
-    encoder = {"fused_conv_encoder": convs, "fused_ffn": layers}
+    encoder = {"fused_conv_encoder": convs, "fused_ffn": layers, "pos_conv": 1}
     vivit = {"flash_attention": depth, "fused_ffn": depth}
     # script, arguments, the kernel launches of one call of each row's
     # function (None: the row makes no call).
@@ -1672,9 +1769,10 @@ def run_int8_path(dev) -> dict:
             "int8-flash": {**int8_vivit, "flash_attention": depth},
             "int8-plain-attn": int8_vivit}[row["name"]],
         "probe_int8_w2v2": lambda row: {
-            "bf16": {"fused_conv_encoder": convs, "fused_ffn": layers},
+            "bf16": {"fused_conv_encoder": convs, "fused_ffn": layers,
+                     "pos_conv": 1},
             "int8": {"fused_conv_encoder": convs, "qdot_int8": gemms_w,
-                     "row_quant": gemms_w}}[row["name"]]}
+                     "row_quant": gemms_w, "pos_conv": 1}}[row["name"]]}
     total, results = {k: 0 for k in read_launches()}, {}
     for script in (probe_int8, probe_int8_vivit, probe_int8_w2v2):
         name = script.__name__.rsplit(".", 1)[1]
@@ -2161,6 +2259,7 @@ def main() -> int:
     kernels.update(phase("3 probe kernels", check_probe_kernels, dev))
     stream = phase("3a random stream", run_random_stream, dev)
     phase("3b JAX weights", run_jax_weights, dev)
+    kernels.update(phase("3c positional conv", check_pos_conv, dev))
     serving = phase("4 main path", run_main_path, dev)
     file_path = phase("4b serving file path", run_serving_file_path, dev)
     cold_start = phase("4c cold start", run_cold_start)
@@ -2365,11 +2464,11 @@ def run_jax_weights(dev, fixture: str | None = None) -> None:
             params=astate), zero),
         "audio default route": (audio, {
             **zero, "fused_conv_encoder": len(wcfg.conv_dims),
-            "fused_ffn": wcfg.num_layers}),
+            "fused_ffn": wcfg.num_layers, "pos_conv": 1}),
         "audio all-kernel route": (AudioEmbedder(
             wcfg, device=dev, params=astate, use_flash_attn=True, mega=False), {
             **zero, "flash_attention_varlen": wcfg.num_layers,
-            "fused_ffn": wcfg.num_layers,
+            "fused_ffn": wcfg.num_layers, "pos_conv": 1,
             "conv_gemm_ln_gelu": len(wcfg.conv_dims) - n_k3,
             "conv_k3_ln_gelu": n_k3}),
         "audio bf16 plain": (AudioEmbedder(
@@ -2528,6 +2627,7 @@ def run_main_path(dev) -> dict:
         "flash_attention": vivit_batches * vcfg.depth,
         "fused_ffn": vivit_batches * vcfg.depth + w2v2_forwards * wcfg.num_layers,
         "fused_conv_encoder": w2v2_forwards * len(wcfg.conv_dims),
+        "pos_conv": w2v2_forwards,
     }
     log(f"launch counts {launches}, expected {expected}")
     if launches != expected:
@@ -2941,7 +3041,8 @@ def run_serving_file_path(dev) -> dict:
                     "flash_attention": vivit_batches * vcfg.depth,
                     "fused_ffn": vivit_batches * vcfg.depth
                     + len(seqs) * wcfg.num_layers,
-                    "fused_conv_encoder": len(seqs) * len(wcfg.conv_dims)}
+                    "fused_conv_encoder": len(seqs) * len(wcfg.conv_dims),
+                    "pos_conv": len(seqs)}
         probs = np.asarray(res["probabilities"], np.float64).reshape(-1, 6)
         log(f"serving request {name}: boxes on {hit * 100:.1f} % of "
             f"{len(face_frames)} face frames, on {len(boxed & absent)} of "
@@ -3165,7 +3266,8 @@ def run_extraction(dev) -> dict:
         forwards = -(-len(files) // 64)      # one Wav2Vec2 forward per batch
         expected = {k: 0 for k in cli_launches}
         expected.update(fused_ffn=forwards * wcfg.num_layers,
-                        fused_conv_encoder=forwards * len(wcfg.conv_dims))
+                        fused_conv_encoder=forwards * len(wcfg.conv_dims),
+                        pos_conv=forwards)
         log(f"extraction CLI: {len(files)} files in {cli_s:.2f} s (model set-up "
             f"included); launch counts {cli_launches}, expected {expected}")
         if cli_launches != expected:
@@ -3230,7 +3332,7 @@ def run_extraction(dev) -> dict:
             names[0]: dict(expected),
             names[1]: {**{k: 0 for k in expected},
                        "flash_attention_varlen": forwards * n_layers,
-                       "fused_ffn": forwards * n_layers,
+                       "fused_ffn": forwards * n_layers, "pos_conv": forwards,
                        "conv_gemm_ln_gelu": forwards * (n_conv - n_k3),
                        "conv_k3_ln_gelu": forwards * n_k3},
             names[2]: {k: 0 for k in expected},

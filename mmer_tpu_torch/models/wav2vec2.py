@@ -8,8 +8,11 @@ length-masked mean pool → L2 norm → (1024,):
   :func:`~mmer_tpu_torch.ops.conv_pyramid.fused_conv_encoder` (one CUDA
   kernel launch per layer on the card, on either of its two routes);
 - feature projection LayerNorm(512) → Linear(1024), float32 stream;
-- grouped positional conv (kernel 128, 16 groups, weight norm folded), the
-  trailing frame trimmed for the even kernel, GELU, residual;
+- the positional-conv sublayer (padded frames zeroed, grouped conv of
+  kernel 128 in 16 groups with weight norm folded, the trailing frame
+  trimmed for the even kernel, GELU, residual) through
+  :func:`~mmer_tpu_torch.ops.pos_conv.pos_conv_residual` (one CUDA kernel
+  launch on the card);
 - 24 stable-layer-norm layers: masked attention with a finite −1e9 key
   bias (a fully masked row comes out uniform, not NaN), plain or, with
   ``use_flash_attn``, through
@@ -31,7 +34,6 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from mmer_tpu_torch.config import Wav2Vec2Config, compute_dtype_limit, torch_dtype
@@ -46,6 +48,8 @@ from mmer_tpu_torch.ops.conv_pyramid import (conv_encoder_reference,
                                              fused_conv_encoder, supports_config)
 from mmer_tpu_torch.ops.flash_attention import attention_limits, flash_attention
 from mmer_tpu_torch.ops.fused_blocks import ffn_limits, ffn_reference, fused_ffn
+from mmer_tpu_torch.ops.pos_conv import (pos_conv_limits, pos_conv_reference,
+                                         pos_conv_residual)
 from mmer_tpu_torch.utils.profiling import cast, count, span
 
 
@@ -60,13 +64,14 @@ def feat_extract_output_length(cfg: Wav2Vec2Config, input_length: int) -> int:
 def kernel_limits(cfg: Wav2Vec2Config, use_kernels: bool = True,
                   use_flash_attn: bool = False, mega: bool = True) -> str | None:
     """The first limit of the CUDA kernels that a Wav2Vec2 config breaks on
-    the routes named (with ``use_kernels`` the conv encoder on route ``mega``
-    and the FFN, with ``use_flash_attn`` attention), as a sentence naming it;
-    None if it breaks none.  The plain path takes any config."""
+    the routes named (with ``use_kernels`` the conv encoder on route
+    ``mega``, the FFN and the positional conv, with ``use_flash_attn``
+    attention), as a sentence naming it; None if it breaks none.  The plain
+    path takes any config."""
     limits = []
     if use_kernels:
         limits += [conv_pyramid.kernel_limits(cfg, mega),
-                   ffn_limits(cfg.hidden_dim, cfg.ffn_dim)]
+                   ffn_limits(cfg.hidden_dim, cfg.ffn_dim), pos_conv_limits(cfg)]
     if use_flash_attn:
         limits += [compute_dtype_limit(cfg),
                    attention_limits(cfg.hidden_dim // cfg.num_heads)]
@@ -114,7 +119,10 @@ class ConvFeatureEncoder(nn.Module):
 
 
 class PosConvEmbed(nn.Module):
-    """Grouped positional convolution (weight norm folded into the kernel)."""
+    """The positional conv's params (weight norm folded into the kernel):
+    an ``nn.Conv1d`` of ``num_conv_pos_embeddings`` taps in
+    ``num_conv_pos_embedding_groups`` groups, whose weight and bias
+    ``pos_conv_residual`` takes.  ``forward`` is the whole sublayer."""
 
     def __init__(self, cfg: Wav2Vec2Config, *, device: torch.device | str):
         super().__init__()
@@ -124,21 +132,13 @@ class PosConvEmbed(nn.Module):
                               groups=cfg.num_conv_pos_embedding_groups,
                               device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = torch_dtype(self.cfg)
-        xt = x.to(dt).transpose(1, 2)
-        w, b = cast(self.conv.weight, dt), cast(self.conv.bias, dt)
-        if xt.device.type == "cpu" and dt == torch.bfloat16:
-            # PyTorch's CPU bf16 grouped conv1d returns wrong values (rel-L2
-            # ~1 against the f32 conv of the same operands, torch 2.13).  The
-            # same rounding points: bf16 operands, f32 sums, bf16 output.
-            xt, w = xt.float(), w.float()
-        # The bias is added to the rounded conv output, as flax's Conv does.
-        y = F.conv1d(xt, w, padding=self.conv.padding,
-                     groups=self.conv.groups).to(dt) + b[:, None]
-        if self.cfg.num_conv_pos_embeddings % 2 == 0:
-            y = y[:, :, :-1]
-        return F.gelu(y).transpose(1, 2)
+    def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None,
+                use_kernels: bool = True) -> torch.Tensor:
+        """``x`` (B, T, D) float32 → ``x`` with its padded frames zeroed plus
+        the GELU of the conv: through the kernel with ``use_kernels``, else
+        the plain version."""
+        sublayer = pos_conv_residual if use_kernels else pos_conv_reference
+        return sublayer(x, pad_mask, self.conv.weight, self.conv.bias, self.cfg)
 
 
 class EncoderLayer(nn.Module):
@@ -232,6 +232,7 @@ class Wav2Vec2Encoder(nn.Module):
         (:func:`kernel_limits`)."""
         super().__init__()
         self.cfg = cfg
+        self.use_kernels = use_kernels
         flash = use_kernels if use_flash_attn is None else use_flash_attn
         refuse_kernel_limit("Wav2Vec2Encoder", device,
                             kernel_limits(cfg, use_kernels, flash, mega))
@@ -259,10 +260,8 @@ class Wav2Vec2Encoder(nn.Module):
         transformer layers → (B, T, hidden_dim) f32."""
         dt = torch_dtype(self.cfg)
         x = dense(self.proj_norm(feats), self.proj, dt).float()
-        # Zero padded frames before the (full-context) positional conv.
-        if frame_pad_mask is not None:
-            x = x.masked_fill(frame_pad_mask[:, :, None], 0.0)
-        x = x + self.pos_conv(x).float()
+        # Padded frames are zeroed before the (full-context) positional conv.
+        x = self.pos_conv(x, frame_pad_mask, self.use_kernels)
         for layer in self.layers:
             x = layer(x, frame_pad_mask)
         return self.final_norm(x)

@@ -6,8 +6,9 @@ q/k/v (one (d, 3d) table a layer, the three weights concatenated once),
 attention-out and both FFN matmuls, with per-token activation scales and
 per-output-channel weight scales.  Everything else is the float encoder's
 own modules and params: the conv feature encoder (``fused_conv_encoder`` on
-the card, the plain version with ``use_kernels=False``), the positional
-conv applied to the float32 stream and cast back, the LayerNorms (eps 1e-6,
+the card, the plain version with ``use_kernels=False``), the positional-conv
+sublayer on the float32 stream (``pos_conv_residual``, likewise), the
+LayerNorms (eps 1e-6,
 ``rsqrt`` of the biased variance) and every bias.  Attention is float32
 products and softmax with the finite −1e9 key bias, as JAX's ``einsum``\\ s:
 no kernel computes it there either (TF32 stays off on the card, PyTorch's
@@ -74,10 +75,11 @@ def quant_w2v2_apply(qparams: dict, model: Wav2Vec2Encoder, wave: torch.Tensor,
     The JAX forward step for step (stable-layer-norm: pre-norm layers,
     padded frames zeroed before the positional conv, the −1e9 finite key
     bias, final LayerNorm).  ``use_kernels`` runs the int8 products through
-    ``csrc/qdot.cu`` (on a CUDA tensor) and the conv stack through
+    ``csrc/qdot.cu`` (on a CUDA tensor), the conv stack through
     ``fused_conv_encoder`` on the route of ``model``'s conv encoder (the
-    default, ``mega``, is JAX's ``use_pyramid=True``); ``False`` runs the
-    plain versions of both."""
+    default, ``mega``, is JAX's ``use_pyramid=True``) and the positional
+    conv through ``pos_conv_residual``; ``False`` runs the plain versions of
+    all three."""
     cfg = model.cfg
     h, d = cfg.num_heads, cfg.hidden_dim
     hd = d // h
@@ -91,9 +93,7 @@ def quant_w2v2_apply(qparams: dict, model: Wav2Vec2Encoder, wave: torch.Tensor,
 
     x = _layernorm(feats, model.proj_norm)
     x = dot(x, qparams["proj_q"], qparams["proj_s"], model.proj.bias)
-    if frame_pad_mask is not None:
-        x = x.masked_fill(frame_pad_mask[:, :, None], 0.0)
-    x = x + model.pos_conv(x).float()
+    x = model.pos_conv(x, frame_pad_mask, use_kernels)
 
     mask_bias = None
     if frame_pad_mask is not None:

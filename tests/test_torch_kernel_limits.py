@@ -3,10 +3,12 @@
 The JAX kernels take any width; the CUDA kernels take the default ones (a
 bf16 compute dtype, 512 conv channels, a first conv layer of at most 16 taps
 on the whole-pyramid route, FFN and LN-matmul widths D in {768, 1024} with M a
-multiple of 256 and N of 64, attention head dim 64).  Each family has a pure
+multiple of 256 and N of 64, attention head dim 64, positional-conv groups of
+64 channels and at most 128 taps).  Each family has a pure
 function that names the first of these limits a config breaks
 (``conv_pyramid.kernel_limits``, ``fused_blocks.ffn_limits`` and
-``ln_matmul_limits``, ``flash_attention.attention_limits``, and per model
+``ln_matmul_limits``, ``flash_attention.attention_limits``,
+``pos_conv.pos_conv_limits``, and per model
 ``wav2vec2.kernel_limits`` and ``vivit.kernel_limits``), and the models call
 them when they are built for a CUDA device with their kernels on, so that a
 config the kernels do not take raises ``ValueError`` at construction, not in
@@ -30,6 +32,7 @@ from mmer_tpu_torch.ops import conv_pyramid
 from mmer_tpu_torch.ops.conv_pyramid import MAX_FIRST_TAPS, supports_config
 from mmer_tpu_torch.ops.flash_attention import attention_limits
 from mmer_tpu_torch.ops.fused_blocks import ffn_limits, ln_matmul_limits
+from mmer_tpu_torch.ops.pos_conv import pos_conv_limits
 from mmer_tpu_torch.preprocess.extract import VideoFeatureExtractor
 
 # The tiny configs of tests/test_torch_models.py, in bf16.
@@ -55,6 +58,7 @@ def test_default_configs_break_no_limit():
     assert attention_limits(v.dim_head) is None
     assert attention_limits(w.hidden_dim // w.num_heads) is None
     assert ln_matmul_limits(768, 2304) is None and ln_matmul_limits(1024, 3072) is None
+    assert pos_conv_limits(w) is None
 
 
 @pytest.mark.parametrize("family,kw,words", [
@@ -65,6 +69,9 @@ def test_default_configs_break_no_limit():
     ("wav2vec2", dict(W2V2_TINY), "512 channels"),
     ("wav2vec2", dict(hidden_dim=512, num_heads=8), "D in (768, 1024)"),
     ("wav2vec2", dict(ffn_dim=4000), "M a multiple of 256"),
+    ("wav2vec2", dict(num_conv_pos_embedding_groups=8), "groups of 64 channels"),
+    ("wav2vec2", dict(num_conv_pos_embedding_groups=32), "groups of 64 channels"),
+    ("wav2vec2", dict(num_conv_pos_embeddings=160), "at most 128 taps"),
     ("wav2vec2_flash", dict(num_heads=8), "head dim 64"),
     ("vivit", dict(VIVIT_TINY), "head dim 64"),
     ("vivit", dict(dim_head=64, heads=1, dim=64, mlp_dim=128), "D in (768, 1024)"),
@@ -103,6 +110,11 @@ def test_a_400_tap_first_layer_takes_the_per_layer_route():
      "ConvFeatureEncoder: the mega=True layer-0 kernel"),
     (lambda: Wav2Vec2Encoder(Wav2Vec2Config(hidden_dim=512, num_heads=8), device="cuda"),
      "Wav2Vec2Encoder: the FFN kernel takes D"),
+    (lambda: Wav2Vec2Encoder(Wav2Vec2Config(num_conv_pos_embedding_groups=8),
+                             device="cuda"),
+     "Wav2Vec2Encoder: the positional-conv kernel takes groups of 64 channels"),
+    (lambda: AudioEmbedder(Wav2Vec2Config(num_conv_pos_embeddings=129), device="cuda"),
+     "the positional-conv kernel takes at most 128 taps"),
     (lambda: AudioEmbedder(Wav2Vec2Config(num_heads=8), device="cuda",
                            use_flash_attn=True),
      "Wav2Vec2Encoder: the attention kernel takes head dim 64"),
