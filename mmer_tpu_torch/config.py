@@ -180,6 +180,19 @@ class Wav2Vec2Config:
     compute_dtype: str = "bfloat16"
 
 
+@dataclass(frozen=True)
+class WavLMConfig(Wav2Vec2Config):
+    """WavLM-Large (HF ``microsoft/wavlm-large``, arXiv:2110.13900): the
+    Wav2Vec2-large encoder at the same widths, with a conv encoder without
+    biases and a gated relative position bias in every layer's attention
+    (``num_buckets`` buckets of the key's offset from the query, log-spaced
+    beyond half of a direction's buckets up to ``max_bucket_distance``)."""
+
+    num_buckets: int = 320
+    max_bucket_distance: int = 800
+    conv_bias: bool = False
+
+
 def asdict(cfg: Any) -> dict:
     return dataclasses.asdict(cfg)
 

@@ -23,6 +23,15 @@ length-masked mean pool → L2 norm → (1024,):
   :func:`~mmer_tpu_torch.ops.fused_blocks.fused_ffn`;
 - a final LayerNorm.
 
+A :class:`~mmer_tpu_torch.config.WavLMConfig` builds WavLM on the same
+modules: no conv biases (the kernels take zeros made once at build), and a
+gated relative position bias in each layer's plain attention.  Layer 0
+holds the ``(num_buckets, H)`` embedding ``E``; once a forward the table
+``rel[h, q, k] = E[bucket(k - q), h]`` is built and every layer adds
+``g[b, h, q] · rel[h, q, k]`` to its float32 scores before the key mask,
+``g`` a gate from the query's own normed frame (:meth:`EncoderLayer.position_gate`).
+The flash route takes no such bias and is refused for it.
+
 Params stay float32; GEMM operands and the FFN biases are rounded to the
 compute dtype; the residual stream stays float32.
 """
@@ -34,9 +43,11 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from mmer_tpu_torch.config import Wav2Vec2Config, compute_dtype_limit, torch_dtype
+from mmer_tpu_torch.config import (Wav2Vec2Config, WavLMConfig, compute_dtype_limit,
+                                   torch_dtype)
 from mmer_tpu_torch.core.buckets import batch_bucket
 from mmer_tpu_torch.core.mesh import Mesh, active_mesh, pad_to_multiple
 from mmer_tpu_torch.models import jax_init
@@ -61,6 +72,33 @@ def feat_extract_output_length(cfg: Wav2Vec2Config, input_length: int) -> int:
     return max(length, 0)
 
 
+def relative_position_bucket(rel: torch.Tensor, num_buckets: int,
+                             max_distance: int) -> torch.Tensor:
+    """WavLM's bucket of each relative position ``rel = k - q`` (integer
+    tensor): half of ``num_buckets`` a direction, the upper half for
+    ``rel > 0``; within a half, ``|rel|`` itself below a quarter of
+    ``num_buckets``, from there ``quarter + ⌊ln(|rel| / quarter) /
+    ln(max_distance / quarter) · quarter⌋`` in float32, capped at the
+    half's last bucket (HF ``WavLMAttention._relative_positions_bucket``)."""
+    half = num_buckets // 2
+    exact = half // 2
+    dist = rel.abs()
+    far = (torch.log(dist.clamp_min(1).float() / exact) / math.log(max_distance / exact)
+           * (half - exact)).to(torch.long) + exact
+    near = dist < exact
+    return (rel > 0).long() * half + torch.where(near, dist, far.clamp_max(half - 1))
+
+
+def position_bias_limit(cfg: Wav2Vec2Config) -> str | None:
+    """The flash route's limit on a config with a relative position bias,
+    as a sentence; None for a config without one."""
+    if isinstance(cfg, WavLMConfig):
+        return ("flash attention takes no relative position bias, and WavLM's "
+                "gated bias would be dropped; the plain route "
+                "(use_flash_attn=False) computes it")
+    return None
+
+
 def kernel_limits(cfg: Wav2Vec2Config, use_kernels: bool = True,
                   use_flash_attn: bool = False, mega: bool = True) -> str | None:
     """The first limit of the CUDA kernels that a Wav2Vec2 config breaks on
@@ -73,7 +111,7 @@ def kernel_limits(cfg: Wav2Vec2Config, use_kernels: bool = True,
         limits += [conv_pyramid.kernel_limits(cfg, mega),
                    ffn_limits(cfg.hidden_dim, cfg.ffn_dim), pos_conv_limits(cfg)]
     if use_flash_attn:
-        limits += [compute_dtype_limit(cfg),
+        limits += [position_bias_limit(cfg), compute_dtype_limit(cfg),
                    attention_limits(cfg.hidden_dim // cfg.num_heads)]
     return next((limit for limit in limits if limit), None)
 
@@ -82,7 +120,9 @@ class ConvFeatureEncoder(nn.Module):
     """Raw waveform (B, L) → frame features (B, T, conv_dims[-1]).
     ``mega`` picks the route of ``fused_conv_encoder`` (whole-pyramid port or
     the per-layer merged-view kernels).  On a CUDA device with
-    ``use_kernels`` a config the kernels do not take is refused here."""
+    ``use_kernels`` a config the kernels do not take is refused here.  A
+    config with ``conv_bias`` false (WavLM) has convs without biases, and
+    the conv biases passed on are zeros made once here."""
 
     def __init__(self, cfg: Wav2Vec2Config, *, device: torch.device | str,
                  use_kernels: bool = True, mega: bool = True):
@@ -98,8 +138,13 @@ class ConvFeatureEncoder(nn.Module):
         self.mega = mega
         c_in = 1
         convs, norms = [], []
+        bias = getattr(cfg, "conv_bias", True)
+        if not bias:
+            self.register_buffer("zero_bias", torch.zeros(max(cfg.conv_dims),
+                                                          device=device),
+                                 persistent=False)
         for dim, k, s in zip(cfg.conv_dims, cfg.conv_kernels, cfg.conv_strides):
-            convs.append(nn.Conv1d(c_in, dim, k, stride=s, device=device))
+            convs.append(nn.Conv1d(c_in, dim, k, stride=s, bias=bias, device=device))
             norms.append(LayerNorm(dim, device=device))
             c_in = dim
         self.convs = nn.ModuleList(convs)
@@ -108,7 +153,9 @@ class ConvFeatureEncoder(nn.Module):
     def conv_params(self) -> tuple:
         """(conv weights, conv biases, LN weights, LN biases), the argument
         lists of ``fused_conv_encoder`` and ``conv_encoder_reference``."""
-        return ([c.weight for c in self.convs], [c.bias for c in self.convs],
+        return ([c.weight for c in self.convs],
+                [self.zero_bias[:c.out_channels] if c.bias is None else c.bias
+                 for c in self.convs],
                 [n.weight for n in self.norms], [n.bias for n in self.norms])
 
     def forward(self, wave: torch.Tensor) -> torch.Tensor:
@@ -142,11 +189,15 @@ class PosConvEmbed(nn.Module):
 
 
 class EncoderLayer(nn.Module):
-    """Stable-layer-norm transformer layer (pre-norm, biased projections)."""
+    """Stable-layer-norm transformer layer (pre-norm, biased projections).
+    For a :class:`WavLMConfig` it also holds its position gate: a shared
+    (8, head_dim) ``gru_rel_pos_linear`` and a per-head ``gru_rel_pos_const``
+    (HF ``WavLMAttention``'s names), and with ``rel_embed`` (layer 0) the
+    ``(num_buckets, H)`` embedding ``rel_attn_embed`` of the table."""
 
     def __init__(self, cfg: Wav2Vec2Config, *, device: torch.device | str,
                  use_kernels: bool = True, use_flash_attn: bool = False,
-                 use_fused_qkv: bool = False):
+                 use_fused_qkv: bool = False, rel_embed: bool = False):
         super().__init__()
         self.cfg = cfg
         self.use_kernels = use_kernels
@@ -161,6 +212,40 @@ class EncoderLayer(nn.Module):
         self.norm_ffn = LayerNorm(d, device=device)
         self.ffn_in = nn.Linear(d, cfg.ffn_dim, device=device)
         self.ffn_out = nn.Linear(cfg.ffn_dim, d, device=device)
+        if isinstance(cfg, WavLMConfig):
+            self.gru_rel_pos_linear = nn.Linear(d // cfg.num_heads, 8, device=device)
+            self.gru_rel_pos_const = nn.Parameter(torch.ones(cfg.num_heads,
+                                                             device=device))
+            if rel_embed:
+                self.rel_attn_embed = nn.Embedding(cfg.num_buckets, cfg.num_heads,
+                                                   device=device)
+
+    def position_bias(self, t: int, device: torch.device) -> torch.Tensor:
+        """Layer 0's ungated table (H, t, t) float32 for ``t`` frames:
+        ``rel[h, q, k] = E[bucket(k - q), h]``.  Counts its bytes under
+        ``wavlm.bias_bytes``."""
+        pos = torch.arange(t, device=device)
+        buckets = relative_position_bucket(pos[None, :] - pos[:, None],
+                                           self.cfg.num_buckets,
+                                           self.cfg.max_bucket_distance)
+        rel = self.rel_attn_embed.weight.t()[:, buckets]
+        count("wavlm.bias_bytes", rel.numel() * rel.element_size())
+        return rel
+
+    def position_gate(self, y: torch.Tensor) -> torch.Tensor:
+        """The gate (B, H, T, 1) float32 of the layer's position bias from
+        its normed stream ``y`` (B, T, d) float32: each head's slice through
+        ``gru_rel_pos_linear``, its 8 outputs summed in two groups of four,
+        ``a, c = σ(·)``, ``g = a · (c · κ_h − 1) + 2``.  Counts the gate's
+        bytes under ``wavlm.bias_bytes``."""
+        b, t, d = y.shape
+        h = self.cfg.num_heads
+        p = F.linear(y.reshape(b, t, h, d // h), self.gru_rel_pos_linear.weight,
+                     self.gru_rel_pos_linear.bias)
+        a, c = torch.sigmoid(p.reshape(b, t, h, 2, 4).sum(-1)).unbind(-1)
+        g = a * (c * self.gru_rel_pos_const - 1.0) + 2.0
+        count("wavlm.bias_bytes", g.numel() * g.element_size())
+        return g.transpose(1, 2).unsqueeze(-1)
 
     def project_qkv(self, yd: torch.Tensor) -> tuple:
         """q, k, v (B, T, d) in the compute dtype from the normed stream
@@ -177,11 +262,13 @@ class EncoderLayer(nn.Module):
         qkv = torch.matmul(yd.to(dt), w) + bias
         return qkv.split(yd.shape[-1], dim=-1)
 
-    def _attention(self, yd: torch.Tensor,
-                   pad_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    def _attention(self, yd: torch.Tensor, pad_mask: Optional[torch.Tensor],
+                   gated: Optional[tuple] = None) -> torch.Tensor:
         """Attention over the projected heads (:meth:`project_qkv`).  Plain,
         as the JAX ``_xla_attention``: f32 scores, −1e9 on padded keys, f32
-        softmax, probabilities rounded to the compute dtype, f32 output.  With
+        softmax, probabilities rounded to the compute dtype, f32 output;
+        ``gated`` = (gate (B, H, T, 1), table (H, T, T)) adds their product
+        to the scores in place, before the key mask (WavLM).  With
         ``use_flash_attn``: q, k, v go to ``flash_attention`` in the compute
         dtype with one key length per clip (frame pads are a suffix, so a
         count is a complete mask) and the output comes back in that dtype."""
@@ -199,16 +286,22 @@ class EncoderLayer(nn.Module):
             return out.transpose(1, 2).reshape(b, t, d)
         q, k, v = q.float(), k.float(), v.float()
         scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
+        if gated is not None:
+            scores.addcmul_(*gated)
         if pad_mask is not None:
             scores = scores + pad_mask[:, None, None, :].float() * -1e9
         probs = torch.softmax(scores, dim=-1)
         out = torch.matmul(probs.to(dt).float(), v)          # (B, H, T, hd)
         return out.transpose(1, 2).reshape(b, t, d)
 
-    def forward(self, x: torch.Tensor,
-                pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None,
+                rel: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``rel``: layer 0's table (:meth:`position_bias`) for a WavLM
+        layer, which gates it with its own :meth:`position_gate`."""
         dt = torch_dtype(self.cfg)
-        attn = self._attention(self.norm_attn(x).to(dt), pad_mask)
+        y = self.norm_attn(x)
+        gated = None if rel is None else (self.position_gate(y), rel)
+        attn = self._attention(y.to(dt), pad_mask, gated)
         attn = dense(attn, self.out, dt)
         x = x + attn.to(x.dtype)
         ffn = fused_ffn if self.use_kernels else ffn_reference
@@ -225,15 +318,21 @@ class Wav2Vec2Encoder(nn.Module):
                  use_flash_attn: Optional[bool] = None, mega: bool = True,
                  use_fused_qkv: bool = False):
         """``use_flash_attn=None`` follows ``use_kernels``, as the JAX
-        encoder's follows ``use_pallas``; an explicit False keeps the conv and
-        FFN kernels while attention stays plain.  ``use_fused_qkv`` computes
-        every layer's q, k and v in one product (:class:`EncoderLayer`).  On a
-        CUDA device a config the chosen kernels do not take is refused here
-        (:func:`kernel_limits`)."""
+        encoder's follows ``use_pallas`` (a WavLM config's stays plain); an
+        explicit False keeps the conv and FFN kernels while attention stays
+        plain.  ``use_fused_qkv`` computes every layer's q, k and v in one
+        product (:class:`EncoderLayer`).  On a CUDA device a config the chosen
+        kernels do not take is refused here (:func:`kernel_limits`); flash
+        attention for a config with a position bias is refused on any
+        device, since no route may drop the bias."""
         super().__init__()
         self.cfg = cfg
         self.use_kernels = use_kernels
-        flash = use_kernels if use_flash_attn is None else use_flash_attn
+        rel_bias = position_bias_limit(cfg)
+        flash = ((use_kernels and not rel_bias) if use_flash_attn is None
+                 else use_flash_attn)
+        if flash and rel_bias:
+            raise ValueError(f"Wav2Vec2Encoder: {rel_bias}")
         refuse_kernel_limit("Wav2Vec2Encoder", device,
                             kernel_limits(cfg, use_kernels, flash, mega))
         self.feature_encoder = ConvFeatureEncoder(cfg, device=device,
@@ -244,8 +343,9 @@ class Wav2Vec2Encoder(nn.Module):
         self.pos_conv = PosConvEmbed(cfg, device=device)
         self.layers = nn.ModuleList(
             EncoderLayer(cfg, device=device, use_kernels=use_kernels,
-                         use_flash_attn=flash, use_fused_qkv=use_fused_qkv)
-            for _ in range(cfg.num_layers))
+                         use_flash_attn=flash, use_fused_qkv=use_fused_qkv,
+                         rel_embed=i == 0)
+            for i in range(cfg.num_layers))
         self.final_norm = LayerNorm(cfg.hidden_dim, device=device)
 
     def forward(self, wave: torch.Tensor,
@@ -262,9 +362,19 @@ class Wav2Vec2Encoder(nn.Module):
         x = dense(self.proj_norm(feats), self.proj, dt).float()
         # Padded frames are zeroed before the (full-context) positional conv.
         x = self.pos_conv(x, frame_pad_mask, self.use_kernels)
+        rel = self.position_bias(x.shape[1], x.device)
         for layer in self.layers:
-            x = layer(x, frame_pad_mask)
+            x = layer(x, frame_pad_mask, rel)
         return self.final_norm(x)
+
+    def position_bias(self, t: int, device: torch.device) -> Optional[torch.Tensor]:
+        """The table (H, t, t) every layer gates, built once a forward
+        inside the span ``mmer.wavlm.rel_bias``; None without a position
+        bias (Wav2Vec2)."""
+        if not isinstance(self.cfg, WavLMConfig):
+            return None
+        with span("mmer.wavlm.rel_bias"):
+            return self.layers[0].position_bias(t, device)
 
 
 def init_wav2vec2(cfg: Wav2Vec2Config, *, device: torch.device | str,
@@ -274,13 +384,41 @@ def init_wav2vec2(cfg: Wav2Vec2Config, *, device: torch.device | str,
                   use_fused_qkv: bool = False) -> Wav2Vec2Encoder:
     """The JAX package's seeded Wav2Vec2, ``AudioEmbedder(cfg)``'s params for
     ``cfg.param_seed``, drawn on ``device`` without JAX
-    (:mod:`~mmer_tpu_torch.models.jax_init`)."""
+    (:mod:`~mmer_tpu_torch.models.jax_init`).  A WavLM config takes the
+    same draws for the params it shares (its conv biases dropped) and
+    draws its position bias's from ``cfg.param_seed``
+    (:func:`draw_position_bias`)."""
     model = Wav2Vec2Encoder(cfg, device=device, use_kernels=use_kernels,
                             use_flash_attn=use_flash_attn, mega=mega,
                             use_fused_qkv=use_fused_qkv)
-    model.load_state_dict(wav2vec2_from_flax(
-        jax_init.wav2vec2_tree(cfg, device=device)))
+    sd = wav2vec2_from_flax(jax_init.wav2vec2_tree(cfg, device=device))
+    if isinstance(cfg, WavLMConfig):
+        keep = model.state_dict()
+        sd = {k: v for k, v in sd.items() if k in keep}
+        sd.update(draw_position_bias(cfg, device))
+    model.load_state_dict(sd)
     return model.eval()
+
+
+def draw_position_bias(cfg: WavLMConfig, device: torch.device | str) -> dict:
+    """A WavLM encoder's position-bias params for ``cfg.param_seed``, drawn
+    on the host as their ``nn`` modules initialise them: ``E`` ~ N(0, 1);
+    each gate's weight and bias uniform in ±1/sqrt(head_dim); κ = 1."""
+    gen = torch.Generator().manual_seed(cfg.param_seed)
+    h = cfg.num_heads
+    bound = (cfg.hidden_dim // h) ** -0.5
+
+    def uniform(*shape):
+        return (torch.rand(shape, generator=gen) * 2 - 1) * bound
+
+    out = {"layers.0.rel_attn_embed.weight": torch.randn(cfg.num_buckets, h,
+                                                         generator=gen)}
+    for i in range(cfg.num_layers):
+        pre = f"layers.{i}."
+        out[pre + "gru_rel_pos_linear.weight"] = uniform(8, cfg.hidden_dim // h)
+        out[pre + "gru_rel_pos_linear.bias"] = uniform(8)
+        out[pre + "gru_rel_pos_const"] = torch.ones(h)
+    return {k: v.to(device) for k, v in out.items()}
 
 
 def pool_embeddings(hidden: torch.Tensor, frame_mask: torch.Tensor
@@ -307,7 +445,9 @@ class AudioEmbedder:
     ``port_wav2vec2`` writes a converted HF checkpoint, or an ``.npz`` state
     dict) is loaded if it exists and written with the seeded weights if not;
     else the weights are the JAX package's seeded init for ``cfg.param_seed``
-    (:func:`init_wav2vec2`).
+    (:func:`init_wav2vec2`).  A :class:`WavLMConfig` runs WavLM; its params
+    file is an ``.npz`` state dict, since the flax layout has no place for
+    the position bias.
 
     By default attention stays plain (``use_flash_attn=False``) and the conv
     encoder on its ``mega`` route, as in the JAX ``AudioEmbedder``; which
@@ -334,6 +474,10 @@ class AudioEmbedder:
                  use_fused_qkv: bool = False,
                  mesh: Optional[Mesh] = None):
         self.cfg = cfg or Wav2Vec2Config()
+        if (isinstance(self.cfg, WavLMConfig) and params is None and params_path
+                and params_path.endswith(".msgpack")):
+            raise ValueError("AudioEmbedder: a WavLM params file is an .npz state "
+                             "dict; the flax .msgpack layout holds no position bias")
         self.device = torch.device(device)
         self.mesh = active_mesh(mesh, self.device)
         kw = dict(device=self.device, use_kernels=use_kernels,

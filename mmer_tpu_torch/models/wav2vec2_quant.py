@@ -12,7 +12,10 @@ LayerNorms (eps 1e-6,
 ``rsqrt`` of the biased variance) and every bias.  Attention is float32
 products and softmax with the finite −1e9 key bias, as JAX's ``einsum``\\ s:
 no kernel computes it there either (TF32 stays off on the card, PyTorch's
-default for matmuls).
+default for matmuls).  A WavLM encoder's gated relative position bias is
+kept: layer 0's table once a forward and each layer's gate from its float32
+normed stream, added to the float32 scores before the key bias, as the
+float encoder adds them.
 
 Nothing routes here: ``AudioEmbedder``, the engine and the CLIs have no int8
 option, as in the JAX package; the forward is reached from these functions
@@ -74,12 +77,12 @@ def quant_w2v2_apply(qparams: dict, model: Wav2Vec2Encoder, wave: torch.Tensor,
 
     The JAX forward step for step (stable-layer-norm: pre-norm layers,
     padded frames zeroed before the positional conv, the −1e9 finite key
-    bias, final LayerNorm).  ``use_kernels`` runs the int8 products through
-    ``csrc/qdot.cu`` (on a CUDA tensor), the conv stack through
-    ``fused_conv_encoder`` on the route of ``model``'s conv encoder (the
-    default, ``mega``, is JAX's ``use_pyramid=True``) and the positional
-    conv through ``pos_conv_residual``; ``False`` runs the plain versions of
-    all three."""
+    bias, final LayerNorm), with a WavLM encoder's gated position bias.
+    ``use_kernels`` runs the int8 products through ``csrc/qdot.cu`` (on a
+    CUDA tensor), the conv stack through ``fused_conv_encoder`` on the route
+    of ``model``'s conv encoder (the default, ``mega``, is JAX's
+    ``use_pyramid=True``) and the positional conv through
+    ``pos_conv_residual``; ``False`` runs the plain versions of all three."""
     cfg = model.cfg
     h, d = cfg.num_heads, cfg.hidden_dim
     hd = d // h
@@ -100,12 +103,15 @@ def quant_w2v2_apply(qparams: dict, model: Wav2Vec2Encoder, wave: torch.Tensor,
         mask_bias = frame_pad_mask[:, None, None, :].float() * KEY_BIAS
     root = torch.tensor(math.sqrt(hd), device=x.device)
     b, s = x.shape[0], x.shape[1]
+    rel = model.position_bias(s, x.device)
     for ql, layer in zip(qparams["layers"], model.layers):
         y = _layernorm(x, layer.norm_attn)
         qkv = dot(y, ql["qkv_q"], ql["qkv_s"], ql["qkv_b"])
         qv, kv, vv = (t.reshape(b, s, h, hd).transpose(1, 2)
                       for t in qkv.split(d, dim=-1))
         scores = torch.matmul(qv, kv.transpose(-1, -2)) / root
+        if rel is not None:
+            scores.addcmul_(layer.position_gate(y), rel)
         if mask_bias is not None:
             scores = scores + mask_bias
         attn = torch.matmul(torch.softmax(scores, dim=-1), vv)

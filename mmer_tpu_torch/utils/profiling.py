@@ -17,11 +17,15 @@ spans and counters.
 Spans: ``mmer.vivit.{stage,upload,forward,fetch}`` a block of
 ``VideoFeatureExtractor.embed_chunks``;
 ``mmer.w2v2.{normalise,pad,upload,forward,fetch,merge}`` a call of
-``AudioEmbedder.embed_batch``; ``mmer.serve.<stage>`` in
+``AudioEmbedder.embed_batch``; ``mmer.wavlm.rel_bias`` a WavLM forward,
+around building its position-bias table; ``mmer.serve.<stage>`` in
 ``InferenceEngine.infer_frames``.  Counters: ``w2v2.frames_useful`` and
 ``w2v2.frames_computed`` (the real pieces' frames, and every row run times
 its frames, in ``AudioEmbedder._embed_padded``), ``weights.cast_bytes``
-(bytes read plus written by :func:`cast` of a parameter to another dtype)
+(bytes read plus written by :func:`cast` of a parameter to another dtype),
+``wavlm.bias_bytes`` (bytes of the position-bias tensors a WavLM forward
+writes: the (H, T, T) table once, each layer's (B, H, T) gate; the gated
+term is added into the scores in place and writes no tensor of its own)
 and each span's seconds under its name.
 """
 
