@@ -77,6 +77,17 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    GELU + residual on pre-cast operands (timed only), beside the bound and
    the grid plan.  Every later phase counts its launches with the other
    kernels': one a Wav2Vec2 forward on the kernel route.
+3d. plain attention: the port's own kernel for Wav2Vec2's plain attention
+   (``csrc/plain_attention.cu``; not a TPU kernel: XLA compiles the JAX
+   package's ``_xla_attention``, ``mmer_tpu/models/wav2vec2.py:304``)
+   against its plain version, the torch route, at the positional conv's
+   shapes, masks with a fully padded row, within
+   ``TOLERANCES["plain_attention"]``, the same bits twice and on the fused
+   projection's column slices; its time (CUDA events and the launch's
+   device time), the plain version's and ``scaled_dot_product_attention``'s
+   (timed only), beside the bound.  Every later phase counts its launches:
+   one a layer of a Wav2Vec2 forward on the kernel route without flash
+   attention.
 4. main path: ``InferenceEngine`` at the full default configs with the JAX
    package's seeded weights serves three requests (``predict_chunks`` on a
    3-chunk clip with 3.2 s of audio and on a 1-chunk clip with 12 s of
@@ -313,6 +324,14 @@ TOLERANCES = {
     # now and then: a step or two of the rounded GELU, 2^-5 at values in
     # [4, 8) (tests/test_torch_pos_conv.py).  An H100 read 0.0469 / 8.6e-7.
     "pos_conv": (2 ** -4, 2 ** -14),
+    # Plain attention, as fractions of max and mean |plain| (the plain
+    # version's f32 output): the kernel rounds its output once to bf16 (half
+    # a step, 2^-8 of a value at most, about 2^-10 on average), and where its
+    # f32 exp and sum differ from the plain version's by an ulp a P rounds to
+    # the neighbouring bf16 value now and then.  The kernel's order on the
+    # CPU (tests/test_torch_plain_attention.py) reads 2^-8.5 / 2^-9.5, an
+    # H100 2^-8.9 / 2^-9.7.
+    "plain_attention": (2 ** -7, 2 ** -8),
 }
 TOLERANCES["flash_attention_varlen"] = TOLERANCES["flash_attention"]
 # Same rounding points as the plain version (LN rounded to bf16, one rounding
@@ -324,7 +343,7 @@ TOLERANCES["fused_ln_matmul"] = (2 ** -7, 2 ** -15)
 # Every mode whose p is a softmax or a shifted score: the attention bound.
 TOLERANCES["attention_variant"] = TOLERANCES["flash_attention"]
 RELATIVE = {"flash_attention", "flash_attention_varlen", "attention_variant",
-            "fused_ln_matmul"}
+            "fused_ln_matmul", "plain_attention"}
 # The two ``p = scores`` modes divide by a sum of signed scores, which comes
 # near zero on a few per cent of rows.  They are compared on the rows whose
 # plain |denominator| is at least DEN_MIN, as implied numerators
@@ -416,6 +435,9 @@ SOURCES = {
     "pos_conv": ("mmer_tpu_torch/csrc/pos_conv.cu",
                  "mmer_tpu/models/wav2vec2.py:185 (XLA's grouped nn.Conv; "
                  "not a Pallas kernel)"),
+    "plain_attention": ("mmer_tpu_torch/csrc/plain_attention.cu",
+                        "mmer_tpu/models/wav2vec2.py:304 (XLA's _xla_attention; "
+                        "not a Pallas kernel)"),
 }
 # The probe kernels of scripts/probe_attn.py, by the kernel body each mode ran.
 SOURCES.update({
@@ -435,6 +457,7 @@ def wrappers() -> dict:
     from mmer_tpu_torch.ops.flash_attention import (flash_attention,
                                                     flash_attention_varlen)
     from mmer_tpu_torch.ops.fused_blocks import fused_ffn, fused_ln_matmul
+    from mmer_tpu_torch.ops.plain_attention import plain_attention
     from mmer_tpu_torch.ops.pos_conv import pos_conv_residual
     from mmer_tpu_torch.ops.quant import qdot_int8, qdot_u8, row_quant
 
@@ -444,7 +467,7 @@ def wrappers() -> dict:
             "flash_attention_varlen": flash_attention_varlen,
             "conv_gemm_ln_gelu": conv_pyramid._call_gemm,
             "conv_k3_ln_gelu": conv_pyramid._call_k3,
-            "pos_conv": pos_conv_residual,
+            "pos_conv": pos_conv_residual, "plain_attention": plain_attention,
             "row_quant": row_quant, "qdot_int8": qdot_int8, "qdot_u8": qdot_u8}
 
 
@@ -1114,6 +1137,78 @@ def check_pos_conv(dev) -> dict:
     return {"pos_conv": r}
 
 
+# Plain attention's shapes: the positional conv's, the Wav2Vec2 layers' of
+# the same forwards.
+PLAIN_ATTENTION_SHAPES = POS_CONV_SHAPES
+
+
+def check_plain_attention(dev) -> dict:
+    """Phase 3d: the plain-attention kernel against its plain version (the
+    torch route) at PLAIN_ATTENTION_SHAPES, on q, k, v laid out as the
+    separate projections and as the fused one's column slices, timed beside
+    its bound, the plain version and ``scaled_dot_product_attention`` (timed
+    only); the phase's launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from mmer_tpu_torch.config import Wav2Vec2Config
+    from mmer_tpu_torch.ops.plain_attention import (plain_attention,
+                                                    plain_attention_reference)
+    from mmer_tpu_torch.scripts.timing import kernel_device_ms, tensor_bytes
+
+    cfg = Wav2Vec2Config()
+    d, h = cfg.hidden_dim, cfg.num_heads
+    g = torch.Generator(device=dev)
+    r = {}
+    n0 = plain_attention.launches
+    for i, (rows, frames) in enumerate(PLAIN_ATTENTION_SHAPES):
+        g.manual_seed(100 + i)
+        qkv = torch.randn(rows, frames, 3 * d, generator=g, device=dev).to(torch.bfloat16)
+        fused = qkv.split(d, dim=-1)
+        q, k, v = (x.contiguous() for x in fused)
+        keep = torch.randint(1, frames + 1, (rows,), generator=g, device=dev)
+        keep[0] = frames
+        if rows > 1:
+            keep[-1] = 0                    # a fully padded row
+        mask = torch.arange(frames, device=dev)[None, :] >= keep[:, None]
+        tag = "" if i == 0 else f"_{rows}x{frames}"
+        shape = f"q,k,v ({rows},{frames},{d}) bf16, {h} heads of {d // h}"
+        log(f"kernel plain_attention, {shape}")
+        args = (q, k, v, mask, h)
+        with torch.inference_mode():
+            got = plain_attention(*args)
+            want = plain_attention_reference(*args)
+            torch.cuda.synchronize()
+            r2 = _compare("plain_attention", got, want)
+            _same_bits("plain_attention", got, plain_attention(*args))
+            _same_bits("plain_attention (fused q, k, v slices)", got,
+                       plain_attention(*fused, mask, h))
+            qh, kh, vh = (x.view(rows, frames, h, d // h).transpose(1, 2) for x in (q, k, v))
+            keys = ~mask[:, None, None, :]
+
+            def library():
+                return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=keys)
+
+            r.update({f"max_abs_err{tag}": r2["max_abs_err"],
+                      f"mean_abs_err{tag}": r2["mean_abs_err"],
+                      f"ms{tag}": cuda_ms(lambda: plain_attention(*args), 20),
+                      f"device_ms{tag}": kernel_device_ms(
+                          lambda: plain_attention(*args), "plain_attention", 10, 1)[0],
+                      f"plain_ms{tag}": cuda_ms(lambda: plain_attention_reference(*args), 3),
+                      f"library_ms{tag}": cuda_ms(library, 10),
+                      f"shape{tag}": shape})
+        r.update(bound(4.0 * rows * h * frames * frames * (d // h),
+                       tensor_bytes(q, k, v, got) + tensor_bytes(mask), tag))
+        log(f"time plain_attention: kernel {r['ms' + tag]:.4f} ms "
+            f"({r['device_ms' + tag]:.4f} ms device time), plain "
+            f"{r['plain_ms' + tag]:.4f} ms, scaled_dot_product_attention "
+            f"{r['library_ms' + tag]:.4f} ms, bound {r['bound_ms' + tag]:.4f} ms "
+            f"by {r['bound_by' + tag]} ({shape})")
+        del qkv, fused, q, k, v, mask, got, want
+    log(f"plain_attention: {plain_attention.launches - n0} launches in the phase")
+    return {"plain_attention": r}
+
+
 def check_probe_kernels(dev) -> dict:
     """``fused_ln_matmul`` and every mode of ``attention_variant`` against
     their plain versions at the profile and probe scripts' shapes."""
@@ -1465,8 +1560,10 @@ def run_profile_scripts() -> dict:
     # Kernel launches of one call of each leg (ViViT legs first).
     per_call = [{"flash_attention": depth, "fused_ffn": depth}, {},
                 {"flash_attention": 1}, {}, {"fused_ffn": depth},
-                {"fused_conv_encoder": convs, "fused_ffn": layers, "pos_conv": 1},
-                {"fused_conv_encoder": convs}, {"fused_ffn": layers, "pos_conv": 1}]
+                {"fused_conv_encoder": convs, "fused_ffn": layers, "pos_conv": 1,
+                 "plain_attention": layers},
+                {"fused_conv_encoder": convs},
+                {"fused_ffn": layers, "pos_conv": 1, "plain_attention": layers}]
     want = {k: 0 for k in comp}
     for row, kernels_of in zip(legs, per_call):
         for k, n in kernels_of.items():
@@ -1506,12 +1603,13 @@ def run_component_probes() -> dict:
     convs, layers = len(wcfg.conv_dims), wcfg.num_layers
     k3 = sum(k == 3 for k in wcfg.conv_kernels)
     encoder = {"fused_conv_encoder": convs, "fused_ffn": layers, "pos_conv": 1}
+    plain = {**encoder, "plain_attention": layers}     # the default route
     vivit = {"flash_attention": depth, "fused_ffn": depth}
     # script, arguments, the kernel launches of one call of each row's
     # function (None: the row makes no call).
     runs = [
         (profile_conv_pyramid, [], lambda row: {
-            "conv plain": {}, "full plain": {}, "full kernels": encoder,
+            "conv plain": {}, "full plain": {}, "full kernels": plain,
             "conv layers": {"conv_gemm_ln_gelu": convs - k3, "conv_k3_ln_gelu": k3},
             "conv mega": {"fused_conv_encoder": convs}}[row["name"]]),
         (profile_cp_layers, [], lambda row: (
@@ -1519,8 +1617,8 @@ def run_component_probes() -> dict:
             else {"conv_gemm_ln_gelu": 1})),
         (probe_w2v2_flash, [], lambda row: (
             {**encoder, "flash_attention_varlen": layers}
-            if row["name"] == "flash-attn" else encoder)),
-        (probe_w2v2_qkv, [], lambda row: encoder),
+            if row["name"] == "flash-attn" else plain)),
+        (probe_w2v2_qkv, [], lambda row: plain),
         (probe_vivit_b32, [], lambda row: vivit),
         (probe_extract_pipeline, [], None),
     ]
@@ -1770,7 +1868,7 @@ def run_int8_path(dev) -> dict:
             "int8-plain-attn": int8_vivit}[row["name"]],
         "probe_int8_w2v2": lambda row: {
             "bf16": {"fused_conv_encoder": convs, "fused_ffn": layers,
-                     "pos_conv": 1},
+                     "pos_conv": 1, "plain_attention": layers},
             "int8": {"fused_conv_encoder": convs, "qdot_int8": gemms_w,
                      "row_quant": gemms_w, "pos_conv": 1}}[row["name"]]}
     total, results = {k: 0 for k in read_launches()}, {}
@@ -2260,6 +2358,7 @@ def main() -> int:
     stream = phase("3a random stream", run_random_stream, dev)
     phase("3b JAX weights", run_jax_weights, dev)
     kernels.update(phase("3c positional conv", check_pos_conv, dev))
+    kernels.update(phase("3d plain attention", check_plain_attention, dev))
     serving = phase("4 main path", run_main_path, dev)
     file_path = phase("4b serving file path", run_serving_file_path, dev)
     cold_start = phase("4c cold start", run_cold_start)
@@ -2464,7 +2563,8 @@ def run_jax_weights(dev, fixture: str | None = None) -> None:
             params=astate), zero),
         "audio default route": (audio, {
             **zero, "fused_conv_encoder": len(wcfg.conv_dims),
-            "fused_ffn": wcfg.num_layers, "pos_conv": 1}),
+            "fused_ffn": wcfg.num_layers, "pos_conv": 1,
+            "plain_attention": wcfg.num_layers}),
         "audio all-kernel route": (AudioEmbedder(
             wcfg, device=dev, params=astate, use_flash_attn=True, mega=False), {
             **zero, "flash_attention_varlen": wcfg.num_layers,
@@ -2628,6 +2728,7 @@ def run_main_path(dev) -> dict:
         "fused_ffn": vivit_batches * vcfg.depth + w2v2_forwards * wcfg.num_layers,
         "fused_conv_encoder": w2v2_forwards * len(wcfg.conv_dims),
         "pos_conv": w2v2_forwards,
+        "plain_attention": w2v2_forwards * wcfg.num_layers,
     }
     log(f"launch counts {launches}, expected {expected}")
     if launches != expected:
@@ -3042,7 +3143,8 @@ def run_serving_file_path(dev) -> dict:
                     "fused_ffn": vivit_batches * vcfg.depth
                     + len(seqs) * wcfg.num_layers,
                     "fused_conv_encoder": len(seqs) * len(wcfg.conv_dims),
-                    "pos_conv": len(seqs)}
+                    "pos_conv": len(seqs),
+                    "plain_attention": len(seqs) * wcfg.num_layers}
         probs = np.asarray(res["probabilities"], np.float64).reshape(-1, 6)
         log(f"serving request {name}: boxes on {hit * 100:.1f} % of "
             f"{len(face_frames)} face frames, on {len(boxed & absent)} of "
@@ -3267,7 +3369,8 @@ def run_extraction(dev) -> dict:
         expected = {k: 0 for k in cli_launches}
         expected.update(fused_ffn=forwards * wcfg.num_layers,
                         fused_conv_encoder=forwards * len(wcfg.conv_dims),
-                        pos_conv=forwards)
+                        pos_conv=forwards,
+                        plain_attention=forwards * wcfg.num_layers)
         log(f"extraction CLI: {len(files)} files in {cli_s:.2f} s (model set-up "
             f"included); launch counts {cli_launches}, expected {expected}")
         if cli_launches != expected:

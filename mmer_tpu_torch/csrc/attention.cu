@@ -123,30 +123,7 @@ constexpr size_t smem_bytes() {
 
 constexpr float KEY_BIAS = -1e9f;  // on keys in [len, S)
 
-// 2^x on the special-function unit (2 ulp; 2^-inf = 0).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// 64 rows x 64 bf16 (8 chunks of 16 bytes a row) from rows [row0, row0 + 64) of
-// a matrix of row stride ``ld`` into a swizzled tile; rows at or past ``rows``
-// are zero-filled.  Copy j of a thread is NTHREAD chunks after copy j - 1: a
-// fixed number of rows down, in the same chunk column and swizzle phase.
-__device__ __forceinline__ void load_rows(uint32_t dst, const bf16* src, size_t ld, int row0,
-                                          int rows, int tid) {
-  constexpr int STEP = NTHREAD / 8;      // rows between a thread's copies
-  const int r = tid >> 3, c = tid & 7;
-  const uint32_t to = dst + mmer::sw128(r, c);
-  const bf16* from = src + size_t(row0 + r) * ld + c * 8;
-#pragma unroll
-  for (int j = 0; j < 64 / STEP; ++j) {
-    const bool valid = row0 + r + j * STEP < rows;
-    mmer::cp_async_16(to + j * STEP * mmer::SW_ROW_BYTES, valid ? from + size_t(j) * STEP * ld : src,
-                      valid);
-  }
-}
+using mmer::fast_exp2;
 
 // Start the copies of key tile [k0, k0 + 64) into one ring stage: K rows (or,
 // KT, the 64 depth rows of the pre-transposed K) and V rows; rows that do
@@ -156,9 +133,10 @@ __device__ __forceinline__ void load_kv_tile(uint32_t k_dst, uint32_t v_dst, con
                                              const bf16* vb, int k0, int k_rows, int s,
                                              int tid) {
   if constexpr (KT) {
-    load_rows(k_dst, kb + k0, size_t(k_rows), 0, HD, tid);      // columns [k0, k0 + 64)
+    // Columns [k0, k0 + 64) of the 64 depth rows.
+    mmer::load_rows<NTHREAD>(k_dst, kb + k0, size_t(k_rows), 0, HD, tid);
   } else if constexpr (DQK == HD) {
-    load_rows(k_dst, kb, HD, k0, k_rows, tid);
+    mmer::load_rows<NTHREAD>(k_dst, kb, HD, k0, k_rows, tid);
   } else {
     constexpr int CH = DQK / 8;   // 16-byte chunks per K row
     for (int i = tid; i < BK * CH; i += NTHREAD) {
@@ -170,7 +148,7 @@ __device__ __forceinline__ void load_kv_tile(uint32_t k_dst, uint32_t v_dst, con
       mmer::cp_async_16(dst, src, valid);
     }
   }
-  load_rows(v_dst, vb, HD, k0, s, tid);
+  mmer::load_rows<NTHREAD>(v_dst, vb, HD, k0, s, tid);
 }
 
 // q: (bh, s, DQK); k: (bh, k_rows, DQK), or (bh, 64, k_rows) when KT; v, o:

@@ -1,5 +1,6 @@
 // Hopper building blocks for the hand-written kernels: asynchronous copies
-// into shared memory (cp.async), the 128-byte swizzle that wgmma reads, shared
+// into shared memory (cp.async, and a 64-row tile of them), the 128-byte
+// swizzle that wgmma reads, the exponent of the attention kernels, shared
 // memory matrix descriptors and the warpgroup matrix multiply (wgmma) in the
 // shapes the attention and FFN kernels use, and the thread block cluster
 // primitives the FFN uses.  sm_90a only.
@@ -90,6 +91,33 @@ __device__ __forceinline__ void cluster_wait() {
 // fence_proxy_async for writes into a peer's shared memory as well.
 __device__ __forceinline__ void fence_proxy_async_all() {
   asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+
+// 64 rows x 64 bf16 (8 chunks of 16 bytes a row) from rows [row0, row0 + 64)
+// of a matrix of row stride ``ld`` (elements) into a swizzled tile at ``dst``,
+// by the NTHREAD threads of a block; rows at or past ``rows`` are zero-filled.
+// Copy j of a thread is NTHREAD chunks after copy j - 1: a fixed number of
+// rows down, in the same chunk column and swizzle phase.
+template <int NTHREAD>
+__device__ __forceinline__ void load_rows(uint32_t dst, const __nv_bfloat16* src, size_t ld,
+                                          int row0, int rows, int tid) {
+  constexpr int STEP = NTHREAD / 8;      // rows between a thread's copies
+  const int r = tid >> 3, c = tid & 7;
+  const uint32_t to = dst + sw128(r, c);
+  const __nv_bfloat16* from = src + size_t(row0 + r) * ld + c * 8;
+#pragma unroll
+  for (int j = 0; j < 64 / STEP; ++j) {
+    const bool valid = row0 + r + j * STEP < rows;
+    cp_async_16(to + j * STEP * SW_ROW_BYTES, valid ? from + size_t(j) * STEP * ld : src, valid);
+  }
+}
+
+// 2^x on the special-function unit (2 ulp; 2^-inf = 0): the attention
+// kernels' exponent.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Descriptor of a swizzled tile (or of a k-step inside it) at shared address

@@ -14,8 +14,11 @@ length-masked mean pool → L2 norm → (1024,):
   :func:`~mmer_tpu_torch.ops.pos_conv.pos_conv_residual` (one CUDA kernel
   launch on the card);
 - 24 stable-layer-norm layers: masked attention with a finite −1e9 key
-  bias (a fully masked row comes out uniform, not NaN), plain or, with
-  ``use_flash_attn``, through
+  bias (a fully masked row comes out uniform, not NaN), plain (f32 scores,
+  the f32 softmax normalised before the probabilities are rounded) through
+  :func:`~mmer_tpu_torch.ops.plain_attention.plain_attention` (one CUDA
+  kernel launch a layer on the card with ``use_kernels``; torch ops on the
+  CPU and with ``use_kernels=False``) or, with ``use_flash_attn``, through
   :func:`~mmer_tpu_torch.ops.flash_attention.flash_attention` with one key
   length per clip; q, k and v from three projections or, with
   ``use_fused_qkv``, one product over their weights concatenated on every
@@ -30,7 +33,8 @@ holds the ``(num_buckets, H)`` embedding ``E``; once a forward the table
 ``rel[h, q, k] = E[bucket(k - q), h]`` is built and every layer adds
 ``g[b, h, q] · rel[h, q, k]`` to its float32 scores before the key mask,
 ``g`` a gate from the query's own normed frame (:meth:`EncoderLayer.position_gate`).
-The flash route takes no such bias and is refused for it.
+Neither kernel takes such a bias: WavLM's layers run the plain route's
+torch ops on every device, and the flash route is refused for it.
 
 Params stay float32; GEMM operands and the FFN biases are rounded to the
 compute dtype; the residual stream stays float32.
@@ -59,6 +63,9 @@ from mmer_tpu_torch.ops.conv_pyramid import (conv_encoder_reference,
                                              fused_conv_encoder, supports_config)
 from mmer_tpu_torch.ops.flash_attention import attention_limits, flash_attention
 from mmer_tpu_torch.ops.fused_blocks import ffn_limits, ffn_reference, fused_ffn
+from mmer_tpu_torch.ops.plain_attention import (plain_attention,
+                                                plain_attention_limits,
+                                                plain_attention_reference)
 from mmer_tpu_torch.ops.pos_conv import (pos_conv_limits, pos_conv_reference,
                                          pos_conv_residual)
 from mmer_tpu_torch.utils.profiling import cast, count, span
@@ -103,13 +110,16 @@ def kernel_limits(cfg: Wav2Vec2Config, use_kernels: bool = True,
                   use_flash_attn: bool = False, mega: bool = True) -> str | None:
     """The first limit of the CUDA kernels that a Wav2Vec2 config breaks on
     the routes named (with ``use_kernels`` the conv encoder on route
-    ``mega``, the FFN and the positional conv, with ``use_flash_attn``
-    attention), as a sentence naming it; None if it breaks none.  The plain
-    path takes any config."""
+    ``mega``, the FFN, the positional conv and, without ``use_flash_attn``
+    and for a config without a position bias, plain attention; with
+    ``use_flash_attn`` flash attention), as a sentence naming it; None if it
+    breaks none.  The plain path takes any config."""
     limits = []
     if use_kernels:
         limits += [conv_pyramid.kernel_limits(cfg, mega),
                    ffn_limits(cfg.hidden_dim, cfg.ffn_dim), pos_conv_limits(cfg)]
+        if not use_flash_attn and not position_bias_limit(cfg):
+            limits.append(plain_attention_limits(cfg))
     if use_flash_attn:
         limits += [position_bias_limit(cfg), compute_dtype_limit(cfg),
                    attention_limits(cfg.hidden_dim // cfg.num_heads)]
@@ -266,33 +276,30 @@ class EncoderLayer(nn.Module):
                    gated: Optional[tuple] = None) -> torch.Tensor:
         """Attention over the projected heads (:meth:`project_qkv`).  Plain,
         as the JAX ``_xla_attention``: f32 scores, −1e9 on padded keys, f32
-        softmax, probabilities rounded to the compute dtype, f32 output;
-        ``gated`` = (gate (B, H, T, 1), table (H, T, T)) adds their product
-        to the scores in place, before the key mask (WavLM).  With
-        ``use_flash_attn``: q, k, v go to ``flash_attention`` in the compute
-        dtype with one key length per clip (frame pads are a suffix, so a
-        count is a complete mask) and the output comes back in that dtype."""
-        cfg = self.cfg
-        dt = torch_dtype(cfg)
+        softmax, probabilities rounded to the compute dtype, f32 sums of
+        ``P·v``; with ``use_kernels`` and no ``gated`` term through
+        :func:`~mmer_tpu_torch.ops.plain_attention.plain_attention` (one
+        CUDA kernel on the card, whose output is rounded to the compute
+        dtype, as ``dense`` rounds it next), else the same arithmetic in
+        torch ops (f32 output).  ``gated`` = (gate (B, H, T, 1), table (H, T,
+        T)) adds their product to the scores in place, before the key mask
+        (WavLM; torch ops on every device).  With ``use_flash_attn``: q, k, v
+        go to ``flash_attention`` in the compute dtype with one key length
+        per clip (frame pads are a suffix, so a count is a complete mask) and
+        the output comes back in that dtype."""
         b, t, d = yd.shape
-        h = cfg.num_heads
-        hd = d // h
-        q, k, v = (y.reshape(b, t, h, hd).transpose(1, 2)
-                   for y in self.project_qkv(yd))
+        h = self.cfg.num_heads
         if self.use_flash_attn:
+            q, k, v = (y.reshape(b, t, h, d // h).transpose(1, 2).contiguous()
+                       for y in self.project_qkv(yd))
             key_lens = None if pad_mask is None else (~pad_mask).sum(1)
-            out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                  key_lens=key_lens)
+            out = flash_attention(q, k, v, key_lens=key_lens)
             return out.transpose(1, 2).reshape(b, t, d)
-        q, k, v = q.float(), k.float(), v.float()
-        scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
-        if gated is not None:
-            scores.addcmul_(*gated)
-        if pad_mask is not None:
-            scores = scores + pad_mask[:, None, None, :].float() * -1e9
-        probs = torch.softmax(scores, dim=-1)
-        out = torch.matmul(probs.to(dt).float(), v)          # (B, H, T, hd)
-        return out.transpose(1, 2).reshape(b, t, d)
+        if self.use_kernels and gated is None:
+            return plain_attention(*self.project_qkv(yd), pad_mask, h)
+        q, k, v = (y.float() for y in self.project_qkv(yd))
+        return plain_attention_reference(q, k, v, pad_mask, h, gated,
+                                         p_dtype=torch_dtype(self.cfg))
 
     def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None,
                 rel: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -450,9 +457,11 @@ class AudioEmbedder:
     the position bias.
 
     By default attention stays plain (``use_flash_attn=False``) and the conv
-    encoder on its ``mega`` route, as in the JAX ``AudioEmbedder``; which
-    attention route is faster on the card is recorded in PERF.md, not decided
-    here.  ``use_flash_attn=True, mega=False`` builds the all-kernel encoder
+    encoder on its ``mega`` route, as in the JAX ``AudioEmbedder``; with
+    ``use_kernels`` on the card the plain route's arithmetic is one kernel a
+    layer (WavLM's gated layers keep its torch ops).  Which attention route
+    is faster on the card is recorded in PERF.md, not decided here.
+    ``use_flash_attn=True, mega=False`` builds the all-kernel encoder
     (varlen flash attention, per-layer conv route).  ``use_fused_qkv``
     (default off, as in JAX) computes q, k and v in one product a layer.
 

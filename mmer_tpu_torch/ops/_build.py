@@ -32,7 +32,7 @@ from typing import Callable, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 KERNELS = ("ffn", "attention", "conv_encoder", "conv_layers", "ln_matmul",
-           "threefry", "qdot", "pos_conv")
+           "threefry", "qdot", "pos_conv", "plain_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -7,7 +7,8 @@ The full ``Wav2Vec2Encoder`` (B = 64 x 64,000 samples, the extraction
 shape) with the JAX package's seeded weights, the conv encoder and FFN
 kernels on, a frame mask that pads the last quarter of the frames of a
 quarter of the clips (the key-length path), attention plain
-(``use_flash_attn=False``, the default) against ``use_flash_attn=True``.
+(``use_flash_attn=False``, the default: on the card the plain-attention
+kernel, ``ops/plain_attention.py``) against ``use_flash_attn=True``.
 Each variant prints ms, clips/s, TFLOP/s and its share of the H100's 989
 TFLOP/s bf16 peak; then the max |Δ| over the sampled rows ``[:, :4, :8]``
 and the largest relative L2 distance of a clip's output.  Timing: CUDA

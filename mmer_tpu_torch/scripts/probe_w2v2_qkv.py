@@ -5,7 +5,9 @@ over their concatenated weights, the port of ``scripts/probe_w2v2_qkv.py``.
 
 The full ``Wav2Vec2Encoder`` at the extraction shape (B = 64 x 64,000
 samples) with the JAX package's seeded weights, the conv encoder and FFN
-kernels on and plain attention (the default route), under the frame mask of
+kernels on and plain attention (the default route: on the card the
+plain-attention kernel, which reads the fused product's q, k and v slices in
+place), under the frame mask of
 ``probe_w2v2_flash``: ``use_fused_qkv=False`` (the default) against
 ``use_fused_qkv=True``, which concatenates the (d, 3d) weight on every call
 as the JAX layer does.  Each variant prints ms and clips/s; then the max

@@ -121,8 +121,8 @@ def _launch_counters() -> Dict[str, Tuple[object, str]]:
     kernel's name: the FFN's reduce pass and the attention probe's per-mode
     dict included."""
     from mmer_tpu_torch.ops import (attention_variants, conv_pyramid,
-                                    flash_attention, fused_blocks, pos_conv,
-                                    prng, quant)
+                                    flash_attention, fused_blocks,
+                                    plain_attention, pos_conv, prng, quant)
 
     return {
         "flash_attention": (flash_attention.flash_attention, "launches"),
@@ -135,6 +135,7 @@ def _launch_counters() -> Dict[str, Tuple[object, str]]:
         "conv_gemm_ln_gelu": (conv_pyramid._call_gemm, "launches"),
         "conv_k3_ln_gelu": (conv_pyramid._call_k3, "launches"),
         "pos_conv": (pos_conv.pos_conv_residual, "launches"),
+        "plain_attention": (plain_attention.plain_attention, "launches"),
         "threefry": (prng.launch_threefry, "launches"),
         "row_quant": (quant.row_quant, "launches"),
         "qdot_int8": (quant.qdot_int8, "launches"),

@@ -3,12 +3,13 @@
 The JAX kernels take any width; the CUDA kernels take the default ones (a
 bf16 compute dtype, 512 conv channels, a first conv layer of at most 16 taps
 on the whole-pyramid route, FFN and LN-matmul widths D in {768, 1024} with M a
-multiple of 256 and N of 64, attention head dim 64, positional-conv groups of
-64 channels and at most 128 taps).  Each family has a pure
-function that names the first of these limits a config breaks
-(``conv_pyramid.kernel_limits``, ``fused_blocks.ffn_limits`` and
-``ln_matmul_limits``, ``flash_attention.attention_limits``,
-``pos_conv.pos_conv_limits``, and per model
+multiple of 256 and N of 64, attention head dim 64 on the flash and the
+plain route, positional-conv groups of 64 channels and at most 128 taps).
+Each family has a pure function that names the first of these limits a
+config breaks (``conv_pyramid.kernel_limits``, ``fused_blocks.ffn_limits``
+and ``ln_matmul_limits``, ``flash_attention.attention_limits``,
+``pos_conv.pos_conv_limits``, ``plain_attention.plain_attention_limits``, and
+per model
 ``wav2vec2.kernel_limits`` and ``vivit.kernel_limits``), and the models call
 them when they are built for a CUDA device with their kernels on, so that a
 config the kernels do not take raises ``ValueError`` at construction, not in
@@ -72,6 +73,7 @@ def test_default_configs_break_no_limit():
     ("wav2vec2", dict(num_conv_pos_embedding_groups=8), "groups of 64 channels"),
     ("wav2vec2", dict(num_conv_pos_embedding_groups=32), "groups of 64 channels"),
     ("wav2vec2", dict(num_conv_pos_embeddings=160), "at most 128 taps"),
+    ("wav2vec2", dict(num_heads=8), "plain attention kernel takes head dim 64"),
     ("wav2vec2_flash", dict(num_heads=8), "head dim 64"),
     ("vivit", dict(VIVIT_TINY), "head dim 64"),
     ("vivit", dict(dim_head=64, heads=1, dim=64, mlp_dim=128), "D in (768, 1024)"),
