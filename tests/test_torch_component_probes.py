@@ -35,6 +35,8 @@ from mmer_tpu_torch.scripts import (probe_extract_pipeline, probe_vivit_b32,
                                     profile_conv_pyramid, profile_cp_layers,
                                     profile_vivit)
 
+from torch_threads import few_threads  # noqa: F401
+
 # The JAX conv-profile script puts a fixed checkout path first on sys.path
 # when it is imported; put sys.path back so that modules collected after this
 # one resolve ``scripts`` and ``tests`` in this checkout.
@@ -64,17 +66,6 @@ def test_jax_script_imports_leave_sys_path_as_found():
     n_inserted = len(_PATH_AFTER_IMPORT) - len(_SAVED_PATH)
     assert n_inserted > 0
     assert _PATH_AFTER_IMPORT[n_inserted:] == _SAVED_PATH
-
-
-@pytest.fixture
-def few_threads():
-    """Two intra-op threads for the scripts' full-length waveforms: on a
-    full thread pool they slow several times over beside the tier-1 run's
-    other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -243,7 +234,7 @@ def _check_rows(rows, names):
             assert r["ms"] > 0 and r["calls"] >= 1
 
 
-def test_profile_conv_pyramid_rehearsal(few_threads):
+def test_profile_conv_pyramid_rehearsal():
     rows = profile_conv_pyramid.main(["--device", "cpu", "--tiny"])
     _check_rows(rows, ["conv plain", "conv layers", "conv mega", "full plain",
                        "full kernels"])
@@ -254,7 +245,7 @@ def test_profile_conv_pyramid_rehearsal(few_threads):
     assert all(r["clips_per_s"] > 0 for r in rows[3:])
 
 
-def test_profile_cp_layers_rehearsal(few_threads):
+def test_profile_cp_layers_rehearsal():
     rows = profile_cp_layers.main(["--device", "cpu", "--tiny"])
     _check_rows(rows, ["L0 (k10)"] + [f"L{i} (k{k})" for i, k in
                                       enumerate((3, 3, 3, 3, 2, 2), start=1)])
@@ -266,7 +257,7 @@ def test_profile_cp_layers_rehearsal(few_threads):
 @pytest.mark.parametrize("script,names", [
     (probe_w2v2_flash, ["plain-attn", "flash-attn"]),
     (probe_w2v2_qkv, ["separate-qkv", "fused-qkv"])])
-def test_encoder_ab_rehearsal(few_threads, script, names):
+def test_encoder_ab_rehearsal(script, names):
     """On the CPU both variants run the plain versions in f32: equal
     outputs."""
     rows = script.main(["--device", "cpu", "--tiny"])
@@ -276,14 +267,14 @@ def test_encoder_ab_rehearsal(few_threads, script, names):
     assert all(r["clips_per_s"] > 0 for r in rows)
 
 
-def test_probe_vivit_b32_rehearsal(few_threads):
+def test_probe_vivit_b32_rehearsal():
     rows = probe_vivit_b32.main(["--device", "cpu", "--tiny"])
     _check_rows(rows, ["B=16", "B=32"])
     assert [r["batch"] for r in rows] == [16, 32]
     assert all(r["chunks_per_s"] > 0 for r in rows)
 
 
-def test_probe_extract_pipeline_rehearsal_bit_identical(few_threads):
+def test_probe_extract_pipeline_rehearsal_bit_identical():
     """Six blocks of 16 tiny chunks through both loop shapes: the script
     fails unless ``pipeline=True`` gives ``pipeline=False``'s bits."""
     rows = probe_extract_pipeline.main(["--device", "cpu", "--tiny"])

@@ -48,6 +48,8 @@ from mmer_tpu_torch.ops.fused_blocks import (ffn_reference,
                                              ln_matmul_reference,
                                              ln_matmul_tiled_reference)
 
+from torch_threads import few_threads  # noqa: F401
+
 pytestmark = pytest.mark.cuda
 
 

@@ -33,6 +33,8 @@ import mmer_tpu_torch.preprocess.video as port_video
 from mmer_tpu_torch.models.convert import vivit_from_flax, wav2vec2_from_flax
 from mmer_tpu_torch.models.wav2vec2 import AudioEmbedder
 
+from torch_threads import few_threads  # noqa: F401
+
 CPU = torch.device("cpu")
 SR = 16000
 TINY_V = dict(image_size=(32, 32), patch_size=(16, 16), num_frames=8,

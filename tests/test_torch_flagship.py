@@ -43,6 +43,7 @@ from mmer_tpu_torch.serve.engine import InferenceEngine
 from mmer_tpu_torch.train import checkpoint as port_ckpt
 from tests.conftest import make_tiny_dataset
 from tests.test_torch_train import assert_weights_match
+from torch_threads import few_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 TRAIN_KW = dict(max_seq_len=4, fusion_layers=1, fusion_heads=2, fused_dim=32,

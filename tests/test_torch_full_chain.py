@@ -17,6 +17,8 @@ cv2 = pytest.importorskip("cv2")
 
 from mmer_tpu_torch.scripts import e2e_demo, full_chain
 
+from torch_threads import few_threads  # noqa: F401
+
 
 def test_span_vote_takes_the_engines_window_clamp():
     """Windows cover min(window, n - s) subchunks with the engine's clamp

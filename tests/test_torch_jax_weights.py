@@ -50,6 +50,8 @@ from mmer_tpu_torch.models.layers import write_params
 from mmer_tpu_torch.models.wav2vec2 import AudioEmbedder, Wav2Vec2Encoder
 from mmer_tpu_torch.preprocess.extract import VideoFeatureExtractor
 
+from torch_threads import few_threads  # noqa: F401
+
 CPU = torch.device("cpu")
 MAX_ULP = 4
 MIN_EQUAL = 0.90
@@ -438,7 +440,11 @@ def test_hf_converter_matches_jax_converter(fmt, tmp_path):
             "             if m.split('.')[0] in ('transformers', 'jax', 'flax',\n"
             "                                   'mmer_tpu', 'safetensors'))\n"
             "sys.exit(1 if bad else 0)\n")
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+    # Both converters fold the positional conv's weight norm with
+    # ``torch._weight_norm``, whose sums follow torch's thread count: the CLI
+    # runs on this process's count, as the JAX converter below does.
+    env = dict(os.environ, OMP_NUM_THREADS=str(torch.get_num_threads()))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 

@@ -63,6 +63,8 @@ from mmer_tpu_torch.ops.fused_blocks import (FFN_CHUNK, FFN_D_SPLIT, FFN_ROWS,
                                              ffn_plan, ffn_reference,
                                              ffn_slices, ffn_split_reference)
 
+from torch_threads import few_threads  # noqa: F401
+
 
 def _t(a):
     return torch.from_numpy(np.asarray(a, np.float32))

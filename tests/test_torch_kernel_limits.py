@@ -36,6 +36,8 @@ from mmer_tpu_torch.ops.fused_blocks import ffn_limits, ln_matmul_limits
 from mmer_tpu_torch.ops.pos_conv import pos_conv_limits
 from mmer_tpu_torch.preprocess.extract import VideoFeatureExtractor
 
+from torch_threads import few_threads  # noqa: F401
+
 # The tiny configs of tests/test_torch_models.py, in bf16.
 VIVIT_TINY = dict(image_size=(32, 32), patch_size=(16, 16), num_frames=8,
                   tubelet_size=4, dim=64, depth=2, heads=2, dim_head=32,

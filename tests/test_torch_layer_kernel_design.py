@@ -49,6 +49,8 @@ from mmer_tpu_torch.ops.fused_blocks import (LN_MATMUL_ROWS, LN_MATMUL_TILE,
                                              ln_matmul_plan, ln_matmul_reference,
                                              ln_matmul_tiled_reference)
 
+from torch_threads import few_threads  # noqa: F401
+
 
 def _t(a, dtype=torch.float32):
     return torch.from_numpy(np.asarray(a, np.float32)).to(dtype)

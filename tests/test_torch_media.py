@@ -35,6 +35,7 @@ from mmer_tpu_torch.serve import remux as port_remux
 from mmer_tpu_torch.serve import transcode as port_transcode
 
 import test_remux as jax_remux_tests
+from torch_threads import few_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SYSTEM_CASCADE = "/usr/share/opencv4/haarcascades/haarcascade_frontalface_default.xml"

@@ -36,6 +36,8 @@ from mmer_tpu_torch.models.wav2vec2 import (AudioEmbedder, Wav2Vec2Encoder,
                                             feat_extract_output_length,
                                             init_wav2vec2)
 
+from torch_threads import few_threads  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 VIVIT_KW = dict(image_size=(32, 32), patch_size=(16, 16), num_frames=8,

@@ -34,6 +34,8 @@ from mmer_tpu_torch.ops.fused_blocks import fused_ffn, layer_norm
 from mmer_tpu_torch.ops.masked_ops import (attention_bias_from_pad_mask,
                                            masked_mean_pool)
 
+from torch_threads import few_threads  # noqa: F401
+
 
 def _t(a):
     return torch.from_numpy(np.asarray(a, np.float32))

@@ -39,6 +39,8 @@ from mmer_tpu_torch.parallel.sharding import (fusion_param_spec, gather_params,
                                               shard_params)
 from mmer_tpu_torch.preprocess.extract import VideoFeatureExtractor
 
+from torch_threads import few_threads  # noqa: F401
+
 CPU = torch.device("cpu")
 # The JAX mesh tests' tiny extractors (tests/test_extract_multichip.py).
 TINY_V = dict(image_size=(32, 32), patch_size=(16, 16), num_frames=8,

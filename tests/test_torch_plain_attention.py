@@ -34,6 +34,8 @@ from mmer_tpu_torch.ops.plain_attention import (plain_attention,
                                                 plain_attention_reference,
                                                 tiled_plain_attention_reference)
 
+from torch_threads import few_threads  # noqa: F401
+
 # Kernel (or its order) against the torch route, as fractions of max and
 # mean |torch route| (its float32 output): the output is rounded once to
 # bf16 (half a step, at most 2^-8 of a value, about 2^-10 on average), and

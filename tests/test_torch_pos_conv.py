@@ -29,6 +29,8 @@ from mmer_tpu_torch.ops.fused_blocks import fused_ffn
 from mmer_tpu_torch.ops.pos_conv import (pos_conv_limits, pos_conv_plan,
                                          pos_conv_reference, pos_conv_residual)
 
+from torch_threads import few_threads  # noqa: F401
+
 H100_SMS = 132
 
 

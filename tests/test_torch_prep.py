@@ -35,6 +35,8 @@ from mmer_tpu_torch.preprocess import imgproc
 from mmer_tpu_torch.preprocess.video import iter_video_frames
 from mmer_tpu_torch.scripts import full_chain
 
+from torch_threads import few_threads  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

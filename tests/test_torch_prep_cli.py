@@ -24,6 +24,7 @@ from mmer_tpu_torch.scripts import full_chain
 from mmer_tpu_torch.serve.pcm_mp4 import mux_pcm_into_file
 
 from test_torch_prep import assert_txt_equal
+from torch_threads import few_threads  # noqa: F401
 
 
 # -- prep on six raw clips ----------------------------------------------------------

@@ -41,23 +41,14 @@ from mmer_tpu_torch.ops import prng
 from mmer_tpu_torch.train import checkpoint as port_ckpt
 from mmer_tpu_torch.train import keys as port_keys
 
+from torch_threads import few_threads  # noqa: F401
+
 CPU = torch.device("cpu")
 ALPHAS = (0.2, 0.4, 1.0, 2.0)
 # The narrow model's 11 dropout sites (two fusion layers): the shapes a
 # forward of a (8, 3) batch draws, at the default rate.
 NARROW = dict(max_seq_len=4, fusion_layers=2, fusion_heads=2, fused_dim=32,
               fusion_ffn_dim=64, classifier_hidden_dim=32)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads for this module's torch work: the plain int64
-    draws of full-width masks on a full thread pool slow tens of times over
-    when the tier-1 run's other workers share the host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 def _words(key) -> tuple:

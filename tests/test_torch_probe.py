@@ -35,6 +35,8 @@ from mmer_tpu_torch.ops.fused_blocks import (fused_ln_matmul, layer_norm,
 from mmer_tpu_torch.scripts import (probe_attn, profile_fused_blocks,
                                     profile_train, profile_vivit, profile_w2v2)
 
+from torch_threads import few_threads  # noqa: F401
+
 
 def _t(a, dtype=torch.float32):
     return torch.from_numpy(np.asarray(a, np.float32)).to(dtype)
@@ -285,18 +287,7 @@ def test_profile_train_script_runs_on_cpu():
     assert out["step_ms"] > 0 and "idle_share" not in out   # no device numbers
 
 
-@pytest.fixture
-def few_threads():
-    """Two intra-op threads for a profile script's full-length waveforms and
-    whole models: on a full thread pool they slow several times over beside
-    the tier-1 run's other workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
-
-
-def test_profile_w2v2_script_runs_on_cpu(few_threads):
+def test_profile_w2v2_script_runs_on_cpu():
     """The three legs at a tiny config: rows with host times, FLOPs that
     add up (full = conv encoder + transformer), no device numbers."""
     rows = profile_w2v2.main(["--device", "cpu", "--tiny", "--batch", "2",
@@ -308,7 +299,7 @@ def test_profile_w2v2_script_runs_on_cpu(few_threads):
     assert flops[0] == pytest.approx(flops[1] + flops[2])
 
 
-def test_profile_vivit_script_runs_on_cpu(few_threads):
+def test_profile_vivit_script_runs_on_cpu():
     """The five legs at a tiny config; the model without attention does the
     model's work less ``depth`` attention calls."""
     rows = profile_vivit.main(["--device", "cpu", "--tiny", "--batch", "2",

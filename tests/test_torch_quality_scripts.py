@@ -26,6 +26,8 @@ import torch
 
 import scripts.probe_feature_noise_quality as jax_noise
 
+from torch_threads import few_threads  # noqa: F401
+
 QUALITY_SCRIPTS = ["sweep", "quality_sweep", "probe_recipe_sweep_r4", "probe_ensemble",
            "probe_diverse_ensemble", "probe_mixup_quality",
            "probe_feature_noise_quality", "probe_distill"]
@@ -281,14 +283,9 @@ def test_recipe_sweep_real_run_matches_jax(synthetic_feature_dirs, monkeypatch,
     args = ["--only", "baseline", "--seeds", "2", "--epochs", "2"]
     monkeypatch.setattr(sys, "argv", ["probe_recipe_sweep_r4.py", *args])
     importlib.import_module("scripts.probe_recipe_sweep_r4").main()
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    try:
-        board = probe_recipe_sweep_r4.main(args + ["--video_feat_dir", vdir,
-                                                   "--audio_feat_dir", adir,
-                                                   "--device", "cpu"])
-    finally:
-        torch.set_num_threads(n)
+    board = probe_recipe_sweep_r4.main(args + ["--video_feat_dir", vdir,
+                                               "--audio_feat_dir", adir,
+                                               "--device", "cpu"])
     capsys.readouterr()
     assert [r["tag"] for r in board] == ["baseline"]
     assert len(runs["port"]) == len(runs["jax"]) == 2
@@ -316,8 +313,6 @@ def test_demo_frontend_serves_clip_and_infers(tmp_path):
     from mmer_tpu_torch.scripts.demo_frontend import build_demo
     from mmer_tpu_torch.serve.app import make_handler
 
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
     engine, extra = build_demo(torch.device("cpu"), str(tmp_path), frames=24)
     srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(engine,
                                                              extra_static=extra))
@@ -340,7 +335,6 @@ def test_demo_frontend_serves_clip_and_infers(tmp_path):
     finally:
         srv.shutdown()
         srv.server_close()
-        torch.set_num_threads(n)
     assert len(res["bounding_box"]) == 24
     assert res["inference"]
     for item in res["inference"]:

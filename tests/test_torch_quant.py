@@ -55,6 +55,8 @@ from mmer_tpu_torch.models.wav2vec2_quant import (quant_w2v2_apply,
 from mmer_tpu_torch.ops import quant
 from mmer_tpu_torch.scripts import probe_int8, probe_int8_vivit, probe_int8_w2v2
 
+from torch_threads import few_threads  # noqa: F401
+
 CPU = torch.device("cpu")
 # tests/test_quant.py's configs.
 VIVIT_KW = dict(num_frames=8, image_size=(32, 32), depth=2, dim=64, heads=4,

@@ -25,6 +25,8 @@ from mmer_tpu.preprocess import extract as jax_extract
 from mmer_tpu_torch.data.pipeline import load_dataset
 from mmer_tpu_torch.scripts.full_chain import EMOTIONS
 
+from torch_threads import few_threads  # noqa: F401
+
 TINY_V = dict(image_size=(32, 32), patch_size=(16, 16), num_frames=8,
               tubelet_size=4, dim=768, depth=1, heads=2, dim_head=32,
               mlp_dim=64, compute_dtype="float32")
@@ -35,17 +37,6 @@ TINY_A = dict(hidden_dim=1024, num_layers=1, num_heads=2, ffn_dim=64,
               conv_dims=(16, 16, 16, 16), conv_strides=(5, 2, 2, 2),
               conv_kernels=(10, 3, 3, 2), num_conv_pos_embeddings=16,
               num_conv_pos_embedding_groups=4, compute_dtype="float32")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_threads():
-    """Two intra-op threads for this module's torch work: its 1024-wide
-    layers on a full thread pool slow twenty-fold when the tier-1 run's
-    other workers share the host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 # -- the raw-media route -------------------------------------------------------------

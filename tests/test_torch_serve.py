@@ -55,6 +55,7 @@ from mmer_tpu_torch.serve import engine as port_engine_mod
 from mmer_tpu_torch.serve.engine import InferenceEngine
 
 from test_torch_models import FUSION_KW
+from torch_threads import few_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 VIVIT_KW = dict(image_size=(32, 32), patch_size=(16, 16), num_frames=4,

@@ -28,6 +28,7 @@ from mmer_tpu_torch.preprocess.extract import VideoFeatureExtractor
 from mmer_tpu_torch.serve.engine import InferenceEngine, window_audio_slices
 
 from test_torch_models import FUSION_KW, VIVIT_KW, W2V2_KW
+from torch_threads import few_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 SR = 16000

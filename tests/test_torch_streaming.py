@@ -30,6 +30,7 @@ import mmer_tpu_torch.train.streaming as port_train_streaming
 from mmer_tpu_torch.core import check as port_check
 from mmer_tpu_torch.models.convert import fusion_from_flax
 from tests.test_torch_train import assert_weights_match
+from torch_threads import few_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL_KW = dict(max_seq_len=6, fusion_layers=1, fusion_heads=2, fused_dim=32,

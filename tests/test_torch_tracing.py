@@ -21,6 +21,8 @@ from mmer_tpu_torch.models.wav2vec2 import (AudioEmbedder, Wav2Vec2Encoder,
 from mmer_tpu_torch.preprocess.extract import VideoFeatureExtractor
 from mmer_tpu_torch.utils import profiling
 
+from torch_threads import few_threads  # noqa: F401
+
 CPU = torch.device("cpu")
 SR = 16000
 TINY_V = dict(image_size=(32, 32), patch_size=(16, 16), num_frames=8,

@@ -51,6 +51,7 @@ from mmer_tpu_torch.train import checkpoint as port_ckpt
 from mmer_tpu_torch.train import cli as port_cli
 from mmer_tpu_torch.train.keys import KeySchedule
 from tests.conftest import make_tiny_dataset
+from torch_threads import few_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")

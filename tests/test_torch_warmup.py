@@ -41,6 +41,7 @@ from mmer_tpu_torch.serve.engine import InferenceEngine
 
 from test_torch_serve import (VIVIT_KW, WAV_KW, _face_frames, _np_tree,
                               _same_response, _write_video)
+from torch_threads import few_threads  # noqa: F401
 
 _SAVED_PATH = list(sys.path)
 import scripts.bench_serving as jax_bench_serving  # noqa: E402

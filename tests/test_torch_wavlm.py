@@ -39,6 +39,8 @@ from mmer_tpu_torch.models.wav2vec2_quant import (quant_w2v2_apply, quant_w2v2_e
                                                   quantize_w2v2_params)
 from mmer_tpu_torch.utils import profiling
 
+from torch_threads import few_threads  # noqa: F401
+
 TINY = dict(hidden_dim=64, num_layers=2, num_heads=4, ffn_dim=128,
             conv_dims=[32] * 7, num_conv_pos_embeddings=16,
             num_conv_pos_embedding_groups=4, chunk_duration_s=1.0,
