@@ -85,9 +85,11 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    ``TOLERANCES["plain_attention"]``, the same bits twice and on the fused
    projection's column slices; its time (CUDA events and the launch's
    device time), the plain version's and ``scaled_dot_product_attention``'s
-   (timed only), beside the bound.  Every later phase counts its launches:
-   one a layer of a Wav2Vec2 forward on the kernel route without flash
-   attention.
+   (timed only), beside the bound; at the two extraction shapes also with
+   WavLM's gated relative position bias (the kernel's gated instance
+   against the torch route's (H, T, T) table, and its time beside the
+   ungated kernel's).  Every later phase counts its launches: one a layer of
+   a Wav2Vec2 forward on the kernel route without flash attention.
 4. main path: ``InferenceEngine`` at the full default configs with the JAX
    package's seeded weights serves three requests (``predict_chunks`` on a
    3-chunk clip with 3.2 s of audio and on a 1-chunk clip with 12 s of
@@ -1138,8 +1140,9 @@ def check_pos_conv(dev) -> dict:
 
 
 # Plain attention's shapes: the positional conv's, the Wav2Vec2 layers' of
-# the same forwards.
+# the same forwards; WavLM's gated bias at the two extraction shapes.
 PLAIN_ATTENTION_SHAPES = POS_CONV_SHAPES
+GATED_ATTENTION_SHAPES = ((64, 249), (64, 499))
 
 
 def check_plain_attention(dev) -> dict:
@@ -1147,13 +1150,16 @@ def check_plain_attention(dev) -> dict:
     torch route) at PLAIN_ATTENTION_SHAPES, on q, k, v laid out as the
     separate projections and as the fused one's column slices, timed beside
     its bound, the plain version and ``scaled_dot_product_attention`` (timed
-    only); the phase's launches."""
+    only); at GATED_ATTENTION_SHAPES also with a gated relative position bias
+    (keys ``gated_*``: against the plain version with the (H, T, T) table,
+    timed beside the ungated launch and its bound); the phase's launches."""
     import torch
     import torch.nn.functional as F
 
     from mmer_tpu_torch.config import Wav2Vec2Config
     from mmer_tpu_torch.ops.plain_attention import (plain_attention,
-                                                    plain_attention_reference)
+                                                    plain_attention_reference,
+                                                    table_form)
     from mmer_tpu_torch.scripts.timing import kernel_device_ms, tensor_bytes
 
     cfg = Wav2Vec2Config()
@@ -1204,6 +1210,34 @@ def check_plain_attention(dev) -> dict:
             f"{r['plain_ms' + tag]:.4f} ms, scaled_dot_product_attention "
             f"{r['library_ms' + tag]:.4f} ms, bound {r['bound_ms' + tag]:.4f} ms "
             f"by {r['bound_by' + tag]} ({shape})")
+        if (rows, frames) in GATED_ATTENTION_SHAPES:
+            # WavLM's term: gates in [1, 3), a unit-normal relative vector.
+            gated = (1 + 2 * torch.rand(rows, h, frames, generator=g, device=dev),
+                     torch.randn(h, 2 * frames - 1, generator=g, device=dev))
+            gtag = f"_gated_{rows}x{frames}"
+            with torch.inference_mode():
+                got = plain_attention(*args, gated)
+                want = plain_attention_reference(*args, table_form(gated))
+                torch.cuda.synchronize()
+                r2 = _compare("plain_attention", got, want)
+                _same_bits("plain_attention (gated)", got, plain_attention(*args, gated))
+                _same_bits("plain_attention (gated, fused q, k, v slices)", got,
+                           plain_attention(*fused, mask, h, gated))
+                r.update({f"max_abs_err{gtag}": r2["max_abs_err"],
+                          f"mean_abs_err{gtag}": r2["mean_abs_err"],
+                          f"ms{gtag}": cuda_ms(lambda: plain_attention(*args, gated), 20),
+                          f"device_ms{gtag}": kernel_device_ms(
+                              lambda: plain_attention(*args, gated), "plain_attention", 10,
+                              1)[0],
+                          f"plain_ms{gtag}": cuda_ms(
+                              lambda: plain_attention_reference(*args, table_form(gated)), 3)})
+            r.update(bound(4.0 * rows * h * frames * frames * (d // h),
+                           tensor_bytes(q, k, v, got, *gated) + tensor_bytes(mask), gtag))
+            log(f"time plain_attention (gated): kernel {r['ms' + gtag]:.4f} ms "
+                f"({r['device_ms' + gtag]:.4f} ms device time; ungated "
+                f"{r['device_ms' + tag]:.4f}), plain {r['plain_ms' + gtag]:.4f} ms, bound "
+                f"{r['bound_ms' + gtag]:.4f} ms by {r['bound_by' + gtag]} ({shape})")
+            del gated
         del qkv, fused, q, k, v, mask, got, want
     log(f"plain_attention: {plain_attention.launches - n0} launches in the phase")
     return {"plain_attention": r}

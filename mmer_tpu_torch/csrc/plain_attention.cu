@@ -1,10 +1,14 @@
-// Wav2Vec2's plain attention, the arithmetic of EncoderLayer._attention's
-// plain route (models/wav2vec2.py), in one launch a layer.  Over q, k, v
-// (B, T, H * 64) bf16 as the projections leave them (row stride ``ld``, so
-// the fused projection's column slices are read in place) and a (B, T) pad
-// mask (bytes, nonzero on padded frames; or none), for each row b, head h
-// and query frame i:
+// Wav2Vec2's and WavLM's plain attention, the arithmetic of
+// EncoderLayer._attention's plain route (models/wav2vec2.py), in one launch a
+// layer.  Over q, k, v (B, T, H * 64) bf16 as the projections leave them (row
+// stride ``ld``, so the fused projection's column slices are read in place), a
+// (B, T) pad mask (bytes, nonzero on padded frames; or none) and, for WavLM,
+// the gated relative position bias (the gate g (B, H, T) f32 and the relative
+// vector r (H, 2T - 1) f32, r[h, d + T - 1] = E[bucket(d), h]), for each row
+// b, head h and query frame i:
 //   s_j = (q_i . k_j in f32) / 8                     (exact: a power of two)
+//   s_j = s_j + g[b, h, i] * r[h, j - i + T - 1]      (WavLM: the product
+//                                                     rounded, then the sum)
 //   s_j = s_j + (-1e9) in f32 on padded keys j
 //   m = max_j s_j,  l = sum_j exp(s_j - m)           (f32, the whole row)
 //   P_j = bf16(exp(s_j - m) / l)
@@ -18,15 +22,16 @@
 // (mmer_tpu/models/wav2vec2.py:304).  The torch ops it replaces materialise
 // the f32 score tensor, (64, 16, 499, 499) = 1.02 GB a layer at the long
 // extraction shape, and pass over it about ten times (the f32 GEMM, the
-// scale, the mask add, the softmax, the bf16 cast and back, the P.V read).
-// Here the scores never leave registers.
+// scale, the gated bias's addcmul_, the mask add, the softmax, the bf16 cast
+// and back, the P.V read).  Here the scores never leave registers.
 //
 // What bounds it on the H100: 4 T^2 64 operations a (row, head), 65.3 GFLOP
 // a layer at 64 x 499 (0.066 ms at the bf16 peak) against 262 MB of q, k, v
-// and o (0.078 ms at 3.35 TB/s): the two bounds lie close once the scores
-// stay on chip (the torch ops took 6.4 ms a layer there).  The exact
-// softmax, normalised before P is rounded, needs the row's max and sum
-// before any P exists, hence two passes over the row's key tiles:
+// and o (0.078 ms at 3.35 TB/s; WavLM's gate adds 2 MB and r 64 KB): the two
+// bounds lie close once the scores stay on chip (the torch ops took 6.4 ms a
+// layer there).  The exact softmax, normalised before P is rounded, needs the
+// row's max and sum before any P exists, hence two passes over the row's key
+// tiles:
 //   - pass 1 multiplies S = Q.K^T tile by tile and keeps a running max and
 //     sum (the sum rescaled by exp(m_old - m_new) when the max grows): the
 //     whole row's m and l in f32;
@@ -42,8 +47,7 @@
 // ring in the 128-byte swizzle, the score accumulator is the softmax's
 // working set (row max and sum by shuffles among the four lanes of a row),
 // P is packed to bf16 in registers as the A operand of O += P.V, and the
-// scores of tile t + 1 are multiplied while tile t's softmax runs.  Three
-// blocks an SM.
+// scores of tile t + 1 are multiplied while tile t's softmax runs.
 // The mask: a block first reads its row's T mask bytes once and marks each
 // key tile as holding a valid key, a padded key, or both.  Tiles whose keys
 // are all padded are not visited when the row has a valid key (their
@@ -54,6 +58,23 @@
 // exponent, 2^((a - m) 0.125 log2 e), and the -1e9 on a score is -8e9 on
 // its raw product: scaling by a power of two rounds nothing, so the f32 sum
 // s + (-1e9) is the plain route's bit for bit.
+// The gated bias (plain_attention_kernel<true>): the table g r[j - i] depends
+// on j - i alone, so no (H, T, T) table is read.  A block copies into shared
+// memory the window of its head's r that its 64 queries reach, d from
+// -(q0 + 63) to T - 1 - q0 (ntile 64 + 64 floats, 2.3 KB at T = 499; entries
+// outside r are zeros, so rows past T and keys of the ragged tile read
+// nothing out of bounds), and each lane holds 8 g of its two query rows in
+// registers (exact).  Both passes add (8 g) r to every raw score, the product
+// rounded and then the sum (8 (g r) and 8 (s + g r) exactly, the plain
+// route's addcmul_ in raw units), before the key mask: pass 2 adds the same
+// term as pass 1, so exp(s - m) uses pass 1's max.  A padded key's score
+// stays near -8e9, so the all-padded tiles are still skipped.  Both
+// instances run three blocks an SM (168 registers a thread at most; a gated
+// block's ring and window take 67 KB of shared memory at T = 499): ptxas
+// gives the ungated body 166 registers and a 16-byte spill, the gated one
+// 157 and none, so two blocks an SM would buy the gated one nothing.  On an
+// H100 the gated launch takes 0.3755 / 0.1324 ms at 64 x 499 / 64 x 249,
+// the ungated one 0.3713 / 0.1264 (chip_smoke.py phase 3d, device time).
 #include <math_constants.h>
 
 #include "common.cuh"
@@ -80,20 +101,28 @@ constexpr float KEY_BIAS_RAW = -1e9f / SCALE;         // -8e9, exact in f32
 constexpr int TILE_VALID = 1, TILE_PADDED = 2;
 constexpr int EDGE = 1 << 30;
 
-size_t smem_bytes(int ntile) {
+// Floats of a gated block's window of r: every (query, key) of its 64 rows
+// and ntile key tiles.
+__host__ __device__ constexpr int window_len(int ntile) { return ntile * BK + BQ; }
+
+size_t smem_bytes(int ntile, bool gated) {
   return 1024                                    // alignment slack
          + size_t(RING_BYTES)                    // K, V ring
-         + 2 * size_t(ntile) * sizeof(int);      // marks and the visit list
+         + 2 * size_t(ntile) * sizeof(int)       // marks and the visit list
+         + (gated ? size_t(window_len(ntile)) * sizeof(float) : 0);   // r's window
 }
 
 using mmer::fast_exp2;
 
 // grid (ceil(T / 64), B * heads).  q, k, v: (B, T, heads * 64) bf16 of row
-// stride ld; mask: (B, T) bytes or null; o: (B, T, heads * 64) bf16,
-// contiguous.
+// stride ld; mask: (B, T) bytes or null; GATED: gate (B, heads, T) f32 and
+// rel (heads, 2 T - 1) f32, contiguous (unread otherwise); o: (B, T, heads *
+// 64) bf16, contiguous.
+template <bool GATED>
 __global__ void __launch_bounds__(NTHREAD, MIN_BLOCKS)
 plain_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const unsigned char* __restrict__ mask,
+                       const float* __restrict__ gate, const float* __restrict__ rel,
                        bf16* __restrict__ o, int heads, int t_len, int ld) {
   extern __shared__ unsigned char smem_raw[];
   __shared__ int n_visit;
@@ -102,6 +131,7 @@ plain_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int ntile = (t_len + BK - 1) / BK;
   int* marks = reinterpret_cast<int*>(smem_raw + (ring - raw) + RING_BYTES);
   int* visit = marks + ntile;
+  float* window = reinterpret_cast<float*>(visit + ntile);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int quad = lane & 3;
@@ -111,6 +141,8 @@ plain_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + head0;
   const bf16* vb = v + head0;
   const unsigned char* mrow = mask ? mask + size_t(b) * t_len : nullptr;
+  const int q0 = blockIdx.x * BQ;
+  const int row0 = q0 + warp * 16 + (lane >> 2), row1 = row0 + 8;
 
   // The row's key tiles: marks from the mask, a warp 32 keys at a time.
   for (int i = tid; i < ntile; i += NTHREAD) marks[i] = 0;
@@ -123,6 +155,21 @@ plain_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const unsigned any_valid = __ballot_sync(0xffffffffu, exists && !padded);
     if (lane == 0)
       atomicOr(&marks[key0 / BK], (any_valid ? TILE_VALID : 0) | (any_padded ? TILE_PADDED : 0));
+  }
+  // The gate of this lane's two rows in raw units (8 g, exact), and the
+  // window of the head's r: window[x] = r[h, x + T - 64 - q0], zero outside
+  // r, so that key j of local row i reads window[j + 63 - i].
+  float g_raw[2] = {0.f, 0.f};
+  if constexpr (GATED) {
+    const float* g_row = gate + (size_t(b) * heads + h) * t_len;
+    g_raw[0] = row0 < t_len ? g_row[row0] * (1.0f / SCALE) : 0.f;
+    g_raw[1] = row1 < t_len ? g_row[row1] * (1.0f / SCALE) : 0.f;
+    const int n_rel = 2 * t_len - 1, w0 = t_len - BQ - q0;
+    const float* r_head = rel + size_t(h) * n_rel;
+    for (int x = tid; x < window_len(ntile); x += NTHREAD) {
+      const int d = w0 + x;
+      window[x] = d >= 0 && d < n_rel ? r_head[d] : 0.f;
+    }
   }
   __syncthreads();
   if (tid == 0) {
@@ -157,8 +204,6 @@ plain_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // Q as the A operand of every score product: this lane's fragment of the
   // block's 64 rows, rows past T as zeros.
-  const int q0 = blockIdx.x * BQ;
-  const int row0 = q0 + warp * 16 + (lane >> 2), row1 = row0 + 8;
   uint32_t qf[4][4];
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
@@ -213,8 +258,20 @@ plain_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (j + 1 < nstep) start_scores(j + 1, snext);
 
     const int tile = tile_of(j);
+    const int k0 = (tile & ~EDGE) * BK;
+    if constexpr (GATED) {
+      // The same term in both passes: (8 g) r, the product rounded, then
+      // the sum.  Element i's key is k0 + 8 (i >> 2) + 2 quad + (i & 1);
+      // row1's window lies 8 floats before row0's.
+      const float* w = window + k0 + 2 * quad + (BQ - 1) - (row0 - q0);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        const float rv = w[8 * (i >> 2) + (i & 1) - 8 * r];
+        sacc[i] = __fadd_rn(sacc[i], __fmul_rn(g_raw[r], rv));
+      }
+    }
     if (tile & EDGE) {
-      const int k0 = (tile & ~EDGE) * BK;
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int key = k0 + 8 * (i >> 2) + 2 * quad + (i & 1);
@@ -295,26 +352,36 @@ plain_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <bool GATED>
+int launch(const void* q, const void* k, const void* v, const void* mask, const void* gate,
+           const void* rel, void* o, int b, int heads, int t_len, int ld, void* stream) {
+  const int ntile = (t_len + BK - 1) / BK;
+  const size_t smem = smem_bytes(ntile, GATED);
+  cudaError_t err = cudaFuncSetAttribute(plain_attention_kernel<GATED>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  dim3 grid(ntile, b * heads);
+  plain_attention_kernel<GATED><<<grid, NTHREAD, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const unsigned char*>(mask), static_cast<const float*>(gate),
+      static_cast<const float*>(rel), static_cast<bf16*>(o), heads, t_len, ld);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 // q, k, v: (b, t_len, heads * 64) bf16 sharing the row stride ld (elements,
 // a multiple of 8; batch stride t_len * ld), 16-byte aligned; mask: (b,
-// t_len) bytes, nonzero on padded frames, or null; o: contiguous (b, t_len,
-// heads * 64) bf16.
+// t_len) bytes, nonzero on padded frames, or null; gate (b, heads, t_len) f32
+// and rel (heads, 2 t_len - 1) f32, contiguous, both given (WavLM's gated
+// bias) or both null; o: contiguous (b, t_len, heads * 64) bf16.
 MMER_EXPORT int mmer_plain_attention(const void* q, const void* k, const void* v,
-                                     const void* mask, void* o, int b, int heads, int t_len,
-                                     int ld, void* stream) {
+                                     const void* mask, const void* gate, const void* rel,
+                                     void* o, int b, int heads, int t_len, int ld,
+                                     void* stream) {
   if (b <= 0 || heads <= 0 || t_len <= 0 || ld < heads * HD || ld % 8 != 0 ||
-      size_t(b) * heads > 65535u)
+      size_t(b) * heads > 65535u || (gate == nullptr) != (rel == nullptr))
     return int(cudaErrorInvalidValue);
-  const int ntile = (t_len + BK - 1) / BK;
-  const size_t smem = smem_bytes(ntile);
-  cudaError_t err = cudaFuncSetAttribute(plain_attention_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  dim3 grid(ntile, b * heads);
-  plain_attention_kernel<<<grid, NTHREAD, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const unsigned char*>(mask), static_cast<bf16*>(o), heads, t_len, ld);
-  return int(cudaGetLastError());
+  return gate ? launch<true>(q, k, v, mask, gate, rel, o, b, heads, t_len, ld, stream)
+              : launch<false>(q, k, v, mask, gate, rel, o, b, heads, t_len, ld, stream);
 }

@@ -17,8 +17,9 @@ length-masked mean pool → L2 norm → (1024,):
   bias (a fully masked row comes out uniform, not NaN), plain (f32 scores,
   the f32 softmax normalised before the probabilities are rounded) through
   :func:`~mmer_tpu_torch.ops.plain_attention.plain_attention` (one CUDA
-  kernel launch a layer on the card with ``use_kernels``; torch ops on the
-  CPU and with ``use_kernels=False``) or, with ``use_flash_attn``, through
+  kernel launch a layer on the card with ``use_kernels``, WavLM's gated
+  layers too; torch ops on the CPU and with ``use_kernels=False``) or, with
+  ``use_flash_attn``, through
   :func:`~mmer_tpu_torch.ops.flash_attention.flash_attention` with one key
   length per clip; q, k and v from three projections or, with
   ``use_fused_qkv``, one product over their weights concatenated on every
@@ -29,12 +30,14 @@ length-masked mean pool → L2 norm → (1024,):
 A :class:`~mmer_tpu_torch.config.WavLMConfig` builds WavLM on the same
 modules: no conv biases (the kernels take zeros made once at build), and a
 gated relative position bias in each layer's plain attention.  Layer 0
-holds the ``(num_buckets, H)`` embedding ``E``; once a forward the table
-``rel[h, q, k] = E[bucket(k - q), h]`` is built and every layer adds
-``g[b, h, q] · rel[h, q, k]`` to its float32 scores before the key mask,
-``g`` a gate from the query's own normed frame (:meth:`EncoderLayer.position_gate`).
-Neither kernel takes such a bias: WavLM's layers run the plain route's
-torch ops on every device, and the flash route is refused for it.
+holds the ``(num_buckets, H)`` embedding ``E``; once a forward the relative
+vector ``r[h, d + T - 1] = E[bucket(d), h]`` (d = k - q from -(T - 1) to
+T - 1) is built and every layer adds ``g[b, h, q] · r[h, k - q + T - 1]``
+to its float32 scores before the key mask, ``g`` a gate from the query's own
+normed frame (:meth:`EncoderLayer.position_gate`).  The plain-attention
+kernel adds it inside its score passes; the torch route expands ``r`` to
+the (H, T, T) table.  Flash attention takes no such bias, and its route is
+refused for WavLM.
 
 Params stay float32; GEMM operands and the FFN biases are rounded to the
 compute dtype; the residual stream stays float32.
@@ -65,7 +68,7 @@ from mmer_tpu_torch.ops.flash_attention import attention_limits, flash_attention
 from mmer_tpu_torch.ops.fused_blocks import ffn_limits, ffn_reference, fused_ffn
 from mmer_tpu_torch.ops.plain_attention import (plain_attention,
                                                 plain_attention_limits,
-                                                plain_attention_reference)
+                                                plain_attention_reference, table_form)
 from mmer_tpu_torch.ops.pos_conv import (pos_conv_limits, pos_conv_reference,
                                          pos_conv_residual)
 from mmer_tpu_torch.utils.profiling import cast, count, span
@@ -110,15 +113,15 @@ def kernel_limits(cfg: Wav2Vec2Config, use_kernels: bool = True,
                   use_flash_attn: bool = False, mega: bool = True) -> str | None:
     """The first limit of the CUDA kernels that a Wav2Vec2 config breaks on
     the routes named (with ``use_kernels`` the conv encoder on route
-    ``mega``, the FFN, the positional conv and, without ``use_flash_attn``
-    and for a config without a position bias, plain attention; with
-    ``use_flash_attn`` flash attention), as a sentence naming it; None if it
-    breaks none.  The plain path takes any config."""
+    ``mega``, the FFN, the positional conv and, without ``use_flash_attn``,
+    plain attention, WavLM's gated layers too; with ``use_flash_attn`` flash
+    attention), as a sentence naming it; None if it breaks none.  The plain
+    path takes any config."""
     limits = []
     if use_kernels:
         limits += [conv_pyramid.kernel_limits(cfg, mega),
                    ffn_limits(cfg.hidden_dim, cfg.ffn_dim), pos_conv_limits(cfg)]
-        if not use_flash_attn and not position_bias_limit(cfg):
+        if not use_flash_attn:
             limits.append(plain_attention_limits(cfg))
     if use_flash_attn:
         limits += [position_bias_limit(cfg), compute_dtype_limit(cfg),
@@ -231,19 +234,20 @@ class EncoderLayer(nn.Module):
                                                    device=device)
 
     def position_bias(self, t: int, device: torch.device) -> torch.Tensor:
-        """Layer 0's ungated table (H, t, t) float32 for ``t`` frames:
-        ``rel[h, q, k] = E[bucket(k - q), h]``.  Counts its bytes under
-        ``wavlm.bias_bytes``."""
-        pos = torch.arange(t, device=device)
-        buckets = relative_position_bucket(pos[None, :] - pos[:, None],
+        """Layer 0's ungated relative vector (H, 2t - 1) float32 for ``t``
+        frames: ``r[h, d + t - 1] = E[bucket(d), h]`` for d = k - q from
+        -(t - 1) to t - 1, the values of the (H, t, t) table ``rel[h, q, k]
+        = E[bucket(k - q), h]`` (``ops.plain_attention.relative_table``
+        expands it).  Counts its bytes under ``wavlm.bias_bytes``."""
+        buckets = relative_position_bucket(torch.arange(1 - t, t, device=device),
                                            self.cfg.num_buckets,
                                            self.cfg.max_bucket_distance)
-        rel = self.rel_attn_embed.weight.t()[:, buckets]
+        rel = self.rel_attn_embed.weight.t()[:, buckets].contiguous()
         count("wavlm.bias_bytes", rel.numel() * rel.element_size())
         return rel
 
     def position_gate(self, y: torch.Tensor) -> torch.Tensor:
-        """The gate (B, H, T, 1) float32 of the layer's position bias from
+        """The gate (B, H, T) float32 of the layer's position bias from
         its normed stream ``y`` (B, T, d) float32: each head's slice through
         ``gru_rel_pos_linear``, its 8 outputs summed in two groups of four,
         ``a, c = σ(·)``, ``g = a · (c · κ_h − 1) + 2``.  Counts the gate's
@@ -255,7 +259,7 @@ class EncoderLayer(nn.Module):
         a, c = torch.sigmoid(p.reshape(b, t, h, 2, 4).sum(-1)).unbind(-1)
         g = a * (c * self.gru_rel_pos_const - 1.0) + 2.0
         count("wavlm.bias_bytes", g.numel() * g.element_size())
-        return g.transpose(1, 2).unsqueeze(-1)
+        return g.transpose(1, 2).contiguous()
 
     def project_qkv(self, yd: torch.Tensor) -> tuple:
         """q, k, v (B, T, d) in the compute dtype from the normed stream
@@ -277,13 +281,14 @@ class EncoderLayer(nn.Module):
         """Attention over the projected heads (:meth:`project_qkv`).  Plain,
         as the JAX ``_xla_attention``: f32 scores, −1e9 on padded keys, f32
         softmax, probabilities rounded to the compute dtype, f32 sums of
-        ``P·v``; with ``use_kernels`` and no ``gated`` term through
+        ``P·v``; with ``use_kernels`` through
         :func:`~mmer_tpu_torch.ops.plain_attention.plain_attention` (one
         CUDA kernel on the card, whose output is rounded to the compute
         dtype, as ``dense`` rounds it next), else the same arithmetic in
-        torch ops (f32 output).  ``gated`` = (gate (B, H, T, 1), table (H, T,
-        T)) adds their product to the scores in place, before the key mask
-        (WavLM; torch ops on every device).  With ``use_flash_attn``: q, k, v
+        torch ops (f32 output).  ``gated`` = (gate (B, H, T), relative
+        vector (H, 2T - 1)) adds ``g · r`` to the scores before the key mask
+        (WavLM): inside the kernel's score passes, or in place from the (H,
+        T, T) table on the torch route.  With ``use_flash_attn``: q, k, v
         go to ``flash_attention`` in the compute dtype with one key length
         per clip (frame pads are a suffix, so a count is a complete mask) and
         the output comes back in that dtype."""
@@ -295,16 +300,16 @@ class EncoderLayer(nn.Module):
             key_lens = None if pad_mask is None else (~pad_mask).sum(1)
             out = flash_attention(q, k, v, key_lens=key_lens)
             return out.transpose(1, 2).reshape(b, t, d)
-        if self.use_kernels and gated is None:
-            return plain_attention(*self.project_qkv(yd), pad_mask, h)
+        if self.use_kernels:
+            return plain_attention(*self.project_qkv(yd), pad_mask, h, gated)
         q, k, v = (y.float() for y in self.project_qkv(yd))
-        return plain_attention_reference(q, k, v, pad_mask, h, gated,
+        return plain_attention_reference(q, k, v, pad_mask, h, table_form(gated),
                                          p_dtype=torch_dtype(self.cfg))
 
     def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None,
                 rel: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``rel``: layer 0's table (:meth:`position_bias`) for a WavLM
-        layer, which gates it with its own :meth:`position_gate`."""
+        """``rel``: layer 0's relative vector (:meth:`position_bias`) for a
+        WavLM layer, which gates it with its own :meth:`position_gate`."""
         dt = torch_dtype(self.cfg)
         y = self.norm_attn(x)
         gated = None if rel is None else (self.position_gate(y), rel)
@@ -375,9 +380,9 @@ class Wav2Vec2Encoder(nn.Module):
         return self.final_norm(x)
 
     def position_bias(self, t: int, device: torch.device) -> Optional[torch.Tensor]:
-        """The table (H, t, t) every layer gates, built once a forward
-        inside the span ``mmer.wavlm.rel_bias``; None without a position
-        bias (Wav2Vec2)."""
+        """The relative vector (H, 2t - 1) every layer gates, built once a
+        forward inside the span ``mmer.wavlm.rel_bias``; None without a
+        position bias (Wav2Vec2)."""
         if not isinstance(self.cfg, WavLMConfig):
             return None
         with span("mmer.wavlm.rel_bias"):
@@ -459,7 +464,7 @@ class AudioEmbedder:
     By default attention stays plain (``use_flash_attn=False``) and the conv
     encoder on its ``mega`` route, as in the JAX ``AudioEmbedder``; with
     ``use_kernels`` on the card the plain route's arithmetic is one kernel a
-    layer (WavLM's gated layers keep its torch ops).  Which attention route
+    layer, WavLM's gated layers too.  Which attention route
     is faster on the card is recorded in PERF.md, not decided here.
     ``use_flash_attn=True, mega=False`` builds the all-kernel encoder
     (varlen flash attention, per-layer conv route).  ``use_fused_qkv``

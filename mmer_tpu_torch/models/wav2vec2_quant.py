@@ -13,9 +13,10 @@ LayerNorms (eps 1e-6,
 products and softmax with the finite −1e9 key bias, as JAX's ``einsum``\\ s:
 no kernel computes it there either (TF32 stays off on the card, PyTorch's
 default for matmuls).  A WavLM encoder's gated relative position bias is
-kept: layer 0's table once a forward and each layer's gate from its float32
-normed stream, added to the float32 scores before the key bias, as the
-float encoder adds them.
+kept: layer 0's relative vector once a forward, expanded to its (H, T, T)
+table, and each layer's gate from its float32 normed stream, added to the
+float32 scores before the key bias, as the float encoder's torch route adds
+them.
 
 Nothing routes here: ``AudioEmbedder``, the engine and the CLIs have no int8
 option, as in the JAX package; the forward is reached from these functions
@@ -32,6 +33,7 @@ import torch.nn.functional as F
 
 from mmer_tpu_torch.models.wav2vec2 import Wav2Vec2Encoder, pool_embeddings
 from mmer_tpu_torch.ops.conv_pyramid import conv_encoder_reference, fused_conv_encoder
+from mmer_tpu_torch.ops.plain_attention import relative_table
 from mmer_tpu_torch.ops.quant import qdot, qdot_reference, quantize_weight
 
 LN_EPS = 1e-6
@@ -104,6 +106,8 @@ def quant_w2v2_apply(qparams: dict, model: Wav2Vec2Encoder, wave: torch.Tensor,
     root = torch.tensor(math.sqrt(hd), device=x.device)
     b, s = x.shape[0], x.shape[1]
     rel = model.position_bias(s, x.device)
+    if rel is not None:
+        rel = relative_table(rel)
     for ql, layer in zip(qparams["layers"], model.layers):
         y = _layernorm(x, layer.norm_attn)
         qkv = dot(y, ql["qkv_q"], ql["qkv_s"], ql["qkv_b"])
@@ -111,7 +115,7 @@ def quant_w2v2_apply(qparams: dict, model: Wav2Vec2Encoder, wave: torch.Tensor,
                       for t in qkv.split(d, dim=-1))
         scores = torch.matmul(qv, kv.transpose(-1, -2)) / root
         if rel is not None:
-            scores.addcmul_(layer.position_gate(y), rel)
+            scores.addcmul_(layer.position_gate(y).unsqueeze(-1), rel)
         if mask_bias is not None:
             scores = scores + mask_bias
         attn = torch.matmul(torch.softmax(scores, dim=-1), vv)

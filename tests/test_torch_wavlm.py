@@ -1,5 +1,6 @@
 """WavLM on the port's audio path, at tiny widths on the CPU: its bucket of
-a relative position, the port's ``AudioEmbedder.embed_batch`` against the
+a relative position, the relative vector's (H, T, T) table against the table
+built from every (q, k) pair, the port's ``AudioEmbedder.embed_batch`` against the
 plain reference ``benchmark/reference/wavlm.py`` in float32 and in bf16,
 three faults of the gated position bias that those tolerances fail, the
 flash route's refusal, the span and counter, and the int8 encoder's copy
@@ -12,8 +13,10 @@ full-precision port on a card, and plant the three faults in the cell
 The faults, each a hook ``hook(program, state)`` for ``benchmark.cell.run``
 planted in the port's encoder after the benchmark builds it:
 ``bias_dropped`` (no position bias in any layer), ``gate_one`` (every
-layer's gate fixed at 1, the table added ungated) and ``reversed`` (the
-table of ``q - k`` where the model takes ``k - q``).
+layer's gate fixed at 1, the bias added ungated) and ``reversed`` (the
+relative vector flipped, so that every layer reads the bias of ``q - k``
+where the model takes ``k - q``: the table transposed).  On the card each
+fault reaches the plain-attention kernel, which takes the gated term.
 
 The tiny model keeps WavLM's layout (hidden 64, 4 heads, 2 layers, FFN 128)
 with 32 buckets up to 40 frames, so that ~50 frames reach every kind of
@@ -33,10 +36,12 @@ from benchmark import cell as cells, spec, weights
 from benchmark.reference import wavlm as ref_wavlm
 from benchmark.run import result_line
 from mmer_tpu_torch.config import Wav2Vec2Config, WavLMConfig
-from mmer_tpu_torch.models.wav2vec2 import (AudioEmbedder, Wav2Vec2Encoder, init_wav2vec2,
-                                            kernel_limits, relative_position_bucket)
+from mmer_tpu_torch.models.wav2vec2 import (AudioEmbedder, EncoderLayer, Wav2Vec2Encoder,
+                                            init_wav2vec2, kernel_limits,
+                                            relative_position_bucket)
 from mmer_tpu_torch.models.wav2vec2_quant import (quant_w2v2_apply, quant_w2v2_embed,
                                                   quantize_w2v2_params)
+from mmer_tpu_torch.ops.plain_attention import relative_table
 from mmer_tpu_torch.utils import profiling
 
 from torch_threads import few_threads  # noqa: F401
@@ -73,8 +78,8 @@ def gate_one(program, state) -> None:
 
 def reversed_direction(program, state) -> None:
     enc = program.target.model
-    table = enc.position_bias
-    enc.position_bias = lambda t, device: table(t, device).transpose(-1, -2)
+    vector = enc.position_bias
+    enc.position_bias = lambda t, device: vector(t, device).flip(-1)
 
 
 FAULTS = {"bias_dropped": bias_dropped, "gate_one": gate_one,
@@ -109,6 +114,26 @@ def tiny_embedder() -> AudioEmbedder:
 def test_bucket_of_a_relative_position(rel, want):
     assert relative_position_bucket(torch.tensor([rel]), 320, 800).item() == want
     assert ref_wavlm.bucket(torch.tensor([rel]), 320, 800).item() == want
+
+
+@pytest.mark.parametrize("t", [1, 499, 1000])
+def test_the_vector_expands_to_the_table_of_every_pair(t):
+    """Layer 0's relative vector (H, 2T - 1), expanded, is the (H, T, T)
+    table ``E[bucket(k - q), h]`` built from every (q, k) pair, bit for bit;
+    at 1,000 frames distances past 800 share the capped buckets.  The
+    ``reversed`` fault's flipped vector is that table transposed."""
+    cfg = WavLMConfig(hidden_dim=64, num_heads=4, ffn_dim=128)
+    layer = EncoderLayer(cfg, device="cpu", rel_embed=True)
+    pos = torch.arange(t)
+    buckets = relative_position_bucket(pos[None, :] - pos[:, None], 320, 800)
+    table = layer.rel_attn_embed.weight.t()[:, buckets]
+    with torch.inference_mode():
+        rel = layer.position_bias(t, torch.device("cpu"))
+    assert rel.shape == (4, 2 * t - 1) and rel.is_contiguous()
+    assert torch.equal(relative_table(rel), table)
+    assert torch.equal(relative_table(rel.flip(-1)), table.transpose(-1, -2))
+    if t == 1000:
+        assert int(buckets.max()) == 319 and int(buckets[0, 801:].min()) == 319
 
 
 def test_buckets_at_499_frames():
@@ -176,8 +201,8 @@ def test_default_init_shares_wav2vec2_draws():
 
 def test_span_and_counter(monkeypatch):
     """One call traced: the span once a forward, and ``wavlm.bias_bytes`` =
-    the (H, T, T) table once plus each layer's (B, H, T) gate, float32; the
-    benchmark's reader divides it by the audio seconds."""
+    the (H, 2T - 1) relative vector once plus each layer's (B, H, T) gate,
+    float32; the benchmark's reader divides it by the audio seconds."""
     totals: dict = {}
     monkeypatch.setattr(profiling, "counters", totals)
     c = tiny_cell("float32")
@@ -187,7 +212,7 @@ def test_span_and_counter(monkeypatch):
     assert len(forwards) == 1 and forwards[0]["rows"] == 4
     h, t, b = m["num_heads"], forwards[0]["frames"], forwards[0]["rows"]
     assert t == 49
-    want = 4 * (h * t * t + m["num_layers"] * b * h * t)
+    want = 4 * (h * (2 * t - 1) + m["num_layers"] * b * h * t)
     assert totals["wavlm.bias_bytes"] == want
     assert totals["mmer.wavlm.rel_bias"] > 0
     assert run.metrics["bias_mb.wavlm"] == pytest.approx(1e-6 * want / run.trace.useful)
